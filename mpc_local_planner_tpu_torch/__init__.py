@@ -1,0 +1,27 @@
+"""PyTorch / CUDA port of ``mpc_local_planner_tpu`` for one NVIDIA H100.
+
+The module paths mirror the JAX package's. This slice ports the flagship warm
+fleet cycle on the un-fused path: ``make_solver``, ``make_fleet_cycle``,
+``make_rescue`` and ``random_ensemble`` run on CUDA unless the caller passes
+``device="cpu"``. The KKT solve of every SQP iteration is the hand-written
+CUDA kernel K1 (``ops/riccati_cuda.py``).
+"""
+
+from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, random_ensemble
+from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
+from mpc_local_planner_tpu_torch.solvers.al_sqp import (
+    SolverSettings,
+    default_init,
+    make_solver,
+)
+from mpc_local_planner_tpu_torch.solvers.rescue import make_rescue
+
+__all__ = [
+    "SolverSettings",
+    "config3_carlike_min_time",
+    "default_init",
+    "make_fleet_cycle",
+    "make_rescue",
+    "make_solver",
+    "random_ensemble",
+]

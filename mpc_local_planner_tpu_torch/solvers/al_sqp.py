@@ -1,0 +1,661 @@
+"""Augmented-Lagrangian Gauss-Newton SQP — the batched solver (port of
+``mpc_local_planner_tpu.solvers.al_sqp``, un-fused path).
+
+outer (AL)  : PHR multiplier / penalty updates on every constraint
+middle (SQP): per iteration — exact AD stage gradients and Gauss-Newton
+              surrogate Hessians of the AL merit (``torch.func`` under
+              ``vmap`` over the lane and stage axes), linearized collocation
+              defects, the Riccati KKT solve (kernel K1 on CUDA), a
+              parallel-candidate line search on the AL merit, Levenberg
+              regularization adapted on rejection.
+
+Every tensor carries one leading lane (scenario) axis where the JAX package
+``vmap``s ``solve_single``; lanes converge or fail independently, tracked
+with masks. Ties of the PHR hinges go through ``torch.maximum``, whose
+gradient splits 0.5/0.5 like ``jnp.maximum`` (``clamp`` and ``relu`` do not:
+the Hessian of an exactly active hinge would come out ρ instead of ρ/4).
+The whole-solve fused kernel (ROADMAP K2) is not ported yet, so
+``SolverSettings.fused`` has no effect here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch.func import grad, hessian, jacfwd, vmap
+
+from mpc_local_planner_tpu_torch.core.so2 import se2_boxminus, se2_boxplus
+from mpc_local_planner_tpu_torch.core.tree import tree_map, where_tree
+from mpc_local_planner_tpu_torch.device import const, pin_matmul_precision, resolve_device
+from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE, ObstacleSet
+from mpc_local_planner_tpu_torch.ocp import constraints as C
+from mpc_local_planner_tpu_torch.ocp.collocation import stage_defect
+from mpc_local_planner_tpu_torch.ocp.grid import Primal, initial_primal
+from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions, make_ocp_functions
+from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec
+from mpc_local_planner_tpu_torch.ops.riccati_cuda import lqr_solve_auto
+from mpc_local_planner_tpu_torch.ops.smallmat import inv3
+from mpc_local_planner_tpu_torch.solvers.riccati import (
+    build_augmented_transition,
+    lqr_solve,
+)
+
+
+# --------------------------------------------------------------------------- #
+# settings / state containers
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class SolverSettings:
+    """Static solver configuration; same fields and defaults as the JAX one.
+
+    kkt: "auto" (or "pallas") = kernel K1 for CUDA tensors, the plain
+    ``lqr_solve`` for CPU tensors; "scan" = the plain ``lqr_solve`` on any
+    device. fused: accepted for parity; the fused kernel is not ported yet.
+    """
+
+    n_al: int = 5
+    n_sqp: int = 8
+    rho0: float = 10.0
+    rho_growth: float = 5.0
+    rho_max: float = 1.0e6
+    reg0: float = 1.0e-6
+    reg_shrink: float = 0.5
+    reg_grow: float = 100.0
+    reg_min: float = 1.0e-9
+    reg_max: float = 1.0e8
+    alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1, 0.03)
+    dt_trust_frac: float = 0.3
+    dt_prox: float = 1.0
+    viol_decrease_req: float = 0.25
+    tol_eq: float = 1.0e-4
+    tol_ineq: float = 1.0e-4
+    horizon_parallel: bool = False
+    kkt: str = "auto"
+    fused: str = "auto"
+    early_exit: bool = False
+
+    @staticmethod
+    def for_spec(spec, **overrides) -> "SolverSettings":
+        """Problem-family presets (cold start)."""
+        if spec.min_time:
+            base = dict(n_al=16, n_sqp=15, rho0=100.0, rho_growth=10.0)
+        else:
+            base = dict(n_al=8, n_sqp=10)
+        base.update(overrides)
+        return SolverSettings(**base)
+
+
+def _check_settings(settings: SolverSettings):
+    if settings.early_exit:
+        raise NotImplementedError("early_exit is not ported yet (ROADMAP M10)")
+    if settings.horizon_parallel or settings.kkt == "pscan":
+        raise NotImplementedError("the pscan KKT solve is not ported yet (ROADMAP M11)")
+    if settings.kkt not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown kkt backend {settings.kkt!r}")
+    if settings.fused not in ("auto", "off"):
+        raise ValueError(f"unknown fused mode {settings.fused!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DualState:
+    """AL multipliers + penalty, with the lane axis in front."""
+
+    lam_def: torch.Tensor   # (..., N, 3) collocation defect multipliers
+    lam_term: torch.Tensor  # (..., 3) xf_fixed equality multipliers
+    mu_obs: torch.Tensor    # (..., N, M) obstacle multipliers (stages 1..N)
+    mu_rate: torch.Tensor   # (..., N, 2*nu)
+    mu_box: torch.Tensor    # (..., N, 2*nu)
+    mu_dt: torch.Tensor     # (..., 2)
+    mu_ball: torch.Tensor   # (..., 1)
+    rho: torch.Tensor       # (...,) penalty parameter
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    primal: Primal
+    duals: DualState
+    cost: torch.Tensor       # objective (no AL terms)
+    eq_norm: torch.Tensor    # max |equality residual|
+    ineq_viol: torch.Tensor  # max(0, max g)
+    converged: torch.Tensor  # bool per scenario
+
+
+def shift_duals(duals: DualState, settings: SolverSettings, steps: int = 1) -> DualState:
+    """Shift stage-indexed multipliers with the warm-started grid; ρ restarts
+    at rho0."""
+    if not isinstance(steps, int):
+        raise NotImplementedError(
+            "per-lane (tensor) dual shifts are not ported yet (ROADMAP M10)"
+        )
+
+    def roll(a):
+        n = a.shape[-2]
+        src = torch.clamp(torch.arange(n, device=a.device) + steps, max=n - 1)
+        return a[..., src, :]
+
+    return DualState(
+        lam_def=roll(duals.lam_def),
+        lam_term=duals.lam_term,
+        mu_obs=roll(duals.mu_obs),
+        mu_rate=roll(duals.mu_rate),
+        mu_box=roll(duals.mu_box),
+        mu_dt=duals.mu_dt,
+        mu_ball=duals.mu_ball,
+        rho=torch.full_like(duals.rho, settings.rho0),
+    )
+
+
+def init_duals(
+    spec: OcpSpec, settings: SolverSettings, dtype=torch.float32, device="cpu",
+    batch: Tuple[int, ...] = (),
+) -> DualState:
+    N, nu, M = spec.N, spec.nu, spec.obstacle_cap
+    batch = tuple(batch)
+
+    def z(*s):
+        return torch.zeros(batch + s, dtype=dtype, device=device)
+
+    return DualState(
+        lam_def=z(N, 3), lam_term=z(3), mu_obs=z(N, M), mu_rate=z(N, 2 * nu),
+        mu_box=z(N, 2 * nu), mu_dt=z(2), mu_ball=z(1),
+        rho=torch.full(batch, settings.rho0, dtype=dtype, device=device),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# AL penalty pieces (sums over the last axis; the rest are batch axes)
+# --------------------------------------------------------------------------- #
+def _hinge(x):
+    """max(0, x) with jnp.maximum's 0.5/0.5 subgradient at the tie."""
+    return torch.maximum(torch.zeros_like(x), x)
+
+
+def _psi(g, mu, rho):
+    """PHR inequality penalty Σ (max(0, μ + ρg)² − μ²) / (2ρ) for g ≤ 0."""
+    a = _hinge(mu + rho[..., None] * g)
+    return torch.sum(a * a - mu * mu, dim=-1) / (2.0 * rho)
+
+
+def _phi(c, lam, rho):
+    """Equality penalty λᵀc + (ρ/2)‖c‖²."""
+    return torch.sum(lam * c, dim=-1) + 0.5 * rho * torch.sum(c * c, dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# stage merit functions (one stage; vmapped over lanes × stages)
+# --------------------------------------------------------------------------- #
+class StageData(NamedTuple):
+    mu_obs: torch.Tensor   # (M,)
+    obs_on: torch.Tensor   # () 1.0 if the obstacle term is active at this stage
+    mu_rate: torch.Tensor  # (2*nu,)
+    mu_box: torch.Tensor   # (2*nu,)
+    obs: ObstacleSet       # this stage's obstacle set
+
+
+class TermData(NamedTuple):
+    xref: torch.Tensor
+    mu_obs: torch.Tensor
+    lam_term: torch.Tensor
+    mu_ball: torch.Tensor
+    mu_dt: torch.Tensor
+    obs: ObstacleSet
+
+
+def _obstacle_g(spec, x, obs):
+    return spec.min_obstacle_dist - spec.footprint.distances(x, obs)
+
+
+def _make_stage_fns(spec: OcpSpec):
+    """Stage-local functions over w = [x (3), u_prev (nu), u (nu), dt (1)].
+
+    Returns (objective, constraints_vec, merit, hess_surrogate, gn_weights),
+    as in the JAX package: the merit is the exact AL merit; the surrogate's
+    Hessian is exact for every smooth-PSD term and Gauss-Newton for the
+    obstacle block (H = ∇²objective + Jgᵀ diag(a) Jg).
+
+    Under ``torch.func`` forward mode, a 0-d tensor combined with a Python
+    float gets a float64 tangent (torch 2.13), so these functions keep such
+    arithmetic on 1-element or wider tensors (0.5·Σx is written Σ(0.5·x),
+    which is exact in binary floating point).
+    """
+    nu = spec.nu
+    M = spec.obstacle_cap
+    lo_u, hi_u = spec.control_box()
+    lo_r, hi_r = spec.control_rate_box()
+
+    def split(w):
+        return w[0:3], w[3 : 3 + nu], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu]
+
+    def objective(w, data: StageData):
+        return split(w)[3]  # minimum time: Σ_k dt = N·dt
+
+    def constraints_vec(w, data: StageData):
+        x, up, u, dt = split(w)
+        parts = []
+        if M > 0:
+            parts.append(_obstacle_g(spec, x, data.obs))
+        du = u - up
+        hi_s = torch.minimum(const(hi_r, w), const((BIG_DISTANCE,), w))
+        lo_s = torch.maximum(const(lo_r, w), const((-BIG_DISTANCE,), w))
+        parts.append(torch.cat([du - hi_s * dt, lo_s * dt - du]))
+        parts.append(torch.cat([u - const(hi_u, w), const(lo_u, w) - u]))
+        return torch.cat(parts)
+
+    def stage_mu(data: StageData):
+        mus = [data.mu_obs] if M > 0 else []
+        return torch.cat(mus + [data.mu_rate, data.mu_box])
+
+    def active_mask(data: StageData, g):
+        """Active-set weight pattern; zeroes the obstacle block at k = 0."""
+        rest = torch.ones((4 * nu,), dtype=g.dtype, device=g.device)
+        return torch.cat([data.obs_on.expand(M), rest]) if M > 0 else rest
+
+    def merit(w, data: StageData, rho):
+        g = constraints_vec(w, data)
+        mu = stage_mu(data)
+        on = active_mask(data, g)
+        a = _hinge(mu + rho * g) * on
+        return objective(w, data) + torch.sum(a * a - (mu * on) ** 2) / (2.0 * rho)
+
+    def hess_surrogate(w, data: StageData, rho, g0, aw):
+        g = constraints_vec(w, data)
+        g_rest, mu_rest = g[M:], stage_mu(data)[M:]
+        a = _hinge(mu_rest + rho * g_rest)
+        c = objective(w, data) + torch.sum(a * a - mu_rest * mu_rest) / (2.0 * rho)
+        return c + torch.sum(0.5 * aw * (g[:M] - g0[:M]) ** 2)
+
+    def gn_weights(data: StageData, g0, rho):
+        mu = stage_mu(data)
+        on = active_mask(data, g0)
+        return (rho * on * (mu + rho * g0 > 0.0).to(g0.dtype))[:M]
+
+    return objective, constraints_vec, merit, hess_surrogate, gn_weights
+
+
+def _make_terminal_fns(spec: OcpSpec):
+    """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)]. The
+    terminal objective is zero in this slice (no Qf, no via points)."""
+    nu = spec.nu
+    M = spec.obstacle_cap
+
+    def constraints_vec(w, data: TermData):
+        x, dt = w[0:3], w[3 + nu : 4 + nu]  # dt as (1,): see _make_stage_fns
+        parts = []
+        if M > 0:
+            parts.append(_obstacle_g(spec, x, data.obs))
+        if spec.ball_radius > 0.0:
+            dx = se2_boxminus(x, data.xref)
+            s = const(spec.ball_weights, w)
+            parts.append(torch.sum(dx * dx * s, dim=-1, keepdim=True) - spec.ball_radius**2)
+        else:
+            parts.append(torch.full((1,), -1.0, dtype=w.dtype, device=w.device))
+        parts.append(torch.cat([dt - spec.dt_max, spec.dt_min - dt]))
+        return torch.cat(parts)
+
+    def eq_vec(w, data: TermData):
+        dx = se2_boxminus(w[0:3], data.xref)
+        return torch.where(const(spec.xf_fixed, w, dtype=torch.bool), dx, 0.0)
+
+    def term_mu(data: TermData):
+        mus = [data.mu_obs] if M > 0 else []
+        return torch.cat(mus + [data.mu_ball, data.mu_dt])
+
+    def merit(w, data: TermData, rho):
+        c = _psi(constraints_vec(w, data), term_mu(data), rho)
+        return c + _phi(eq_vec(w, data), data.lam_term, rho)
+
+    def hess_surrogate(w, data: TermData, rho, g0, aw):
+        g = constraints_vec(w, data)
+        g_rest, mu_rest = g[M:], term_mu(data)[M:]
+        a = _hinge(mu_rest + rho * g_rest)
+        c = torch.sum(a * a - mu_rest * mu_rest) / (2.0 * rho)
+        c = c + _phi(eq_vec(w, data), data.lam_term, rho)
+        return c + torch.sum(0.5 * aw * (g[:M] - g0[:M]) ** 2)
+
+    def gn_weights(data: TermData, g0, rho):
+        mu = term_mu(data)
+        return (rho * (mu + rho * g0 > 0.0).to(g0.dtype))[:M]
+
+    return constraints_vec, eq_vec, merit, hess_surrogate, gn_weights
+
+
+# --------------------------------------------------------------------------- #
+# per-solve data assembly
+# --------------------------------------------------------------------------- #
+def _stage_obstacles(spec, scenario, dt, n):
+    """Per-stage obstacle sets (..., n, M, ...): the field at t = 0 for the
+    static obstacles of this slice (dynamic obstacles raise in OcpSpec)."""
+    t = torch.zeros(dt.shape + (n,), dtype=dt.dtype, device=dt.device)
+    return scenario.obstacles.predict_stages(t)
+
+
+def _flat2(a):
+    """Merge the two leading (lane, stage) axes."""
+    return a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
+
+
+# --------------------------------------------------------------------------- #
+# AL merit of a full trajectory (line-search objective)
+# --------------------------------------------------------------------------- #
+def _al_merit(funcs: OcpFunctions, primal: Primal, scenario, duals: DualState):
+    """AL merit per trajectory; ``primal`` may carry candidate axes in front
+    of the lane axis."""
+    s = funcs.spec
+    rho = duals.rho
+    m = funcs.cost(primal, scenario)
+    m = m + _phi(funcs.defects(primal).flatten(-2), duals.lam_def.flatten(-2), rho)
+    te = C.terminal_equality(s, primal.xs, scenario.xf)
+    m = m + _phi(te, duals.lam_term, rho)
+    g_obs = C.obstacle_inequalities(s, primal.xs, primal.dt, scenario)
+    m = m + _psi(g_obs.flatten(-2), duals.mu_obs.flatten(-2), rho)
+    g_rate = C.control_rate_inequalities(s, primal.us, primal.dt, scenario.u_prev)
+    m = m + _psi(g_rate.flatten(-2), duals.mu_rate.flatten(-2), rho)
+    g_box = C.control_box_inequalities(s, primal.us)
+    m = m + _psi(g_box.flatten(-2), duals.mu_box.flatten(-2), rho)
+    g_dt = C.dt_inequalities(s, primal.dt, primal.xs.dtype)
+    m = m + _psi(g_dt, duals.mu_dt, rho)
+    g_ball = C.terminal_ball_inequality(s, primal.xs, scenario.xf)
+    return m + _psi(g_ball, duals.mu_ball, rho)
+
+
+# --------------------------------------------------------------------------- #
+# one SQP iteration: derivatives → Riccati → line search
+# --------------------------------------------------------------------------- #
+_ZI = (0, 1, 2, 3, 4, 7)  # z = [x, u_prev, dt] columns of w (nu = 2)
+_UI = (5, 6)              # u columns of w
+
+
+def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
+    """The Riccati inputs (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN) of one
+    SQP iteration, lanes in front, all contiguous."""
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    xs, us, dt = primal.xs, primal.us, primal.dt
+    B = dt.shape[0]
+    dtype = xs.dtype
+
+    # ---- defect linearization ------------------------------------------ #
+    def defect(xk, uk, xk1, dtv):
+        return stage_defect(spec.model, spec.collocation, xk, uk, xk1, dtv)
+
+    xk, xk1 = xs[:, :-1], xs[:, 1:]
+    dt_b = dt[:, None].expand(B, N)
+    cvals = defect(xk, us, xk1, dt_b)
+    jac = vmap(jacfwd(defect, argnums=(0, 1, 2, 3)))(
+        _flat2(xk), _flat2(us), _flat2(xk1), _flat2(dt_b)
+    )
+    A, Bm, E, h = (j.reshape((B, N) + j.shape[1:]) for j in jac)
+    Einv = inv3(E)  # closed-form: E ≈ −I + O(dt) is always well conditioned
+    F = -Einv @ A
+    G = -Einv @ Bm
+    mcol = -torch.einsum("...ij,...j->...i", Einv, h)
+    raff = -torch.einsum("...ij,...j->...i", Einv, cvals)
+    Fz, Gz, rz = build_augmented_transition(F, G, mcol, raff, nu=nu)
+
+    # ---- stage data ----------------------------------------------------- #
+    M = spec.obstacle_cap
+    obs_stages = tree_map(lambda a: _flat2(a[:, :N]), obs_k)
+    obs_term = tree_map(lambda a: a[:, N], obs_k)
+    # obstacle multiplier rows: stage k uses mu_obs[k-1]; k = 0 inactive.
+    mu_obs_stage = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
+    obs_on = torch.ones((B, N), dtype=dtype, device=xs.device)
+    obs_on[:, 0] = 0.0
+    sdata = StageData(
+        mu_obs=_flat2(mu_obs_stage),
+        obs_on=_flat2(obs_on),
+        mu_rate=_flat2(duals.mu_rate),
+        mu_box=_flat2(duals.mu_box),
+        obs=obs_stages,
+    )
+    u_ext = torch.cat([scenario.u_prev[:, None], us], dim=1)  # (B, N+1, nu)
+    ws = _flat2(torch.cat([xk, u_ext[:, :-1], us, dt_b[..., None]], dim=-1))
+    rho_s = _flat2(duals.rho[:, None].expand(B, N))
+
+    _, stage_cons, stage_merit, stage_hess, stage_gn_w = stage_fns
+    gstage = vmap(grad(stage_merit))(ws, sdata, rho_s)
+    g0 = vmap(stage_cons)(ws, sdata)
+    aw = vmap(stage_gn_w)(sdata, g0, rho_s)
+    Hstage = vmap(hessian(stage_hess))(ws, sdata, rho_s, g0, aw)
+    nw = ws.shape[-1]
+    gstage = gstage.reshape(B, N, nw)
+    Hstage = Hstage.reshape(B, N, nw, nw)
+    zi = const(_ZI, Hstage, dtype=torch.long)
+    ui = const(_UI, Hstage, dtype=torch.long)
+    Hz_rows = Hstage.index_select(-2, zi)
+    Hzz = Hz_rows.index_select(-1, zi)
+    Hzu = Hz_rows.index_select(-1, ui)
+    Huu = Hstage.index_select(-2, ui).index_select(-1, ui)
+    hz = gstage.index_select(-1, zi)
+    hu = gstage.index_select(-1, ui)
+
+    tdata = TermData(
+        xref=scenario.xf,
+        mu_obs=duals.mu_obs[:, N - 1],
+        lam_term=duals.lam_term,
+        mu_ball=duals.mu_ball,
+        mu_dt=duals.mu_dt,
+        obs=obs_term,
+    )
+    term_cons, _, term_merit, term_hess, term_gn_w = term_fns
+    wN = torch.cat([xs[:, N], us[:, N - 1], dt[:, None]], dim=-1)
+    pN = vmap(grad(term_merit))(wN, tdata, duals.rho)
+    gT0 = vmap(term_cons)(wN, tdata)
+    awT = vmap(term_gn_w)(tdata, gT0, duals.rho)
+    PN = vmap(hessian(term_hess))(wN, tdata, duals.rho, gT0, awT)
+    return tuple(
+        a.contiguous() for a in (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN)
+    )
+
+
+def _sqp_iteration(
+    spec, funcs, settings, stage_fns, term_fns, primal, scenario, duals, reg,
+    obs_k, lqr,
+):
+    xs, us, dt = primal.xs, primal.us, primal.dt
+    dtype = xs.dtype
+    B = dt.shape[0]
+    kkt = _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k)
+    step = lqr(*kkt, reg, nx=spec.nx, free_tau=spec.variable_dt)
+
+    # NaN quarantine: a non-finite KKT solve becomes a zero step — the line
+    # search then rejects it and the regularization ramps up, instead of
+    # poisoning the iterate (0·NaN = NaN, so even α = 0 is unsafe without it).
+    step_ok = (
+        torch.isfinite(step.dxs).flatten(1).all(dim=1)
+        & torch.isfinite(step.dus).flatten(1).all(dim=1)
+        & torch.isfinite(step.dtau)
+    )
+    ok3 = step_ok[:, None, None]
+    dxs = torch.where(ok3, step.dxs, 0.0)
+    dus = torch.where(ok3, step.dus, 0.0)
+    dtau = torch.where(step_ok, step.dtau, 0.0)
+
+    # ---- parallel-candidate line search on the AL merit ------------------ #
+    dt_lo = max(spec.dt_min, 1.0e-3)
+    dt_hi = spec.dt_max
+    # relative trust region on dt: cap the step to a fraction of the current
+    # dt by scaling the whole search direction
+    alpha_cap = torch.where(
+        torch.abs(dtau) > 0.0,
+        torch.clamp(
+            settings.dt_trust_frac * dt / torch.clamp(torch.abs(dtau), min=1e-30),
+            max=1.0,
+        ),
+        1.0,
+    )
+    alphas = torch.cat(
+        [const(settings.alphas, dt) * alpha_cap[:, None], dt.new_zeros(B, 1)], dim=1
+    )  # (B, C)
+    a_c = alphas.T  # (C, B): candidates in front of the lane axis
+    cands = Primal(
+        xs=se2_boxplus(xs[None], a_c[..., None, None] * dxs[None]),
+        us=us[None] + a_c[..., None, None] * dus[None],
+        dt=torch.clamp(dt[None] + a_c * dtau[None], dt_lo, dt_hi),
+    )
+    merits = _al_merit(funcs, cands, scenario, duals)  # (C, B)
+    # non-finite candidate merits lose the line search; the α = 0 candidate
+    # equals the current iterate (the step is finite by construction above)
+    merits = torch.where(torch.isfinite(merits), merits, math.inf)
+    merits = torch.cat(
+        [merits[:-1], torch.clamp(merits[-1:], max=torch.finfo(dtype).max)], dim=0
+    )
+    best = torch.argmin(merits, dim=0)  # (B,)
+    lane = torch.arange(B, device=dt.device)
+    accepted = alphas[lane, best] > 0.0
+    new_primal = Primal(
+        xs=cands.xs[best, lane], us=cands.us[best, lane], dt=cands.dt[best, lane]
+    )
+    # shrink on acceptance, grow on rejection (reset to reg0 each AL phase)
+    new_reg = torch.where(
+        accepted,
+        torch.clamp(reg * settings.reg_shrink, min=settings.reg_min),
+        torch.clamp(
+            torch.clamp(reg, min=settings.reg0) * settings.reg_grow,
+            max=settings.reg_max,
+        ),
+    )
+    return new_primal, new_reg
+
+
+# --------------------------------------------------------------------------- #
+# dual (multiplier) updates
+# --------------------------------------------------------------------------- #
+def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, viol_prev):
+    """First-order multiplier update + conditional penalty growth (ρ grows
+    when the violation stalls or is not yet well below tolerance)."""
+    rho = duals.rho
+    d = funcs.defects(primal)
+    te = C.terminal_equality(spec, primal.xs, scenario.xf)
+    g_obs = C.obstacle_inequalities(spec, primal.xs, primal.dt, scenario)
+    g_rate = C.control_rate_inequalities(spec, primal.us, primal.dt, scenario.u_prev)
+    g_box = C.control_box_inequalities(spec, primal.us)
+    g_dt = C.dt_inequalities(spec, primal.dt, primal.xs.dtype)
+    g_ball = C.terminal_ball_inequality(spec, primal.xs, scenario.xf)
+
+    def upd(mu, g):
+        return _hinge(mu + rho.reshape(rho.shape + (1,) * (g.dim() - 1)) * g)
+
+    r2 = rho[:, None, None]
+    eq_norm = torch.maximum(
+        torch.abs(d).flatten(1).amax(dim=1), torch.abs(te).amax(dim=1)
+    )
+    g_all = torch.cat([g.flatten(1) for g in (g_obs, g_rate, g_box, g_dt, g_ball)], dim=1)
+    ineq_max = torch.clamp(g_all.amax(dim=1), min=0.0)
+    viol = torch.maximum(eq_norm, ineq_max)
+    grow = (viol > settings.viol_decrease_req * viol_prev) | (
+        viol > 0.05 * settings.tol_eq
+    )
+    mask = const(spec.xf_fixed, te, dtype=torch.bool)
+    new = DualState(
+        lam_def=duals.lam_def + r2 * d,
+        lam_term=torch.where(mask, duals.lam_term + rho[:, None] * te, 0.0),
+        mu_obs=upd(duals.mu_obs, g_obs),
+        mu_rate=upd(duals.mu_rate, g_rate),
+        mu_box=upd(duals.mu_box, g_box),
+        mu_dt=upd(duals.mu_dt, g_dt),
+        mu_ball=upd(duals.mu_ball, g_ball),
+        rho=torch.where(
+            grow, torch.clamp(rho * settings.rho_growth, max=settings.rho_max), rho
+        ),
+    )
+    return new, viol, eq_norm, ineq_max
+
+
+# --------------------------------------------------------------------------- #
+# full solve
+# --------------------------------------------------------------------------- #
+def solve(
+    spec: OcpSpec,
+    settings: SolverSettings,
+    scenario,
+    init: Primal,
+    duals: DualState,
+) -> SolveResult:
+    """Solve a batch of OCPs (one leading lane axis on every argument) on the
+    device the tensors lie on, with the fixed n_al × n_sqp schedule."""
+    _check_settings(settings)
+    if init.xs.dim() != 3:
+        raise ValueError("solve takes one leading lane axis: xs (B, N+1, 3)")
+    funcs = make_ocp_functions(spec)
+    stage_fns = _make_stage_fns(spec)
+    term_fns = _make_terminal_fns(spec)
+    lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
+    dtype = init.xs.dtype
+    B = init.dt.shape[0]
+    reg0 = torch.full((B,), settings.reg0, dtype=dtype, device=init.xs.device)
+    inf = torch.full((B,), math.inf, dtype=dtype, device=init.xs.device)
+
+    # hoisted out of the iteration loops: loop-invariant for static obstacles
+    obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
+
+    primal, viol_prev = init, inf
+    eq_norm, viol = inf, inf
+    b_primal, b_eq, b_in = init, inf, inf
+    b_found = torch.zeros((B,), dtype=torch.bool, device=init.xs.device)
+    for _al in range(settings.n_al):
+        reg = reg0  # reg restarts each phase: the dual update reshapes the merit
+        for _sqp in range(settings.n_sqp):
+            primal, reg = _sqp_iteration(
+                spec, funcs, settings, stage_fns, term_fns, primal, scenario,
+                duals, reg, obs_k, lqr,
+            )
+        duals, viol_prev, eq_norm, viol = _update_duals(
+            spec, funcs, primal, scenario, duals, settings, viol_prev
+        )
+        # best-feasible snapshot: a later dual update can push a feasible
+        # iterate back out of tolerance
+        ok = (eq_norm < settings.tol_eq) & (viol < settings.tol_ineq)
+        b_primal = where_tree(ok, primal, b_primal)
+        b_eq = torch.where(ok, eq_norm, b_eq)
+        b_in = torch.where(ok, viol, b_in)
+        b_found = ok | b_found
+
+    final_ok = (eq_norm < settings.tol_eq) & (viol < settings.tol_ineq)
+    use_best = b_found & ~final_ok
+    primal = where_tree(use_best, b_primal, primal)
+    eq_norm = torch.where(use_best, b_eq, eq_norm)
+    viol = torch.where(use_best, b_in, viol)
+    return SolveResult(
+        primal=primal, duals=duals, cost=funcs.cost(primal, scenario),
+        eq_norm=eq_norm, ineq_viol=viol, converged=final_ok | b_found,
+    )
+
+
+def _check_device(device, *trees):
+    def check(a):
+        if a.device != device:
+            raise ValueError(f"input on {a.device}, solver built for {device}")
+        return a
+
+    for tree in trees:
+        tree_map(check, tree)
+
+
+def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device=None):
+    """Build the batched solve(scenario, init, duals) → SolveResult.
+
+    ``device`` defaults to CUDA (raises without a card); pass ``"cpu"`` to run
+    on the CPU. Inputs must lie on that device.
+    """
+    settings = settings or SolverSettings()
+    _check_settings(settings)
+    dev = resolve_device(device)
+    pin_matmul_precision()
+
+    def solve_batch(scenario, init, duals):
+        _check_device(dev, scenario, init, duals)
+        return solve(spec, settings, scenario, init, duals)
+
+    return solve_batch
+
+
+def default_init(spec: OcpSpec, settings: SolverSettings, scenario, dtype=torch.float32):
+    """(initial primal, fresh duals) for a scenario batch."""
+    init = initial_primal(spec, scenario)
+    duals = init_duals(
+        spec, settings, dtype=dtype, device=scenario.x0.device,
+        batch=scenario.x0.shape[:-1],
+    )
+    return init, duals
