@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of ``mpc_local_planner_tpu`` for one NVIDIA H100.
 
 The module paths mirror the JAX package's. This slice ports the flagship warm
-fleet cycle on the un-fused path: ``make_solver``, ``make_fleet_cycle``,
-``make_rescue`` and ``random_ensemble`` run on CUDA unless the caller passes
-``device="cpu"``. The KKT solve of every SQP iteration is the hand-written
-CUDA kernel K1 (``ops/riccati_cuda.py``).
+fleet cycle: ``make_solver``, ``make_fleet_cycle``, ``make_rescue`` and
+``random_ensemble`` run on CUDA unless the caller passes ``device="cpu"``.
+The warm solve and the rescue run as one launch each of the hand-written
+CUDA kernel K2a (``ops/fused_al_sqp_cuda.py``); the other solves take the
+un-fused path, whose KKT solve is the hand-written CUDA kernel K1
+(``ops/riccati_cuda.py``).
 """
 
 from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, random_ensemble

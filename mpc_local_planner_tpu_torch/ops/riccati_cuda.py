@@ -24,63 +24,26 @@ is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from mpc_local_planner_tpu_torch.ops import nvcc_build
 from mpc_local_planner_tpu_torch.solvers.riccati import LqrStep, lqr_solve
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "riccati_sweep.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = nvcc_build.CSRC / "riccati_sweep.cu"
 NA, NU, NX = 6, 2, 3
 
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build K1")
-    return str(path)
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libriccati_sweep_{digest}.so"
+    return nvcc_build.library_path(SOURCE)
 
 
 def build() -> dict:
-    """Compile the kernel if its library is missing. Returns the library
-    path, the build seconds (0 when it was already built) and ptxas' report."""
-    lib = library_path()
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "ptxas": ""}
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": time.perf_counter() - t0, "ptxas": proc.stderr}
+    """Compile the kernel if its library is missing (``nvcc_build``)."""
+    return nvcc_build.build_library(SOURCE, library_path())
 
 
 def _load():

@@ -14,8 +14,10 @@ Every tensor carries one leading lane (scenario) axis where the JAX package
 with masks. Ties of the PHR hinges go through ``torch.maximum``, whose
 gradient splits 0.5/0.5 like ``jnp.maximum`` (``clamp`` and ``relu`` do not:
 the Hessian of an exactly active hinge would come out ρ instead of ρ/4).
-The whole-solve fused kernel (ROADMAP K2) is not ported yet, so
-``SolverSettings.fused`` has no effect here.
+``make_solver`` sends a batched float32 CUDA solve of at most 16 iterations
+in the fused kernel's scope to kernel K2a (``ops/fused_al_sqp_cuda.py``),
+which runs the whole solve in one launch (``fused_dispatch_ok``); every other
+solve takes this un-fused path.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class SolverSettings:
 
     kkt: "auto" (or "pallas") = kernel K1 for CUDA tensors, the plain
     ``lqr_solve`` for CPU tensors; "scan" = the plain ``lqr_solve`` on any
-    device. fused: accepted for parity; the fused kernel is not ported yet.
+    device. fused: "auto" = kernel K2a for the solves ``fused_dispatch_ok``
+    admits; "off" = always the un-fused path.
     """
 
     n_al: int = 5
@@ -449,14 +452,11 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     )
 
 
-def _sqp_iteration(
-    spec, funcs, settings, stage_fns, term_fns, primal, scenario, duals, reg,
-    obs_k, lqr,
-):
+def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr):
     xs, us, dt = primal.xs, primal.us, primal.dt
     dtype = xs.dtype
     B = dt.shape[0]
-    kkt = _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k)
+    kkt = kkt_system(primal, duals)
     step = lqr(*kkt, reg, nx=spec.nx, free_tau=spec.variable_dt)
 
     # NaN quarantine: a non-finite KKT solve becomes a zero step — the line
@@ -572,23 +572,33 @@ def solve(
     scenario,
     init: Primal,
     duals: DualState,
+    kkt_system=None,
 ) -> SolveResult:
     """Solve a batch of OCPs (one leading lane axis on every argument) on the
-    device the tensors lie on, with the fixed n_al × n_sqp schedule."""
+    device the tensors lie on, with the fixed n_al × n_sqp schedule.
+
+    ``kkt_system(primal, duals)`` returns the Riccati inputs of one SQP
+    iteration; by default the AD derivatives of ``_kkt_system``. Kernel K2a's
+    plain version passes its closed forms.
+    """
     _check_settings(settings)
     if init.xs.dim() != 3:
         raise ValueError("solve takes one leading lane axis: xs (B, N+1, 3)")
     funcs = make_ocp_functions(spec)
-    stage_fns = _make_stage_fns(spec)
-    term_fns = _make_terminal_fns(spec)
+    if kkt_system is None:
+        stage_fns = _make_stage_fns(spec)
+        term_fns = _make_terminal_fns(spec)
+        # hoisted out of the iteration loops: loop-invariant for static obstacles
+        obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
+
+        def kkt_system(primal, duals):
+            return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k)
+
     lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
     dtype = init.xs.dtype
     B = init.dt.shape[0]
     reg0 = torch.full((B,), settings.reg0, dtype=dtype, device=init.xs.device)
     inf = torch.full((B,), math.inf, dtype=dtype, device=init.xs.device)
-
-    # hoisted out of the iteration loops: loop-invariant for static obstacles
-    obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
 
     primal, viol_prev = init, inf
     eq_norm, viol = inf, inf
@@ -598,8 +608,7 @@ def solve(
         reg = reg0  # reg restarts each phase: the dual update reshapes the merit
         for _sqp in range(settings.n_sqp):
             primal, reg = _sqp_iteration(
-                spec, funcs, settings, stage_fns, term_fns, primal, scenario,
-                duals, reg, obs_k, lqr,
+                spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr
             )
         duals, viol_prev, eq_norm, viol = _update_duals(
             spec, funcs, primal, scenario, duals, settings, viol_prev
@@ -633,12 +642,36 @@ def _check_device(device, *trees):
         tree_map(check, tree)
 
 
+def fused_dispatch_ok(spec, settings, scenario, dtype, device) -> bool:
+    """The whole-solve-kernel admission decision of ``make_solver``: spec,
+    obstacle slots and candidate count in K2a's scope, float32, a CUDA
+    device, a budget of at most 16 iterations, and not ``early_exit`` (the
+    kernel runs its schedule to the end). As on the TPU, CPU tensors take
+    the un-fused path."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+
+    return (
+        settings.fused != "off"
+        and k2a.fused_supported(spec)
+        and k2a.fused_obstacles_supported(scenario)
+        and len(settings.alphas) <= k2a.MAX_ALPHAS
+        and dtype == torch.float32
+        and torch.device(device).type == "cuda"
+        and settings.n_al * settings.n_sqp <= 16
+        and not settings.early_exit
+    )
+
+
 def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device=None):
     """Build the batched solve(scenario, init, duals) → SolveResult.
 
     ``device`` defaults to CUDA (raises without a card); pass ``"cpu"`` to run
-    on the CPU. Inputs must lie on that device.
+    on the CPU. Inputs must lie on that device. Solves that
+    ``fused_dispatch_ok`` admits launch kernel K2a (or raise); the rest take
+    the un-fused ``solve``.
     """
+    from mpc_local_planner_tpu_torch.ops.fused_al_sqp_cuda import fused_solve_cuda
+
     settings = settings or SolverSettings()
     _check_settings(settings)
     dev = resolve_device(device)
@@ -646,6 +679,8 @@ def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device
 
     def solve_batch(scenario, init, duals):
         _check_device(dev, scenario, init, duals)
+        if fused_dispatch_ok(spec, settings, scenario, init.xs.dtype, dev):
+            return fused_solve_cuda(spec, settings, scenario, init, duals)
         return solve(spec, settings, scenario, init, duals)
 
     return solve_batch

@@ -23,7 +23,7 @@ from mpc_local_planner_tpu.solvers import riccati as j_ric
 from mpc_local_planner_tpu_torch import convert
 from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time as t_config3
 from mpc_local_planner_tpu_torch.ocp.spec import Scenario as TScenario
-from mpc_local_planner_tpu_torch.ops import riccati_cuda
+from mpc_local_planner_tpu_torch.ops import nvcc_build, riccati_cuda
 from mpc_local_planner_tpu_torch.ops import smallmat as t_sm
 from mpc_local_planner_tpu_torch.solvers import al_sqp as t_al
 from mpc_local_planner_tpu_torch.solvers import riccati as t_ric
@@ -153,8 +153,8 @@ def test_torch_k1_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="several devices"):
         riccati_cuda.lqr_solve_auto(*mixed, nx=NX, free_tau=True)
     # no toolkit: the build raises, nothing falls back
-    monkeypatch.setattr(riccati_cuda.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(nvcc_build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
-    monkeypatch.setattr(riccati_cuda, "library_path", lambda: riccati_cuda.BUILD_DIR / "absent.so")
+    monkeypatch.setattr(riccati_cuda, "library_path", lambda: nvcc_build.BUILD_DIR / "absent.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         riccati_cuda.build()
