@@ -31,7 +31,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   9. gate    — the fused warm solve (K2a) against the un-fused one (AD
                derivatives + K1) on 256 lanes of the live warm state
  10. trace   — one fused warm cycle under torch.profiler
- 11. summary — the kernels line, the card line, then the result line
+ 11. K1      — K1 against its plain version without the free δτ
+               (free_tau=False), on BASELINE config #2's Riccati inputs
+               (B=4096), float64 and float32
+ 12. config2 — the warm fleet cycle of BASELINE config #2 (unicycle, disc
+               r=0.2, 10 circle slots, quadratic form with Qf, terminal
+               ball, fixed dt 0.3, N=30) with fused="auto": cold 8×10 solve
+               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue, the cold oracle; the fused kernel must
+               carry the warm solve and the rescue (20 launches), K1 the
+               cold solve and the oracle (160)
+ 13. kernel  — the fused kernel against its plain version on config #2's
+               live warm state, as phase 7 does for the flagship
+ 14. family  — the kernel against its plain version (float64 at every
+               prefix, float32) at B=1024 for the flagship with the
+               front-wheel car and with the kinematic bicycle, and for
+               config #1 (no obstacle slot, integral left-sum), each from
+               its own cold solve and two fused fleet cycles
+ 15. gate    — config #2's fused warm solve against the un-fused one, 256
+               lanes of its live warm state
+ 16. trace   — one config #2 warm cycle under torch.profiler
+ 17. summary — the kernels line, the card line, then the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -60,14 +80,18 @@ K1_RTOL_F64 = 1e-9
 # versions sit about 1e-6 from the f64 answer on these inputs (H100).
 K1_RTOL_F32 = 1e-4
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-# K2a against its plain version in float64 (solvers/agreement.py): conv
-# flags identical on every lane; max relative |Δ| over xs, us, dt and the
-# duals within 1e-8 on 99.5% of the lanes both converged; and on every lane
-# at most 100 times the plain version's own change under a one-ulp change of
-# its states (up or down). That last check runs at every prefix of the
-# solve's schedule (1×1, 1×2, then whole AL phases), so a lane is held tight
-# before its rounding can grow; a lane whose own change passes 1e-6 (a
-# chaotic lane) is counted and left out of it, and at 1×1 no lane may be.
+# The fused kernel against its plain version in float64
+# (solvers/agreement.py): conv flags identical on every lane; max relative
+# |Δ| over xs, us, dt and the duals within 1e-8 on 99.5% of the lanes both
+# converged with no tie shown; and on every lane at most 100 times the plain
+# version's own change under a one-ulp change of its states (up or down).
+# A lane both converged that the plain version leaves elsewhere when it
+# takes its near-ties of the line search and the growth test the other way
+# (a tie shown) is held to 100 times the larger of the two changes, its ρ to
+# one growth factor. The check runs at every prefix of the solve's schedule
+# (1×1, 1×2, then whole AL phases), so a lane is held tight before its
+# rounding can grow; a lane whose own change passes 1e-6 (a chaotic lane) is
+# counted and left out of it, and at 1×1 no lane may be.
 
 
 def _fail(msg):
@@ -85,9 +109,15 @@ def card_line() -> str:
 def flagship(N=30, obstacle_cap=8):
     """The flagship problem and bench.py::main's solver settings."""
     from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time
+
+    return fleet_settings(config3_carlike_min_time(N=N, obstacle_cap=obstacle_cap))
+
+
+def fleet_settings(spec):
+    """``spec`` with bench.py::main's settings: the cold preset, the warm
+    3×4 solve (fused="off") and the 4×4 rescue with 8 candidates."""
     from mpc_local_planner_tpu_torch.solvers.al_sqp import SolverSettings
 
-    spec = config3_carlike_min_time(N=N, obstacle_cap=obstacle_cap)
     cold = SolverSettings.for_spec(spec)
     warm = SolverSettings(
         n_al=3, n_sqp=4, rho0=120.0, rho_growth=5.0, reg0=1.0,
@@ -98,6 +128,14 @@ def flagship(N=30, obstacle_cap=8):
         alphas=(1.0, 0.7, 0.5, 0.35, 0.22, 0.14, 0.08, 0.03),
     )
     return spec, cold, warm, rescue
+
+
+def config2():
+    """BASELINE config #2 at its full width and depth (N=30, 10 circle
+    slots)."""
+    from mpc_local_planner_tpu_torch.benchmarks import config2_diffdrive_obstacles
+
+    return config2_diffdrive_obstacles(N=30, obstacle_cap=10)
 
 
 def ensemble(spec, batch, device, seed=0):
@@ -152,18 +190,19 @@ def _max_rel_err(a, b):
     return max(errs), max(errs) / max(max(scale), 1e-30)
 
 
-def kernel_phase(spec, warm, device):
-    """K1 against the plain lqr_solve at the main path's two batch sizes, on
-    the inputs of a warm-settings SQP iteration (reg = 1). The cold solve's
-    first iteration (reg = 1e-6 at the seed) overflows float32 in both
-    versions alike, which the solver's NaN quarantine absorbs."""
+def kernel_phase(spec, warm, device, batches=(BATCH, RESCUE_SLOTS), tag="K1"):
+    """K1 against the plain lqr_solve at ``batches``, on the inputs of a
+    warm-settings SQP iteration (reg = 1), with the free δτ where ``spec``
+    has a variable dt. The cold solve's first iteration (reg = 1e-6 at the
+    seed) overflows float32 in both versions alike, which the solver's NaN
+    quarantine absorbs."""
     import torch
 
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
     from mpc_local_planner_tpu_torch.solvers.riccati import lqr_solve
 
     report = {}
-    for batch in (BATCH, RESCUE_SLOTS):
+    for batch in batches:
         args32 = riccati_inputs(spec, warm, ensemble(spec, batch, device))
         kw = dict(nx=spec.nx, free_tau=spec.variable_dt)
         row = {}
@@ -175,7 +214,7 @@ def kernel_phase(spec, warm, device):
             tol = K1_RTOL_F64 if name == "f64" else K1_RTOL_F32
             finite = all(bool(torch.isfinite(t).all()) for t in out_k)
             print(
-                f"K1 {name} B={batch}: max_abs_err={abs_err:.3e} "
+                f"{tag} {name} B={batch} free_tau={kw['free_tau']}: max_abs_err={abs_err:.3e} "
                 f"rel_err={rel_err:.3e} (tol {tol:g}) finite={finite}"
             )
             if not finite or not rel_err <= tol:
@@ -189,7 +228,7 @@ def kernel_phase(spec, warm, device):
         row["ms"] = _cuda_ms(lambda: riccati_cuda.lqr_solve_cuda(*args32, **kw), 25)
         row["plain_ms"] = _cuda_ms(lambda: lqr_solve(*args32, **kw), 5)
         print(
-            f"K1 f32 B={batch}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"{tag} f32 B={batch}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s)"
         )
         report[batch] = row
@@ -316,14 +355,17 @@ def k2a_f64_phase(spec, st, args64, tag):
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
         outs_q = [k2a.fused_solve_plain(spec, sp, scen, q, duals) for q in perturbed]
+        outs_t = [k2a.fused_solve_plain(spec, sp, scen, init, duals, decisions=d)
+                  for d in agreement.tie_breaks()]
         torch.cuda.synchronize()
         info, passed, err, sens = agreement.f64_agreement(
-            out_k, out_p, outs_q, min_converged_frac=0.25 if last else 0.0,
-            every_lane=(n_al, n_sqp) == (1, 1),
+            out_k, out_p, outs_q, outs_t, sp.rho_growth,
+            min_converged_frac=0.25 if last else 0.0, every_lane=(n_al, n_sqp) == (1, 1),
         )
         print(f"{tag} f64 at {n_al}x{n_sqp}: {json.dumps(info)} passed={passed}")
         if not passed:
-            _fail(f"K2a disagrees with its plain version in float64 ({tag} at {n_al}x{n_sqp})")
+            _fail(f"the fused kernel disagrees with its plain version in float64 "
+                  f"({tag} at {n_al}x{n_sqp})")
         rows.append(((n_al, n_sqp), err, sens))
     worst = int(torch.argmax(rows[-1][1]))
     trail = ", ".join(f"{a}x{s} {float(e[worst]):.3e} ({float(q[worst]):.3e})"
@@ -332,31 +374,46 @@ def k2a_f64_phase(spec, st, args64, tag):
           f"one-ulp sensitivity): {trail}")
 
 
-def k2a_phase(spec, warm, rescue_set, settled):
-    """K2a against its plain version on the live warm state: the next warm
-    solve's inputs at 4096 lanes (3×4, 3 candidates) and at 1024 lanes with
-    the rescue's settings (4×4, 8 candidates), in float64 and float32."""
+def _double(args32):
     from mpc_local_planner_tpu_torch.core.tree import tree_map
+
+    return tuple(
+        tree_map(lambda a: a.double() if a.is_floating_point() else a, t) for t in args32
+    )
+
+
+def k2a_check(spec, st, args32, tag):
+    """The fused kernel against its plain version on one set of warm inputs:
+    float64 at every prefix of the schedule, then float32 at bench-gate
+    semantics. Returns the gate's info."""
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.solvers import agreement
+
+    k2a_f64_phase(spec, st, _double(args32), tag)
+    out_k = k2a.fused_solve_cuda(spec, st, *args32)
+    out_p = k2a.fused_solve_plain(spec, st, *args32)
+    info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp)
+    print(f"{tag} f32: {json.dumps(info)} passed={passed}")
+    if not passed:
+        _fail(f"the fused kernel disagrees with its plain version in float32 ({tag})")
+    return info
+
+
+def k2a_phase(spec, warm, rescue_set, settled, name="K2a"):
+    """The fused kernel against its plain version on the live warm state:
+    the next warm solve's inputs at 4096 lanes (3×4, 3 candidates) and at
+    1024 lanes with the rescue's settings (4×4, 8 candidates), in float64
+    and float32; kernel, plain and bound times."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
 
     report = {}
     for batch, st in ((BATCH, warm), (RESCUE_SLOTS, rescue_set)):
         args32 = warm_inputs(spec, st, settled, batch)
-        args64 = tuple(
-            tree_map(lambda a: a.double() if a.is_floating_point() else a, t) for t in args32
-        )
-        tag = f"K2a B={batch} {st.n_al}x{st.n_sqp}"
-        k2a_f64_phase(spec, st, args64, tag)
-        out_k = k2a.fused_solve_cuda(spec, st, *args32)
-        out_p = k2a.fused_solve_plain(spec, st, *args32)
-        info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp)
-        print(f"{tag} f32: {json.dumps(info)} passed={passed}")
-        if not passed:
-            _fail(f"K2a disagrees with its plain version in float32 ({tag})")
+        tag = f"{name} B={batch} {st.n_al}x{st.n_sqp}"
+        info = k2a_check(spec, st, args32, tag)
         ins, outs = k2a.kernel_io(spec, *args32)
         nbytes = sum(a.numel() * a.element_size() for a in ins + outs)
-        flops = batch * k2a.k2a_flops(spec.N, spec.obstacle_cap, st.n_al, st.n_sqp, len(st.alphas))
+        flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOP_PER_S * 1e3
         row = {
@@ -373,6 +430,55 @@ def k2a_phase(spec, warm, rescue_set, settled):
         )
         report[batch] = row
     return report
+
+
+def family_phase(warm, device, batch=RESCUE_SLOTS):
+    """The fused kernel against its plain version at ``batch`` lanes for the
+    branches that no main path runs: the flagship with the front-wheel car
+    and with the kinematic bicycle, and config #1 (no obstacle slot, point
+    footprint, integral left-sum). Each starts from its own cold solve
+    (un-fused, K1) and two fleet cycles (fused), then the fleet cycle's
+    next warm inputs."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import (
+        config1_unicycle_quadratic,
+        config3_carlike_min_time,
+    )
+    from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import (
+        SolverSettings,
+        default_init,
+        init_duals,
+        make_solver,
+    )
+    from mpc_local_planner_tpu_torch.systems.models import (
+        KinematicBicycleModelVelocityInput,
+        SimpleCarFrontWheelDrivingModel,
+    )
+
+    car = config3_carlike_min_time(N=30, obstacle_cap=8)
+    cases = (
+        ("front-wheel", dataclasses.replace(car, model=SimpleCarFrontWheelDrivingModel(0.5))),
+        ("bicycle", dataclasses.replace(car, model=KinematicBicycleModelVelocityInput(0.3, 0.2))),
+        ("config1", dataclasses.replace(config1_unicycle_quadratic(N=20), integral_form=True)),
+    )
+    for name, spec in cases:
+        t0 = time.perf_counter()
+        cold = SolverSettings.for_spec(spec)
+        scen = ensemble(spec, batch, device)
+        init, duals = default_init(spec, cold, scen)
+        r = make_solver(spec, cold, device)(scen, init, duals)
+        duals0 = init_duals(spec, warm, dtype=torch.float32, device=device, batch=(batch,))
+        cycle = make_fleet_cycle(spec, warm, duals0, device=device)
+        for _ in range(SETTLE_CYCLES):
+            scen, r = cycle(scen, r)
+        torch.cuda.synchronize()
+        print(f"{name}: cold {cold.n_al}x{cold.n_sqp} solve and {SETTLE_CYCLES} cycles at "
+              f"B={batch} in {time.perf_counter() - t0:.2f} s, converged "
+              f"{int(torch.sum(r.converged))}")
+        args32 = warm_inputs(spec, warm, (scen, r), batch)
+        k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
 
 
 def trace_phase(cycle, settled, cycle_ms):
@@ -407,8 +513,8 @@ def trace_phase(cycle, settled, cycle_ms):
 
 
 def build_phase():
-    """Build K1 and K2a at once (one nvcc each); print times and ptxas'
-    registers and spills."""
+    """Build K1 and the fused kernel at once (one nvcc each); print times and
+    ptxas' registers, stack frames and spills for every instantiation."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
@@ -418,7 +524,7 @@ def build_phase():
     for built in builds:
         print(f"build: {built['path']} in {built['seconds']:.2f} s")
         for line in built["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -509,8 +615,53 @@ def main():
     # ---- 10. where one fused warm cycle's device time goes ----------------- #
     print(json.dumps({"trace_fused": trace_phase(cycle_f, settled_f, extra_f["cycle_ms"])}))
 
-    # ---- 11. summary ---------------------------------------------------- #
-    row, row2 = k1[BATCH], k2a_rows[BATCH]
+    # ---- 11. K1 without the free δτ (config #2, fixed dt) ------------------- #
+    spec2, cold2, warm2, rescue2 = fleet_settings(config2())
+    kernel_phase(spec2, warm2, device, batches=(BATCH,), tag="K1 config2")
+
+    # ---- 12. config #2 main path, fused ------------------------------------- #
+    warm2_f = dataclasses.replace(warm2, fused="auto")
+    rescue2_f = dataclasses.replace(rescue2, fused="auto")
+    riccati_cuda.lqr_solve_cuda.launches = 0
+    k2a.fused_solve_cuda.launches = 0
+    t0 = time.perf_counter()
+    extra2, settled2, secs2, cycle2, _, k1_before_oracle = main_path(
+        spec2, cold2, warm2_f, rescue2_f, device
+    )
+    fused2 = k2a.fused_solve_cuda.launches
+    k1_2 = riccati_cuda.lqr_solve_cuda.launches
+    main2_s = time.perf_counter() - t0
+    print(json.dumps({**extra2, "path": "config2_fused", "fused_launches": fused2,
+                      "k1_launches": k1_2,
+                      "k1_launches_in_warm_cycles": k1_before_oracle - cold2.n_al * cold2.n_sqp,
+                      "device": card, **secs2, "main_path_s": main2_s}))
+    cycles = SETTLE_CYCLES + TIMED_CYCLES
+    if fused2 != 2 * cycles:
+        _fail(f"the fused kernel launched {fused2} times on config #2's path, "
+              f"expected {2 * cycles}")
+    if k1_2 != 2 * cold2.n_al * cold2.n_sqp or k1_before_oracle != cold2.n_al * cold2.n_sqp:
+        _fail(f"K1 launched {k1_2} times on config #2's path ({k1_before_oracle} before the "
+              f"oracle), expected {2 * cold2.n_al * cold2.n_sqp} (the cold solve and the oracle)")
+    if not extra2["converged_frac"] >= 0.25:
+        _fail(f"config #2 converged_frac {extra2['converged_frac']} below the 0.25 floor")
+
+    # ---- 13. the kernel against its plain version on config #2 -------------- #
+    k2_rows = k2a_phase(spec2, warm2_f, rescue2_f, settled2, name="config2")
+
+    # ---- 14. the other models and config #1, B=1024 -------------------------- #
+    family_phase(warm_f, device)
+
+    # ---- 15. config #2 fused-vs-un-fused gate ------------------------------- #
+    gate2, passed = gate_phase(spec2, warm2, warm2_f, settled2)
+    print(json.dumps({"config2_fused_vs_unfused_gate": gate2, "passed": passed}))
+    if not passed:
+        _fail(f"config #2 fused-vs-un-fused gate failed: {gate2}")
+
+    # ---- 16. where one config #2 warm cycle's device time goes ------------- #
+    print(json.dumps({"trace_config2": trace_phase(cycle2, settled2, extra2["cycle_ms"])}))
+
+    # ---- 17. summary ---------------------------------------------------- #
+    row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
     print(json.dumps({"kernels": [{
         "name": "K1 riccati_sweep",
         "route": "cuda",
@@ -534,6 +685,18 @@ def main():
         "plain_ms": row2["plain_ms"],
         "bound_ms": row2["bound_ms"],
         "bound_by": row2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "K2 fused_al_sqp: unicycle, quadratic form, terminal ball, fixed dt (config #2)",
+        "route": "cuda",
+        "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
+        "replaces": "mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:264",
+        "launches": fused2,
+        "max_abs_err": row3["max_abs_err"],
+        "ms": row3["ms"],
+        "plain_ms": row3["plain_ms"],
+        "bound_ms": row3["bound_ms"],
+        "bound_by": row3["bound_by"],
         "library_ms": None,
     }]}))
     print(card)

@@ -1,5 +1,5 @@
 """Benchmark problem definitions (port of ``mpc_local_planner_tpu.benchmarks``:
-the flagship configuration and its scenario ensemble)."""
+BASELINE.json configs #1-#3 and the scenario ensemble)."""
 
 from __future__ import annotations
 
@@ -8,15 +8,43 @@ from typing import Optional
 import torch
 
 from mpc_local_planner_tpu_torch.device import resolve_device
-from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint
+from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint, PointFootprint
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec, Scenario
-from mpc_local_planner_tpu_torch.systems.models import RobotLimits, SimpleCarModel
+from mpc_local_planner_tpu_torch.systems.models import (
+    RobotLimits,
+    SimpleCarModel,
+    UnicycleModel,
+)
 
+DIFF_DRIVE_LIMITS = RobotLimits(
+    max_vel_x=0.4, max_vel_x_backwards=0.2, max_vel_theta=0.3,
+    acc_lim_x=0.5, acc_lim_theta=0.5,
+)
 CARLIKE_LIMITS = RobotLimits(
     max_vel_x=0.4, max_vel_x_backwards=0.2, max_steering_angle=1.0,
     acc_lim_x=0.5,
 )
+
+
+def config1_unicycle_quadratic(N: int = 20) -> OcpSpec:
+    """BASELINE config #1: unicycle, quadratic form, no obstacles."""
+    return OcpSpec(
+        model=UnicycleModel(), footprint=PointFootprint(), N=N,
+        objective="quadratic_form", q_diag=(2.0, 2.0, 2.0), r_diag=(1.0, 1.0),
+        qf_diag=(10.0, 10.0, 10.0), dt_ref=0.3, limits=DIFF_DRIVE_LIMITS,
+    )
+
+
+def config2_diffdrive_obstacles(N: int = 30, obstacle_cap: int = 10) -> OcpSpec:
+    """BASELINE config #2: diff-drive, 10 circular obstacles, terminal ball."""
+    return OcpSpec(
+        model=UnicycleModel(), footprint=CircularFootprint(radius=0.2), N=N,
+        objective="quadratic_form", q_diag=(2.0, 2.0, 2.0), r_diag=(1.0, 1.0),
+        qf_diag=(20.0, 20.0, 20.0), ball_weights=(1.0, 1.0, 0.0),
+        ball_radius=0.2, dt_ref=0.3, min_obstacle_dist=0.1,
+        obstacle_cap=obstacle_cap, limits=DIFF_DRIVE_LIMITS,
+    )
 
 
 def config3_carlike_min_time(N: int = 50, obstacle_cap: int = 10) -> OcpSpec:

@@ -1,19 +1,30 @@
-// Kernel K2a: one whole warm AL-SQP solve per scenario, in one launch.
+// The fused whole-solve kernel: one whole warm AL-SQP solve per scenario, in
+// one launch.
 //
-// Replaces the flagship specialization of the TPU kernel
-// mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel
-// (model "simple_car", forward differences, one footprint disc at the pose,
-// static point and circle obstacle slots, minimum time on a uniform shared
-// variable dt, no terminal ball) and computes what it computes, per scenario:
+// Replaces the TPU kernel
+// mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel on the
+// scope the port admits: the models "unicycle", "simple_car",
+// "front_wheel" and the kinematic bicycle (template parameter MODEL; the
+// Pallas dyn branches), forward differences, one footprint disc at the
+// pose, static point and circle obstacle slots, minimum time or the
+// quadratic form (template parameter QUAD; plain or integral, left-sum or
+// trapezoidal, the hybrid time weight), the terminal quadratic cost, the
+// terminal ball, and a uniform dt that is a decision variable or fixed at
+// dt_ref. K2a (simple car, minimum time, variable dt, no ball) is the
+// instantiation <T, SIMPLE_CAR, false>. Per scenario it computes:
 //   per SQP iteration: the closed-form forward-difference linearization, the
-//     terminal P/p, the stage AL gradients and Gauss-Newton Hessians streamed
-//     into the backward Riccati sweep (2x2 Quu inverse, K/kff tape), the free
-//     dtau stage, the forward rollout, the NaN quarantine, the dt trust cap,
-//     the candidate line search on the AL merit (alpha = 0 candidate last,
-//     first of equal merits wins) and the reg update;
+//     terminal P/p, the stage AL gradients and Hessians streamed into the
+//     backward Riccati sweep (2x2 Quu inverse, K/kff tape), the free dtau
+//     stage (variable dt only), the forward rollout, the NaN quarantine, the
+//     dt trust cap, the candidate line search on the AL merit (alpha = 0
+//     candidate last, first of equal merits wins) and the reg update;
 //   per AL phase: the dual update with conditional rho growth and the
 //     best-feasible snapshot;
-//   at the end: the final selection and the minimum-time cost.
+//   at the end: the final selection and the objective.
+// On a fixed dt the line search clips every candidate's dt, alpha = 0
+// included, to [dt_ref, dt_ref], while the first linearization uses the
+// lane's incoming dt (which the fleet cycle's resample shrinks): the JAX
+// solver does the same.
 // The plain PyTorch version of the same math is
 // ops/fused_al_sqp_cuda.py :: fused_solve_plain.
 //
@@ -28,7 +39,11 @@
 // zeros and ones (about four times the step's operations, 1.7 times the
 // whole solve's); folding them as the TPU kernel does is left for later.
 //
-// Design: one thread per scenario, the simplest layout that is right.
+// Design: one thread per scenario, the simplest layout that is right. The
+// model and the objective family are template parameters, so the inner
+// loops carry no branch on them; the objective's forms (integral,
+// trapezoidal, hybrid), Qf, the ball and a fixed dt are runtime flags that
+// every thread of a launch shares.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
 // the step (dxs, dus) and the best-feasible snapshot in local memory (which
 // the hardware interleaves across the threads of a warp), the primal and
@@ -66,6 +81,9 @@ constexpr double EPS = 1.0e-12; // geometry.distances._EPS (safe norm)
 constexpr double PI = 3.141592653589793;
 constexpr double TWO_PI = 6.283185307179586;
 
+// the MODEL template parameter (ops/fused_al_sqp_cuda.py MODEL_IDS)
+enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
+
 }  // namespace
 
 // Static problem and solver constants, by value (doubles; the kernel rounds
@@ -73,8 +91,11 @@ constexpr double TWO_PI = 6.283185307179586;
 struct K2aParams {
   int N, M, n_al, n_sqp, n_alpha;
   int xf_fixed[3];
-  double wheelbase, fp_radius, min_dist;
+  int model, quadratic;  // the template parameters of the instantiation
+  int integral, trapezoidal, has_qf, variable_dt;
+  double wheelbase, bike_a, bike_lr, fp_radius, min_dist;
   double lo_u[2], hi_u[2], lo_r[2], hi_r[2];  // rate limits sanitized to +-BIG
+  double q[3], r[2], qf[3], hybrid, ball_w[3], ball_r;
   double dt_min, dt_max, dt_lo, dt_hi;
   double alphas[MAX_ALPHAS];
   double dt_trust_frac, rho_growth, rho_max;
@@ -132,12 +153,13 @@ template <typename T> __device__ __forceinline__ T wrap(T th) {
   return m - T(PI);
 }
 
-template <typename T>
+template <typename T, int MODEL, bool QUAD>
 struct Lane {
   int N, M;
-  T wb, fp_r, min_dist, dt_min, dt_max, dt_lo, dt_hi;
+  T wb, bike_a, bike_lr, fp_r, min_dist, dt_min, dt_max, dt_lo, dt_hi;
   T lo_u[NU], hi_u[NU], lo_r[NU], hi_r[NU];
-  bool fixed[NX];
+  T q[NX], r[NU], qf[NX], hybrid, ball_w[NX], ball_r;
+  bool fixed[NX], integral, trapezoidal, has_qf, ball_on, vdt;
   const T *xf, *u_prev, *oc, *orad;
   const unsigned char* omask;
   T *xs, *us, *ld, *lt, *mo, *mr, *mb, *md, *mball;
@@ -158,21 +180,124 @@ struct Lane {
     for (int i = 0; i < NU; ++i) u[i] = k == 0 ? u_prev[i] : us[(k - 1) * NU + i];
   }
 
-  // simple car f(x, u); the theta column of Jx; Ju
+  // the model's f(x, u); the theta column of Jx (its only nonzero column);
+  // Ju (the Pallas kernel's dyn branches)
   __device__ __forceinline__ void dyn(const T x[NX], const T u[NU], T f[NX], T jx[2],
                                       T ju[NX][NU]) const {
-    const T c = cos(x[2]), s = sin(x[2]), t = tan(u[1]), v = u[0];
-    f[0] = v * c;
-    f[1] = v * s;
-    f[2] = v * t / wb;
-    jx[0] = -v * s;
-    jx[1] = v * c;
-    ju[0][0] = c;
-    ju[0][1] = T(0);
-    ju[1][0] = s;
-    ju[1][1] = T(0);
-    ju[2][0] = t / wb;
-    ju[2][1] = v * (T(1) + t * t) / wb;
+    const T v = u[0];
+    if constexpr (MODEL == UNICYCLE) {
+      const T c = cos(x[2]), s = sin(x[2]);
+      f[0] = v * c;
+      f[1] = v * s;
+      f[2] = u[1];
+      jx[0] = -v * s;
+      jx[1] = v * c;
+      ju[0][0] = c;
+      ju[0][1] = T(0);
+      ju[1][0] = s;
+      ju[1][1] = T(0);
+      ju[2][0] = T(0);
+      ju[2][1] = T(1);
+    } else if constexpr (MODEL == SIMPLE_CAR) {
+      const T c = cos(x[2]), s = sin(x[2]), t = tan(u[1]);
+      f[0] = v * c;
+      f[1] = v * s;
+      f[2] = v * t / wb;
+      jx[0] = -v * s;
+      jx[1] = v * c;
+      ju[0][0] = c;
+      ju[0][1] = T(0);
+      ju[1][0] = s;
+      ju[1][1] = T(0);
+      ju[2][0] = t / wb;
+      ju[2][1] = v * (T(1) + t * t) / wb;
+    } else if constexpr (MODEL == FRONT_WHEEL) {
+      // the speed is measured at the steered front axle: v cos(phi) along
+      // the body
+      const T c = cos(x[2]), s = sin(x[2]), cp = cos(u[1]), sp = sin(u[1]);
+      const T vl = v * cp;
+      f[0] = vl * c;
+      f[1] = vl * s;
+      f[2] = v * sp / wb;
+      jx[0] = -vl * s;
+      jx[1] = vl * c;
+      ju[0][0] = cp * c;
+      ju[0][1] = -v * sp * c;
+      ju[1][0] = cp * s;
+      ju[1][1] = -v * sp * s;
+      ju[2][0] = sp / wb;
+      ju[2][1] = v * cp / wb;
+    } else {
+      // kinematic bicycle: beta = atan(a tan(delta)), a = lr / (lf + lr),
+      // dbeta/ddelta = a (1 + t^2) / (1 + (a t)^2)
+      const T t = tan(u[1]);
+      const T at = bike_a * t;
+      const T beta = atan(at);
+      const T dbeta = bike_a * (T(1) + t * t) / (T(1) + at * at);
+      const T cb = cos(x[2] + beta), sb = sin(x[2] + beta);
+      const T sbe = sin(beta), cbe = cos(beta);
+      f[0] = v * cb;
+      f[1] = v * sb;
+      f[2] = v * sbe / bike_lr;
+      jx[0] = -v * sb;
+      jx[1] = v * cb;
+      ju[0][0] = cb;
+      ju[0][1] = -v * sb * dbeta;
+      ju[1][0] = sb;
+      ju[1][1] = v * cb * dbeta;
+      ju[2][0] = sbe / bike_lr;
+      ju[2][1] = v * cbe * dbeta / bike_lr;
+    }
+  }
+
+  // x (-) xf: the SE(2) difference to the goal, theta wrapped
+  __device__ __forceinline__ void goal_dx(const T x[NX], T d[NX]) const {
+    d[0] = x[0] - xf[0];
+    d[1] = x[1] - xf[1];
+    d[2] = wrap(x[2] - xf[2]);
+  }
+
+  // the quadratic form's stage cost at stage k: lx + lu (plain) or
+  // (iw lx + lu) dt (integral; iw = 1/2 at k = 0 under the trapezoidal rule),
+  // plus hybrid * dt
+  __device__ __forceinline__ T stage_cost(const T x[NX], const T u[NU], T dtv, int k) const {
+    T d[NX];
+    goal_dx(x, d);
+    const T lx = q[0] * d[0] * d[0] + q[1] * d[1] * d[1] + q[2] * d[2] * d[2];
+    const T lu = r[0] * u[0] * u[0] + r[1] * u[1] * u[1];
+    T c;
+    if (integral) {
+      const T iw = (trapezoidal && k == 0) ? T(0.5) : T(1);
+      c = (iw * lx + lu) * dtv;
+    } else {
+      c = lx + lu;
+    }
+    if (hybrid > T(0)) c += hybrid * dtv;
+    return c;
+  }
+
+  // the terminal terms of the objective: Qf, and the 1/2 dt lx(x_N) tail of
+  // the trapezoidal rule
+  __device__ __forceinline__ T terminal_cost(const T xN[NX], T dtv) const {
+    T d[NX];
+    goal_dx(xN, d);
+    T c = T(0);
+    if (QUAD && integral && trapezoidal)
+      c += T(0.5) * (q[0] * d[0] * d[0] + q[1] * d[1] * d[1] + q[2] * d[2] * d[2]) * dtv;
+    if (has_qf) c += qf[0] * d[0] * d[0] + qf[1] * d[1] * d[1] + qf[2] * d[2] * d[2];
+    return c;
+  }
+
+  // the terminal ball row g = sum_i w_i d_i^2 - r^2 and its pose gradient
+  __device__ __forceinline__ T ball_g(const T xN[NX], T gp[NX]) const {
+    T d[NX];
+    goal_dx(xN, d);
+    T g = -ball_r * ball_r;
+    for (int i = 0; i < NX; ++i) {
+      g += ball_w[i] * d[i] * d[i];
+      gp[i] = T(2) * ball_w[i] * d[i];
+    }
+    return g;
   }
 
   // forward-difference defect c = wrap(x_k + dt f(x_k, u_k) - x_{k+1})
@@ -187,7 +312,8 @@ struct Lane {
 
   // the augmented transition of stage k at the current iterate:
   //   Fz = [[F, 0, m], [0, 0, 0], [0, 0, 1]], Gz = [[G], [I], [0]], rz = [c; 0]
-  // with F = I + dt Jx, G = dt Ju, m = f, c the defect (E = -I exactly)
+  // with F = I + dt Jx, G = dt Ju, m = f (0 on a fixed dt), c the defect
+  // (E = -I exactly)
   __device__ __forceinline__ void transition(int k, T Fz[NA][NA], T Gz[NA][NU],
                                              T rz[NA]) const {
     T xk[NX], uk[NU], xk1[NX], f[NX], jx[2], ju[NX][NU];
@@ -203,7 +329,7 @@ struct Lane {
       for (int j = 0; j < NA; ++j) Fz[i][j] = T(0);
     for (int i = 0; i < NX; ++i) {
       Fz[i][i] = T(1);
-      Fz[i][NA - 1] = f[i];
+      Fz[i][NA - 1] = vdt ? f[i] : T(0);
       for (int j = 0; j < NU; ++j) Gz[i][j] = dt * ju[i][j];
     }
     Fz[0][2] = dt * jx[0];
@@ -259,7 +385,43 @@ struct Lane {
     x_at(k, xk);
     u_at(k, uk);
     uprev_at(k, up);
-    hz[5] = T(1);  // minimum time: the stage cost dt has a unit gradient
+    if constexpr (QUAD) {
+      // the quadratic form, exact: gradient and (diagonal, PSD) Hessian,
+      // with the x-dt and u-dt rows of the integral form
+      T d[NX];
+      goal_dx(xk, d);
+      if (integral) {
+        const T iw = (trapezoidal && k == 0) ? T(0.5) : T(1);
+        const T lx = q[0] * d[0] * d[0] + q[1] * d[1] * d[1] + q[2] * d[2] * d[2];
+        const T lu = r[0] * uk[0] * uk[0] + r[1] * uk[1] * uk[1];
+        hz[5] += iw * lx + lu;
+        for (int i = 0; i < NX; ++i) {
+          const T qi = T(2) * q[i] * iw * d[i];
+          hz[i] += qi * dt;
+          Hzz[i][i] += T(2) * q[i] * iw * dt;
+          Hzz[i][5] += qi;
+          Hzz[5][i] = Hzz[i][5];
+        }
+        for (int j = 0; j < NU; ++j) {
+          const T rj = T(2) * r[j] * uk[j];
+          hu[j] += rj * dt;
+          Huu[j][j] += T(2) * r[j] * dt;
+          Hzu[5][j] += rj;
+        }
+      } else {
+        for (int i = 0; i < NX; ++i) {
+          hz[i] += T(2) * q[i] * d[i];
+          Hzz[i][i] += T(2) * q[i];
+        }
+        for (int j = 0; j < NU; ++j) {
+          hu[j] += T(2) * r[j] * uk[j];
+          Huu[j][j] += T(2) * r[j];
+        }
+      }
+      if (hybrid > T(0)) hz[5] += hybrid;
+    } else {
+      hz[5] = T(1);  // minimum time: the stage cost dt has a unit gradient
+    }
 
     // obstacles at x_k with multiplier row k-1 (inactive at k = 0); the
     // Gauss-Newton weight is crisp: rho where mu + rho g > 0
@@ -317,7 +479,8 @@ struct Lane {
   }
 
   // PN (6x6) and pN (6) of the terminal merit: the masked terminal equality,
-  // the obstacle Gauss-Newton block at x_N (multiplier row N-1) and the dt box
+  // Qf, the obstacle Gauss-Newton block at x_N (multiplier row N-1), the
+  // trapezoidal tail, the terminal ball and the dt box (variable dt only)
   __device__ __forceinline__ void terminal_Pp(T P[NA][NA], T p[NA]) const {
     for (int i = 0; i < NA; ++i) {
       p[i] = T(0);
@@ -330,6 +493,12 @@ struct Lane {
       if (fixed[i]) {
         P[i][i] += rho;
         p[i] += lt[i] + rho * gd[i];
+      }
+    }
+    if (has_qf) {
+      for (int i = 0; i < NX; ++i) {
+        P[i][i] += T(2) * qf[i];
+        p[i] += T(2) * qf[i] * gd[i];
       }
     }
     const T* mu_row = mo + (N - 1) * M;
@@ -346,10 +515,34 @@ struct Lane {
       P[1][1] += aw * gy * gy;
     }
     P[1][0] = P[0][1];
-    const T t1 = md[0] + rho * (dt - dt_max);
-    const T t2 = md[1] + rho * (dt_min - dt);
-    p[5] += hinge(t1) - hinge(t2);
-    P[5][5] += hinge_w(t1, rho) + hinge_w(t2, rho);
+    if (QUAD && integral && trapezoidal) {
+      // the 1/2 dt lx(x_N) tail, exact, with its dtau cross terms
+      p[5] += T(0.5) * (q[0] * gd[0] * gd[0] + q[1] * gd[1] * gd[1] + q[2] * gd[2] * gd[2]);
+      for (int i = 0; i < NX; ++i) {
+        p[i] += q[i] * gd[i] * dt;
+        P[i][i] += q[i] * dt;
+        P[i][5] += q[i] * gd[i];
+        P[5][i] = P[i][5];
+      }
+    }
+    if (ball_on) {
+      // exact PSD Hessian of the PHR ball penalty: rho s^2 g' g'^T (s the tie
+      // subgradient, see hinge_w) + a * 2 diag(w)
+      T gp[NX];
+      const T tb = mball[0] + rho * ball_g(xN, gp);
+      const T ab = hinge(tb), hwb = hinge_w(tb, rho);
+      for (int i = 0; i < NX; ++i) {
+        p[i] += ab * gp[i];
+        P[i][i] += T(2) * ball_w[i] * ab;
+        for (int j = 0; j < NX; ++j) P[i][j] += hwb * gp[i] * gp[j];
+      }
+    }
+    if (vdt) {
+      const T t1 = md[0] + rho * (dt - dt_max);
+      const T t2 = md[1] + rho * (dt_min - dt);
+      p[5] += hinge(t1) - hinge(t2);
+      P[5][5] += hinge_w(t1, rho) + hinge_w(t2, rho);
+    }
   }
 
   // the Riccati sweep, the free dtau stage and the rollout: the step of one
@@ -453,10 +646,11 @@ struct Lane {
       }
     }
 
-    // free dtau: max(P_tau, tiny) that keeps a NaN (fmax would drop it)
+    // free dtau (variable dt only): max(P_tau, tiny) that keeps a NaN (fmax
+    // would drop it)
     const T Ptau = P[NA - 1][NA - 1] + reg;
     const T den = Ptau < tiny<T>() ? tiny<T>() : Ptau;
-    dtau = -p[NA - 1] / den;
+    dtau = vdt ? -p[NA - 1] / den : T(0);
 
     // forward rollout from z_0 = [0, 0, dtau]
     T z[NA];
@@ -509,7 +703,7 @@ struct Lane {
   // clip(dt + al dtau)), one pass over the stages
   __device__ __forceinline__ T merit(T al) const {
     const T dtv = clip(dt + al * dtau, dt_lo, dt_hi);
-    T eq_lin = T(0), eq_sq = T(0), ineq = T(0);
+    T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = QUAD ? T(0) : T(N) * dtv;
     T xk[NX], uk[NU], up[NU];
     auto cand_x = [&](int k, T x[NX]) {
       x[0] = xs[k * NX + 0] + al * dxs[k][0];
@@ -542,6 +736,7 @@ struct Lane {
         const T ar = hinge(mu_r + rho * gr[i]), ab = hinge(mu_b + rho * gb[i]);
         ineq += (ar * ar - mu_r * mu_r) + (ab * ab - mu_b * mu_b);
       }
+      if constexpr (QUAD) cost += stage_cost(xk, uk, dtv, k);
       for (int i = 0; i < NX; ++i) xk[i] = xk1[i];
       for (int i = 0; i < NU; ++i) up[i] = uk[i];
     }
@@ -553,27 +748,34 @@ struct Lane {
         eq_sq += gd[i] * gd[i];
       }
     }
-    // dt box, and the disabled terminal ball's constant row g = -BIG
-    const T gdt[2] = {dtv - dt_max, dt_min - dtv};
-    for (int i = 0; i < 2; ++i) {
-      const T a = hinge(md[i] + rho * gdt[i]);
-      ineq += a * a - md[i] * md[i];
+    cost += terminal_cost(xk, dtv);
+    // dt box (variable dt only), and the terminal ball's row (a disabled
+    // ball keeps the constant row g = -BIG, as the port's merit does)
+    if (vdt) {
+      const T gdt[2] = {dtv - dt_max, dt_min - dtv};
+      for (int i = 0; i < 2; ++i) {
+        const T a = hinge(md[i] + rho * gdt[i]);
+        ineq += a * a - md[i] * md[i];
+      }
     }
-    const T ab = hinge(mball[0] - rho * T(BIG));
+    T gp[NX];
+    const T ab = hinge(mball[0] + rho * (ball_on ? ball_g(xk, gp) : -T(BIG)));
     ineq += ab * ab - mball[0] * mball[0];
-    return T(N) * dtv + eq_lin + T(0.5) * rho * eq_sq + ineq / (T(2) * rho);
+    return cost + eq_lin + T(0.5) * rho * eq_sq + ineq / (T(2) * rho);
   }
 };
 
-template <typename T>
+template <typename T, int MODEL, bool QUAD>
 __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const K2aParams prm) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
-  Lane<T> L;
+  Lane<T, MODEL, QUAD> L;
   L.N = N;
   L.M = M;
   L.wb = T(prm.wheelbase);
+  L.bike_a = T(prm.bike_a);
+  L.bike_lr = T(prm.bike_lr);
   L.fp_r = T(prm.fp_radius);
   L.min_dist = T(prm.min_dist);
   L.dt_min = T(prm.dt_min);
@@ -586,7 +788,20 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
     L.lo_r[i] = T(prm.lo_r[i]);
     L.hi_r[i] = T(prm.hi_r[i]);
   }
-  for (int i = 0; i < NX; ++i) L.fixed[i] = prm.xf_fixed[i] != 0;
+  for (int i = 0; i < NX; ++i) {
+    L.fixed[i] = prm.xf_fixed[i] != 0;
+    L.q[i] = T(prm.q[i]);
+    L.qf[i] = T(prm.qf[i]);
+    L.ball_w[i] = T(prm.ball_w[i]);
+  }
+  for (int i = 0; i < NU; ++i) L.r[i] = T(prm.r[i]);
+  L.hybrid = T(prm.hybrid);
+  L.ball_r = T(prm.ball_r);
+  L.integral = prm.integral != 0;
+  L.trapezoidal = prm.trapezoidal != 0;
+  L.has_qf = prm.has_qf != 0;
+  L.ball_on = prm.ball_r > 0.0;
+  L.vdt = prm.variable_dt != 0;
   const size_t bb = static_cast<size_t>(b);
   L.xf = a.xf + bb * NX;
   L.u_prev = a.u_prev + bb * NU;
@@ -706,14 +921,22 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
         L.lt[i] = T(0);
       }
     }
-    const T gdt[2] = {L.dt - L.dt_max, L.dt_min - L.dt};
-    for (int i = 0; i < 2; ++i) {
-      L.md[i] = hinge(L.md[i] + rho * gdt[i]);
-      in_m = vmax(in_m, gdt[i]);
+    // the terminal ball (a disabled ball's row g = -BIG clamps its multiplier
+    // to 0); the dt box, whose multipliers move on a variable dt only (a
+    // fixed dt's rows are the constant -BIG)
+    T gp[NX];
+    const T gball = L.ball_on ? L.ball_g(xN, gp) : T(-BIG);
+    L.mball[0] = hinge(L.mball[0] + rho * gball);
+    in_m = vmax(in_m, gball);
+    if (L.vdt) {
+      const T gdt[2] = {L.dt - L.dt_max, L.dt_min - L.dt};
+      for (int i = 0; i < 2; ++i) {
+        L.md[i] = hinge(L.md[i] + rho * gdt[i]);
+        in_m = vmax(in_m, gdt[i]);
+      }
+    } else {
+      in_m = vmax(in_m, T(-BIG));
     }
-    // the disabled terminal ball's row g = -BIG clamps its multiplier to 0
-    L.mball[0] = hinge(L.mball[0] - rho * T(BIG));
-    in_m = vmax(in_m, T(-BIG));
     in_m = hinge(in_m);
     const T viol = vmax(eq_m, in_m);
     const bool grow = viol > T(prm.viol_decrease_req) * viol_prev || viol > T(0.05) * tol_eq;
@@ -745,18 +968,46 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
       for (int i = 0; i < NU; ++i) L.us[k * NU + i] = L.bus[k][i];
   }
   const T dt_fin = use_best ? best_dt : L.dt;
+  T cost = T(0);
+  if constexpr (QUAD) {
+    for (int k = 0; k < N; ++k) {
+      T xk[NX], uk[NU];
+      L.x_at(k, xk);
+      L.u_at(k, uk);
+      cost += L.stage_cost(xk, uk, dt_fin, k);
+    }
+  } else {
+    cost = T(N) * dt_fin;
+  }
+  T xN_fin[NX];
+  L.x_at(N, xN_fin);
   a.dt[b] = dt_fin;
   a.rho[b] = L.rho;
-  a.cost[b] = T(N) * dt_fin;
+  a.cost[b] = cost + L.terminal_cost(xN_fin, dt_fin);
   a.eq[b] = use_best ? best_eq : eq_last;
   a.ineq[b] = use_best ? best_in : in_last;
   a.conv[b] = (final_ok || found) ? 1 : 0;
 }
 
+template <typename T, int MODEL, bool QUAD>
+void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
+  const int blocks = (a.B + THREADS - 1) / THREADS;
+  k2a_kernel<T, MODEL, QUAD><<<blocks, THREADS, 0, stream>>>(a, prm);
+}
+
+template <typename T, int MODEL>
+void launch_model(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
+  if (prm.quadratic)
+    launch_as<T, MODEL, true>(a, prm, stream);
+  else
+    launch_as<T, MODEL, false>(a, prm, stream);
+}
+
 template <typename T>
 int launch(const K2aParams* prm, const void* const* in, void* const* out, int B, void* stream) {
   if (B <= 0 || prm->N <= 0 || prm->N > MAX_N || prm->M < 0 || prm->M > MAX_M ||
-      prm->n_alpha <= 0 || prm->n_alpha > MAX_ALPHAS || prm->n_al <= 0 || prm->n_sqp <= 0)
+      prm->n_alpha <= 0 || prm->n_alpha > MAX_ALPHAS || prm->n_al <= 0 || prm->n_sqp <= 0 ||
+      prm->model < UNICYCLE || prm->model > BICYCLE)
     return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
@@ -791,8 +1042,13 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, int B,
   a.ineq = static_cast<T*>(out[13]);
   a.conv = static_cast<unsigned char*>(out[14]);
   a.B = B;
-  const int blocks = (B + THREADS - 1) / THREADS;
-  k2a_kernel<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, *prm);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (prm->model) {
+    case UNICYCLE: launch_model<T, UNICYCLE>(a, *prm, s); break;
+    case SIMPLE_CAR: launch_model<T, SIMPLE_CAR>(a, *prm, s); break;
+    case FRONT_WHEEL: launch_model<T, FRONT_WHEEL>(a, *prm, s); break;
+    default: launch_model<T, BICYCLE>(a, *prm, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

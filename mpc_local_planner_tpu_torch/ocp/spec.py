@@ -1,11 +1,13 @@
 """OCP specification (static) and per-solve scenario data (port of
 ``mpc_local_planner_tpu.ocp.spec``).
 
-``OcpSpec`` takes the JAX package's constructor arguments. This slice ports
-the flagship family — ``SimpleCarModel``, forward differences, a point or
-disc footprint, point and circle obstacle slots, minimum time with a uniform
-variable dt — and raises ``NotImplementedError`` naming the ROADMAP item for
-anything else.
+``OcpSpec`` takes the JAX package's constructor arguments. The port runs the
+unicycle, both Ackermann cars and the kinematic bicycle with forward
+differences, a point or disc footprint, point and circle obstacle slots,
+minimum time or the quadratic form (plain or integral, left-sum or
+trapezoidal, with the hybrid time weight), the terminal quadratic cost and
+the terminal ball, on a uniform grid with a fixed or variable dt. It raises
+``NotImplementedError`` naming the ROADMAP item for anything else.
 """
 
 from __future__ import annotations
@@ -20,11 +22,24 @@ from mpc_local_planner_tpu_torch.geometry.footprints import (
     PointFootprint,
 )
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
-from mpc_local_planner_tpu_torch.systems.models import RobotLimits, SimpleCarModel
+from mpc_local_planner_tpu_torch.systems.models import (
+    KinematicBicycleModelVelocityInput,
+    RobotLimits,
+    SimpleCarFrontWheelDrivingModel,
+    SimpleCarModel,
+    UnicycleModel,
+)
+
+MODELS = (
+    UnicycleModel,
+    SimpleCarModel,
+    SimpleCarFrontWheelDrivingModel,
+    KinematicBicycleModelVelocityInput,
+)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP M9)")
+def _not_ported(what: str, item: str = "M9"):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,24 +77,24 @@ class OcpSpec:
     def __post_init__(self):
         if self.nonuniform_dt and not self.variable_dt:
             raise ValueError("nonuniform_dt requires variable_dt")
-        if type(self.model) is not SimpleCarModel:
+        if type(self.model) not in MODELS:
             _not_ported(f"model {type(self.model).__name__}")
         if type(self.footprint) not in (PointFootprint, CircularFootprint):
-            _not_ported(f"footprint {type(self.footprint).__name__}")
+            _not_ported(f"footprint {type(self.footprint).__name__}", "M9, K2c")
         if self.collocation != "forward_differences":
-            _not_ported(f"collocation {self.collocation!r}")
-        if self.objective != "minimum_time":
-            _not_ported(f"objective {self.objective!r}")
-        if self.qf_diag is not None:
-            _not_ported("the terminal quadratic cost (qf_diag)")
-        if not self.variable_dt:
-            _not_ported("minimum time on a fixed dt")
+            _not_ported(f"collocation {self.collocation!r}", "M9, K2b and K2e")
+        if self.objective not in ("minimum_time", "quadratic_form"):
+            _not_ported(f"objective {self.objective!r}", "M9, K2d")
+        if self.cost_integration not in ("left_sum", "trapezoidal"):
+            raise ValueError(f"unknown cost_integration {self.cost_integration!r}")
+        if self.hybrid_time_weight < 0.0:
+            raise ValueError("hybrid_time_weight must be >= 0")
         if self.nonuniform_dt:
-            _not_ported("the non-uniform per-stage dt grid")
+            _not_ported("the non-uniform per-stage dt grid", "M9, K2f")
         if self.via_cap:
-            _not_ported("via points")
+            _not_ported("via points", "M9, K2d")
         if self.enable_dynamic_obstacles:
-            _not_ported("dynamic obstacles")
+            _not_ported("dynamic obstacles", "M9, K2c")
 
     @property
     def nx(self) -> int:

@@ -1,21 +1,28 @@
-"""Kernel K2a: one whole warm AL-SQP solve per scenario as a hand-written
-CUDA kernel, with its plain PyTorch version.
+"""The fused whole-solve kernel: one whole warm AL-SQP solve per scenario as a
+hand-written CUDA kernel, with its plain PyTorch version.
 
-Replaces the flagship specialization of the TPU kernel
+Replaces the TPU kernel
 ``mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel``
-(launched by ``fused_solve``): ``SimpleCarModel``, forward differences, a
-point or disc footprint, static point and circle obstacle slots, minimum
-time on a uniform shared variable dt, no terminal ball. The source is
-``csrc/fused_al_sqp.cu``: one thread per scenario runs the n_al × n_sqp
-schedule to its end — closed-form derivatives streamed into the Riccati
-sweep, the rollout, the NaN quarantine, the candidate line search, the dual
-updates, the best-feasible snapshot and the final selection — for float and
-double, in the port's (B, N, ...) layout.
+(launched by ``fused_solve``) on the scope that ``OcpSpec`` admits: the
+unicycle, both Ackermann cars and the kinematic bicycle (template parameter
+of the kernel), forward differences, a point or disc footprint, static point
+and circle obstacle slots, minimum time or the quadratic form (template
+parameter; plain or integral, left-sum or trapezoidal, hybrid time weight),
+the terminal quadratic cost and the terminal ball, on a uniform grid with a
+variable or fixed dt. K2a, the first specialization ported (simple car,
+minimum time, variable dt), is one instantiation. Still to port: the midpoint and
+Crank–Nicolson rules (K2b), other footprints and line and polygon slots
+(K2c), via points (K2d), shooting (K2e) and the non-uniform grid (K2f). The
+source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
+n_al × n_sqp schedule to its end — closed-form derivatives streamed into
+the Riccati sweep, the rollout, the NaN quarantine, the candidate line
+search, the dual updates, the best-feasible snapshot and the final
+selection — for float and double, in the port's (B, N, ...) layout.
 
-What bounds it on an H100 is arithmetic: the solve needs about 0.79 MFLOP
-per scenario at the warm 3×4 budget (``k2a_flops``, the Riccati step on its
-structure) against 6 KB of input and output, so at B = 4096 about 48 µs at
-the float32 peak against 7 µs for the bytes. One thread per scenario is the
+What bounds it on an H100 is arithmetic: the flagship solve needs about
+0.79 MFLOP per scenario at the warm 3×4 budget (``k2a_flops``, the Riccati
+step on its structure) against 6 KB of input and output, so at B = 4096
+about 48 µs at the float32 peak against 7 µs for the bytes. One thread per scenario is the
 simplest design that is right; it runs the step as dense 6×6 products (1.7
 times the operations over the whole solve), and with one warp per block and
 per SM nothing hides the latency of each thread's dependent chain, so it
@@ -43,11 +50,24 @@ from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, se2_boxminus
 from mpc_local_planner_tpu_torch.geometry.distances import _EPS
 from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint, PointFootprint
 from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE
+from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
+from mpc_local_planner_tpu_torch.ocp.spec import MODELS
 from mpc_local_planner_tpu_torch.ops import nvcc_build
-from mpc_local_planner_tpu_torch.solvers.al_sqp import DualState, SolveResult, _hinge, solve
+from mpc_local_planner_tpu_torch.solvers.al_sqp import (
+    DualState,
+    SolveResult,
+    _hinge,
+    dt_clip,
+    solve,
+)
 from mpc_local_planner_tpu_torch.solvers.riccati import build_augmented_transition
-from mpc_local_planner_tpu_torch.systems.models import SimpleCarModel
+from mpc_local_planner_tpu_torch.systems.models import (
+    KinematicBicycleModelVelocityInput,
+    SimpleCarFrontWheelDrivingModel,
+    SimpleCarModel,
+    UnicycleModel,
+)
 
 SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
 # compile-time maxima of the kernel (csrc/fused_al_sqp.cu)
@@ -59,34 +79,43 @@ _lib = None
 # --------------------------------------------------------------------------- #
 # scope
 # --------------------------------------------------------------------------- #
+# the kernel's model template parameter (csrc/fused_al_sqp.cu ModelId)
+MODEL_IDS = {
+    UnicycleModel: 0,
+    SimpleCarModel: 1,
+    SimpleCarFrontWheelDrivingModel: 2,
+    KinematicBicycleModelVelocityInput: 3,
+}
+
+
 def _spec_scope_error(spec):
-    """Why K2a cannot run ``spec`` (None when it can)."""
-    if type(spec.model) is not SimpleCarModel:
+    """Why the kernel cannot run ``spec`` (None when it can), with the
+    ROADMAP item that ports it."""
+    if type(spec.model) not in MODELS:
         return f"model {type(spec.model).__name__}"
     if type(spec.footprint) not in (PointFootprint, CircularFootprint):
-        return f"footprint {type(spec.footprint).__name__}"
+        return f"footprint {type(spec.footprint).__name__} (K2c)"
     if spec.collocation != "forward_differences":
-        return f"collocation {spec.collocation!r}"
-    if spec.objective != "minimum_time" or spec.qf_diag is not None or spec.via_cap:
-        return f"objective {spec.objective!r} with its extras"
-    if not spec.variable_dt or spec.nonuniform_dt:
-        return "a grid other than a uniform variable dt"
-    if spec.ball_radius > 0.0:
-        return "the terminal ball (ROADMAP K2d)"
+        return f"collocation {spec.collocation!r} (K2b, K2e)"
+    if spec.objective not in ("minimum_time", "quadratic_form") or spec.via_cap:
+        return f"objective {spec.objective!r} with via points (K2d)"
+    if spec.nonuniform_dt:
+        return "the non-uniform per-stage dt grid (K2f)"
     if spec.enable_dynamic_obstacles:
-        return "dynamic obstacles"
+        return "dynamic obstacles (K2c)"
     if spec.N > MAX_N or spec.obstacle_cap > MAX_M:
         return f"N={spec.N}, M={spec.obstacle_cap} (at most {MAX_N} and {MAX_M})"
     return None
 
 
 def fused_supported(spec) -> bool:
-    """True when K2a computes this spec's exact semantics."""
+    """True when the kernel computes this spec's exact semantics."""
     return _spec_scope_error(spec) is None
 
 
 def fused_obstacles_supported(scenario) -> bool:
-    """K2a reads point and circle slots only."""
+    """The kernel reads point and circle slots only (line and polygon slots:
+    K2c)."""
     o = scenario.obstacles
     return o.lines.shape[-3] == 0 and o.polygons.shape[-3] == 0
 
@@ -95,28 +124,54 @@ def fused_obstacles_supported(scenario) -> bool:
 # closed-form pieces (batched over any leading dims)
 # --------------------------------------------------------------------------- #
 def dyn(spec, x, u):
-    """Simple car f(x, u) (..., 3), the θ column of Jx (..., 2) and Ju
-    (..., 3, 2)."""
-    wb = spec.model.wheelbase
-    c, s, t, v = torch.cos(x[..., 2]), torch.sin(x[..., 2]), torch.tan(u[..., 1]), u[..., 0]
+    """The model's f(x, u) (..., 3), the θ column of Jx (..., 2; the other
+    columns are zero for every model) and Ju (..., 3, 2), in closed form."""
+    model = spec.model
+    th, v, w = x[..., 2], u[..., 0], u[..., 1]
     zero = torch.zeros_like(v)
-    f = torch.stack([v * c, v * s, v * t / wb], dim=-1)
-    jx = torch.stack([-v * s, v * c], dim=-1)
-    ju = torch.stack(
-        [
-            torch.stack([c, zero], dim=-1),
-            torch.stack([s, zero], dim=-1),
-            torch.stack([t / wb, v * (1.0 + t * t) / wb], dim=-1),
-        ],
-        dim=-2,
-    )
-    return f, jx, ju
+    if type(model) is UnicycleModel:
+        c, s = torch.cos(th), torch.sin(th)
+        f = [v * c, v * s, w]
+        jx = [-v * s, v * c]
+        ju = [[c, zero], [s, zero], [zero, zero + 1.0]]
+    elif type(model) is SimpleCarModel:
+        wb = model.wheelbase
+        c, s, t = torch.cos(th), torch.sin(th), torch.tan(w)
+        f = [v * c, v * s, v * t / wb]
+        jx = [-v * s, v * c]
+        ju = [[c, zero], [s, zero], [t / wb, v * (1.0 + t * t) / wb]]
+    elif type(model) is SimpleCarFrontWheelDrivingModel:
+        wb = model.wheelbase
+        c, s = torch.cos(th), torch.sin(th)
+        cp, sp = torch.cos(w), torch.sin(w)
+        vl = v * cp
+        f = [vl * c, vl * s, v * sp / wb]
+        jx = [-vl * s, vl * c]
+        ju = [[cp * c, -v * sp * c], [cp * s, -v * sp * s], [sp / wb, v * cp / wb]]
+    else:  # kinematic bicycle: beta = atan(a tan δ), a = lr / (lf + lr)
+        a, lr = _bicycle_a(model), model.lr
+        t = torch.tan(w)
+        at = a * t
+        beta = torch.atan(at)
+        dbeta = a * (1.0 + t * t) / (1.0 + at * at)
+        cb, sb = torch.cos(th + beta), torch.sin(th + beta)
+        sbe, cbe = torch.sin(beta), torch.cos(beta)
+        f = [v * cb, v * sb, v * sbe / lr]
+        jx = [-v * sb, v * cb]
+        ju = [[cb, -v * sb * dbeta], [sb, v * cb * dbeta], [sbe / lr, v * cbe * dbeta / lr]]
+    ju = torch.stack([torch.stack(row, dim=-1) for row in ju], dim=-2)
+    return torch.stack(f, dim=-1), torch.stack(jx, dim=-1), ju
+
+
+def _bicycle_a(model) -> float:
+    return model.lr / (model.lf + model.lr)
 
 
 def defect_linearization(spec, xk, uk, xk1, dt):
     """Forward-difference defect c = wrap(x_k + dt f − x_{k+1}) and its
     transition form dx_{k+1} = F dx_k + G du_k + m ddt + r: F = I + dt Jx,
-    G = dt Ju, m = f, r = c (E = −I exactly). dt has the leading shape."""
+    G = dt Ju, m = f, r = c (E = −I exactly; the caller zeroes m on a fixed
+    dt). dt has the leading shape."""
     f, jx, ju = dyn(spec, xk, uk)
     d = dt[..., None]
     c = _wrap_theta(xk + d * f - xk1)
@@ -191,18 +246,56 @@ def box_g(spec, u):
 _RATE_ROWS = ((1.0, 0, 1), (1.0, 1, 1), (-1.0, 0, 0), (-1.0, 1, 0))
 
 
-def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slots):
+def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu):
+    """The quadratic form's stage terms, exact, added in place: l = lx + lu
+    (plain) or (iw·lx + lu)·dt (integral), plus w·dt (hybrid), with
+    lx = Σ q_i dx_i², dx = x_k ⊖ xref, and lu = Σ r_j u_j²."""
+    dx = se2_boxminus(xk, xref)
+    q, r = spec.q_diag, spec.r_diag
+    if spec.integral_form:
+        x_term = sum(q[i] * dx[..., i] * dx[..., i] for i in range(3))
+        u_term = sum(r[j] * uk[..., j] * uk[..., j] for j in range(2))
+        hz[..., 5] += iw * x_term + u_term
+        for i in range(3):
+            qi = 2.0 * q[i] * iw * dx[..., i]
+            hz[..., i] += qi * dt
+            Hzz[..., i, i] += 2.0 * q[i] * iw * dt
+            Hzz[..., i, 5] += qi
+            Hzz[..., 5, i] = Hzz[..., i, 5]
+        for j in range(2):
+            rj = 2.0 * r[j] * uk[..., j]
+            hu[..., j] += rj * dt
+            Huu[..., j, j] += 2.0 * r[j] * dt
+            Hzu[..., 5, j] += rj
+    else:
+        for i in range(3):
+            hz[..., i] += 2.0 * q[i] * dx[..., i]
+            Hzz[..., i, i] += 2.0 * q[i]
+        for j in range(2):
+            hu[..., j] += 2.0 * r[j] * uk[..., j]
+            Huu[..., j, j] += 2.0 * r[j]
+    if spec.hybrid_time_weight > 0.0:
+        hz[..., 5] += spec.hybrid_time_weight
+
+
+def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slots,
+                    xref=None, iw=None):
     """Exact AL gradient (hz (..., 6), hu (..., 2)) and hybrid Gauss-Newton
     Hessian blocks (Hzz, Hzu, Huu) of the stage merit over z = [x, u_prev,
     dt] and v = u. ``mu_obs`` (..., M) is the stage's multiplier row, ``on``
-    zeroes the obstacle block at k = 0; all leading dims are batch dims."""
+    zeroes the obstacle block at k = 0; the quadratic form reads ``xref``
+    (..., 3) and the integration weight ``iw``; all leading dims are batch
+    dims."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     hz = torch.zeros(lead + (6,), **opts)
     hu = torch.zeros(lead + (2,), **opts)
     Hzz = torch.zeros(lead + (6, 6), **opts)
     Hzu = torch.zeros(lead + (6, 2), **opts)
     Huu = torch.zeros(lead + (2, 2), **opts)
-    hz[..., 5] = 1.0  # minimum time: the stage cost dt
+    if spec.objective == "quadratic_form":
+        _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu)
+    else:
+        hz[..., 5] = 1.0  # minimum time: the stage cost dt
 
     # obstacles at x_k: crisp Gauss-Newton weight ρ·[μ + ρg > 0]
     g, grad = obstacle_rows(spec, xk, slots)
@@ -211,11 +304,11 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slot
     a = _hinge(t) * onm
     aw = r * onm * (t > 0.0).to(dt.dtype)
     gx, gy = grad[..., 0], grad[..., 1]
-    hz[..., 0] = torch.sum(a * gx, dim=-1)
-    hz[..., 1] = torch.sum(a * gy, dim=-1)
-    Hzz[..., 0, 0] = torch.sum(aw * gx * gx, dim=-1)
+    hz[..., 0] += torch.sum(a * gx, dim=-1)
+    hz[..., 1] += torch.sum(a * gy, dim=-1)
+    Hzz[..., 0, 0] += torch.sum(aw * gx * gx, dim=-1)
     Hzz[..., 0, 1] = Hzz[..., 1, 0] = torch.sum(aw * gx * gy, dim=-1)
-    Hzz[..., 1, 1] = torch.sum(aw * gy * gy, dim=-1)
+    Hzz[..., 1, 1] += torch.sum(aw * gy * gy, dim=-1)
 
     # rate rows g = ±(du − b·dt): J over u_prev and dt (z) and u (v)
     bounds = _rate_bounds(spec)
@@ -245,10 +338,12 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slot
     return hz, hu, Hzz, Hzu, Huu
 
 
-def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots):
+def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots, mu_ball=None):
     """PN (..., 6, 6) and pN (..., 6) of the terminal merit: the masked
-    terminal equality, the obstacle Gauss-Newton block at x_N (multiplier
-    row N−1) and the dt box."""
+    terminal equality, Qf, the obstacle Gauss-Newton block at x_N
+    (multiplier row N−1), the ½·dt·lx(x_N) tail of the trapezoidal quadratic
+    form, the terminal ball (exact PSD Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the
+    0.5 tie subgradient) and the dt box on a variable dt."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     P = torch.zeros(lead + (6, 6), **opts)
     p = torch.zeros(lead + (6,), **opts)
@@ -257,6 +352,10 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots):
         if fixed:
             P[..., i, i] = rho
             p[..., i] = lam_term[..., i] + rho * gd[..., i]
+    if spec.qf_diag is not None:
+        for i, qf in enumerate(spec.qf_diag):
+            P[..., i, i] += 2.0 * qf
+            p[..., i] += 2.0 * qf * gd[..., i]
     g, grad = obstacle_rows(spec, xN, slots)
     r = rho[..., None]
     t = mu_obs + r * g
@@ -269,22 +368,51 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots):
     P[..., 0, 1] += torch.sum(aw * gx * gy, dim=-1)
     P[..., 1, 0] = P[..., 0, 1]
     P[..., 1, 1] += torch.sum(aw * gy * gy, dim=-1)
-    t1 = mu_dt[..., 0] + rho * (dt - spec.dt_max)
-    t2 = mu_dt[..., 1] + rho * (spec.dt_min - dt)
-    p[..., 5] = _hinge(t1) - _hinge(t2)
-    P[..., 5, 5] = hinge_w(t1, rho) + hinge_w(t2, rho)
+    if trapezoidal(spec):
+        q = spec.q_diag
+        p[..., 5] += 0.5 * sum(q[i] * gd[..., i] * gd[..., i] for i in range(3))
+        for i in range(3):
+            p[..., i] += q[i] * gd[..., i] * dt
+            P[..., i, i] += q[i] * dt
+            P[..., i, 5] += q[i] * gd[..., i]
+            P[..., 5, i] = P[..., i, 5]
+    if spec.ball_radius > 0.0:
+        gb, gp = ball_g(spec, xN, xf)
+        tb = mu_ball[..., 0] + rho * gb
+        ab, hwb = _hinge(tb), hinge_w(tb, rho)
+        for i, w in enumerate(spec.ball_weights):
+            p[..., i] += ab * gp[..., i]
+            P[..., i, i] += 2.0 * w * ab
+            for j in range(3):
+                P[..., i, j] += hwb * gp[..., i] * gp[..., j]
+    if spec.variable_dt:
+        t1 = mu_dt[..., 0] + rho * (dt - spec.dt_max)
+        t2 = mu_dt[..., 1] + rho * (spec.dt_min - dt)
+        p[..., 5] += _hinge(t1) - _hinge(t2)
+        P[..., 5, 5] += hinge_w(t1, rho) + hinge_w(t2, rho)
     return P, p
+
+
+def ball_g(spec, xN, xf):
+    """Terminal ball row g = ‖x_N ⊖ xf‖²_S − r² (..., ) and its pose gradient
+    (..., 3)."""
+    d = se2_boxminus(xN, xf)
+    w = spec.ball_weights
+    g = sum(w[i] * d[..., i] * d[..., i] for i in range(3)) - spec.ball_radius**2
+    return g, torch.stack([2.0 * w[i] * d[..., i] for i in range(3)], dim=-1)
 
 
 def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, slots):
     """The Riccati inputs (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN) of one
-    SQP iteration from K2a's closed forms; the counterpart of the AD
+    SQP iteration from the kernel's closed forms; the counterpart of the AD
     ``al_sqp._kkt_system``."""
     N, M = spec.N, spec.obstacle_cap
     xs, us, dt = primal.xs, primal.us, primal.dt
     B = dt.shape[0]
     dt_b = dt[:, None].expand(B, N)
     c, F, G, m = defect_linearization(spec, xs[:, :-1], us, xs[:, 1:], dt_b)
+    if not spec.variable_dt:
+        m = torch.zeros_like(m)
     Fz, Gz, rz = build_augmented_transition(F, G, m, c, nu=spec.nu)
     up = torch.cat([scenario.u_prev[:, None], us[:, :-1]], dim=1)
     # obstacle multiplier rows: stage k uses mu_obs[k-1]; k = 0 inactive
@@ -292,13 +420,16 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, slots):
     on = torch.ones((B, N), dtype=dt.dtype, device=dt.device)
     on[:, 0] = 0.0
     stage_slots = tuple(a[:, None] for a in slots)
+    iw = torch.ones((N,), dtype=dt.dtype, device=dt.device)
+    if trapezoidal(spec):
+        iw[0] = 0.5
     hz, hu, Hzz, Hzu, Huu = stage_grad_hess(
         spec, xs[:, :-1], us, up, dt_b, mu_obs, on, duals.mu_rate, duals.mu_box,
-        duals.rho[:, None].expand(B, N), stage_slots,
+        duals.rho[:, None].expand(B, N), stage_slots, scenario.xf[:, None], iw,
     )
     PN, pN = terminal_Pp(
         spec, xs[:, N], dt, scenario.xf, duals.lam_term, duals.mu_obs[:, N - 1],
-        duals.mu_dt, duals.rho, slots,
+        duals.mu_dt, duals.rho, slots, duals.mu_ball,
     )
     return tuple(a.contiguous() for a in (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN))
 
@@ -310,12 +441,19 @@ def _check_scope(spec, settings, scenario):
     if reason is None and len(settings.alphas) > MAX_ALPHAS:
         reason = f"{len(settings.alphas)} line-search candidates (at most {MAX_ALPHAS})"
     if reason is not None:
-        raise NotImplementedError(f"kernel K2a does not take {reason} (ROADMAP K2b-K2f)")
+        raise NotImplementedError(
+            f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
+            "midpoint and Crank-Nicolson rules (K2b), other footprints and line and "
+            "polygon slots (K2c), via points (K2d), shooting (K2e), the non-uniform "
+            "grid (K2f)"
+        )
 
 
-def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState) -> SolveResult:
-    """K2a's plain PyTorch version on any device: the whole warm solve with
-    the kernel's closed-form derivatives and the plain ``lqr_solve``."""
+def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState,
+                      decisions=None) -> SolveResult:
+    """The kernel's plain PyTorch version on any device: the whole warm solve
+    with the kernel's closed-form derivatives and the plain ``lqr_solve``
+    (``decisions``: as ``al_sqp.solve`` takes it)."""
     _check_scope(spec, settings, scenario)
     slots = circle_slots(scenario.obstacles)
 
@@ -323,7 +461,8 @@ def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState) 
         return fused_kkt_system(spec, primal, scenario, duals, slots)
 
     plain = dataclasses.replace(settings, kkt="scan", fused="off")
-    return solve(spec, plain, scenario, init, duals, kkt_system=kkt_system)
+    return solve(spec, plain, scenario, init, duals, kkt_system=kkt_system,
+                 decisions=decisions)
 
 
 # --------------------------------------------------------------------------- #
@@ -336,10 +475,17 @@ class _Params(ctypes.Structure):
         ("N", ctypes.c_int), ("M", ctypes.c_int), ("n_al", ctypes.c_int),
         ("n_sqp", ctypes.c_int), ("n_alpha", ctypes.c_int),
         ("xf_fixed", ctypes.c_int * 3),
-        ("wheelbase", ctypes.c_double), ("fp_radius", ctypes.c_double),
+        ("model", ctypes.c_int), ("quadratic", ctypes.c_int),
+        ("integral", ctypes.c_int), ("trapezoidal", ctypes.c_int),
+        ("has_qf", ctypes.c_int), ("variable_dt", ctypes.c_int),
+        ("wheelbase", ctypes.c_double), ("bike_a", ctypes.c_double),
+        ("bike_lr", ctypes.c_double), ("fp_radius", ctypes.c_double),
         ("min_dist", ctypes.c_double),
         ("lo_u", ctypes.c_double * 2), ("hi_u", ctypes.c_double * 2),
         ("lo_r", ctypes.c_double * 2), ("hi_r", ctypes.c_double * 2),
+        ("q", ctypes.c_double * 3), ("r", ctypes.c_double * 2),
+        ("qf", ctypes.c_double * 3), ("hybrid", ctypes.c_double),
+        ("ball_w", ctypes.c_double * 3), ("ball_r", ctypes.c_double),
         ("dt_min", ctypes.c_double), ("dt_max", ctypes.c_double),
         ("dt_lo", ctypes.c_double), ("dt_hi", ctypes.c_double),
         ("alphas", ctypes.c_double * MAX_ALPHAS),
@@ -357,15 +503,25 @@ def _params(spec, settings) -> _Params:
     lo_u, hi_u = (b.tolist() for b in spec.control_box())
     lo_r, hi_r = _rate_bounds(spec)
     alphas = [float(a) for a in settings.alphas]
-    d2 = ctypes.c_double * 2
+    d2, d3 = ctypes.c_double * 2, ctypes.c_double * 3
+    model = spec.model
+    bicycle = type(model) is KinematicBicycleModelVelocityInput
+    dt_lo, dt_hi = dt_clip(spec)
     return _Params(
         N=spec.N, M=spec.obstacle_cap, n_al=settings.n_al, n_sqp=settings.n_sqp,
         n_alpha=len(alphas), xf_fixed=(ctypes.c_int * 3)(*(int(b) for b in spec.xf_fixed)),
-        wheelbase=spec.model.wheelbase, fp_radius=_footprint_radius(spec),
-        min_dist=spec.min_obstacle_dist,
+        model=MODEL_IDS[type(model)], quadratic=int(spec.objective == "quadratic_form"),
+        integral=int(spec.integral_form), trapezoidal=int(trapezoidal(spec)),
+        has_qf=int(spec.qf_diag is not None), variable_dt=int(spec.variable_dt),
+        wheelbase=getattr(model, "wheelbase", 0.0),
+        bike_a=_bicycle_a(model) if bicycle else 0.0,
+        bike_lr=model.lr if bicycle else 0.0,
+        fp_radius=_footprint_radius(spec), min_dist=spec.min_obstacle_dist,
         lo_u=d2(*lo_u), hi_u=d2(*hi_u), lo_r=d2(*lo_r), hi_r=d2(*hi_r),
-        dt_min=spec.dt_min, dt_max=spec.dt_max,
-        dt_lo=max(spec.dt_min, 1.0e-3), dt_hi=spec.dt_max,
+        q=d3(*spec.q_diag), r=d2(*spec.r_diag), qf=d3(*(spec.qf_diag or (0.0,) * 3)),
+        hybrid=spec.hybrid_time_weight, ball_w=d3(*spec.ball_weights),
+        ball_r=spec.ball_radius,
+        dt_min=spec.dt_min, dt_max=spec.dt_max, dt_lo=dt_lo, dt_hi=dt_hi,
         alphas=(ctypes.c_double * MAX_ALPHAS)(*alphas),
         dt_trust_frac=settings.dt_trust_frac, rho_growth=settings.rho_growth,
         rho_max=settings.rho_max, reg0=settings.reg0, reg_shrink=settings.reg_shrink,
@@ -385,7 +541,7 @@ def build() -> dict:
 
 
 def bind(path):
-    """Load a built K2a library and declare its C entry points."""
+    """Load a built fused-kernel library and declare its C entry points."""
     lib = ctypes.CDLL(str(path))
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     for fn in (lib.k2a_fused_solve_f32, lib.k2a_fused_solve_f64):
@@ -398,7 +554,7 @@ def bind(path):
     lib.k2a_error_string.restype = ctypes.c_char_p
     limits = (lib.k2a_max_n(), lib.k2a_max_m(), lib.k2a_max_alphas(), lib.k2a_params_size())
     if limits != (MAX_N, MAX_M, MAX_ALPHAS, ctypes.sizeof(_Params)):
-        raise RuntimeError(f"K2a library {path} does not match its wrapper: {limits}")
+        raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
     return lib
 
 
@@ -422,10 +578,10 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
     xs = init.xs
     dev, dtype = xs.device, xs.dtype
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K2a takes float32 or float64, got {dtype}")
+        raise TypeError(f"the fused kernel takes float32 or float64, got {dtype}")
     B, N, M = xs.shape[0], spec.N, spec.obstacle_cap
     if B == 0:
-        raise ValueError("K2a needs a non-empty batch")
+        raise ValueError("the fused kernel needs a non-empty batch")
     centers, radii, mask = circle_slots(scenario.obstacles)
     ins = (
         xs, init.us, init.dt, scenario.xf, scenario.u_prev, centers, radii, mask,
@@ -439,13 +595,13 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
     for name, a, shape in zip(_IN_NAMES, ins, shapes):
         want = torch.bool if name == "mask" else dtype
         if a.device != dev:
-            raise ValueError(f"K2a: {name} is on {a.device}, xs on {dev}")
+            raise ValueError(f"fused kernel: {name} is on {a.device}, xs on {dev}")
         if a.dtype != want:
-            raise TypeError(f"K2a: {name} is {a.dtype}, expected {want}")
+            raise TypeError(f"fused kernel: {name} is {a.dtype}, expected {want}")
         if tuple(a.shape) != shape:
-            raise ValueError(f"K2a: {name} has shape {tuple(a.shape)}, expected {shape}")
+            raise ValueError(f"fused kernel: {name} has shape {tuple(a.shape)}, expected {shape}")
         if not a.is_contiguous():
-            raise ValueError(f"K2a: {name} is not contiguous")
+            raise ValueError(f"fused kernel: {name} is not contiguous")
     # xs, us, dt, the 8 dual fields, cost, eq_norm, ineq_viol; converged
     out_shapes = shapes[:3] + shapes[8:] + ((B,),) * 3
     outs = tuple(torch.empty(s, dtype=dtype, device=dev) for s in out_shapes)
@@ -461,7 +617,7 @@ def launch(lib, spec, settings, ins, outs, stream) -> None:
     fn = lib.k2a_fused_solve_f32 if ins[0].dtype == torch.float32 else lib.k2a_fused_solve_f64
     rc = fn(ctypes.byref(params), in_ptrs, out_ptrs, ins[0].shape[0], stream)
     if rc != 0:
-        raise RuntimeError(f"K2a launch failed: {lib.k2a_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"fused kernel launch failed: {lib.k2a_error_string(rc).decode()} ({rc})")
 
 
 def result_of(outs) -> SolveResult:
@@ -477,11 +633,11 @@ def result_of(outs) -> SolveResult:
 
 
 def fused_solve_cuda(spec, settings, scenario, init: Primal, duals: DualState) -> SolveResult:
-    """Launch K2a on CUDA tensors with one leading lane axis: the whole
+    """Launch the fused kernel on CUDA tensors with one leading lane axis: the whole
     n_al × n_sqp warm solve, the same ``SolveResult`` as ``al_sqp.solve``."""
     _check_scope(spec, settings, scenario)
     if init.xs.device.type != "cuda":
-        raise ValueError(f"K2a runs on CUDA tensors, got {init.xs.device}")
+        raise ValueError(f"the fused kernel runs on CUDA tensors, got {init.xs.device}")
     ins, outs = kernel_io(spec, scenario, init, duals)
     lib = _load()
     dev = init.xs.device
@@ -497,39 +653,50 @@ fused_solve_cuda.launches = 0
 # --------------------------------------------------------------------------- #
 # the work of one launch, for the bound
 # --------------------------------------------------------------------------- #
-# The structure of one stage's step inputs: "0" and "1" are the same
-# constant at every stage and iterate, "v" varies. Fz, Gz and rz are the
-# augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju with
-# no steering term in the position rows); Hzz, Hzu, Huu, hz and hu are
-# ``stage_grad_hess``'s blocks (obstacles on x, y; rate rows on u_prev, dt
-# and u; box rows on u). tests/test_torch_fused.py holds them against the
-# plain version's tensors.
-STEP_STRUCTURE = {
-    "Fz": ("1 0 v 0 0 v", "0 1 v 0 0 v", "0 0 1 0 0 v", "0 0 0 0 0 0", "0 0 0 0 0 0",
-           "0 0 0 0 0 1"),
-    "Gz": ("v 0", "v 0", "v v", "1 0", "0 1", "0 0"),
-    "rz": ("v v v 0 0 0",),
-    "Hzz": ("v v 0 0 0 0", "v v 0 0 0 0", "0 0 0 0 0 0", "0 0 0 v 0 v", "0 0 0 0 v v",
-            "0 0 0 v v v"),
-    "Hzu": ("0 0", "0 0", "0 0", "v 0", "0 v", "v v"),
-    "Huu": ("v 0", "0 v"),
-    "hz": ("v v 0 v v v",),
-    "hu": ("v v",),
-}
+# The structure of one stage's step inputs for a spec: "0" and "1" are the
+# same constant at every stage and iterate, "v" varies. Fz, Gz and rz are the
+# augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju,
+# the dt column m = f only on a variable dt); Hzz, Hzu, Huu, hz and hu are
+# ``stage_grad_hess``'s blocks (obstacles on x, y; the quadratic form on x,
+# u and, integral, dt; rate rows on u_prev, dt and u; box rows on u).
+# tests/test_torch_fused.py and tests/test_torch_quadratic.py hold them
+# against the plain version's tensors.
+def step_structure(spec) -> dict:
+    model = type(spec.model)
+    m = "v" if spec.variable_dt else "0"
+    g01 = "0" if model in (UnicycleModel, SimpleCarModel) else "v"  # Gz[0:2, 1]
+    g20 = "0" if model is UnicycleModel else "v"                    # Gz[2, 0]
+    quad = spec.objective == "quadratic_form"
+    integ = "v" if quad and spec.integral_form else "0"
+    obs = "v" if spec.obstacle_cap else "0"
+    xy = "v" if spec.obstacle_cap or quad else "0"
+    th = "v" if quad else "0"
+    return {
+        "Fz": (f"1 0 v 0 0 {m}", f"0 1 v 0 0 {m}", f"0 0 1 0 0 {m}", "0 0 0 0 0 0",
+               "0 0 0 0 0 0", "0 0 0 0 0 1"),
+        "Gz": (f"v {g01}", f"v {g01}", f"{g20} v", "1 0", "0 1", "0 0"),
+        "rz": ("v v v 0 0 0",),
+        "Hzz": (f"{xy} {obs} 0 0 0 {integ}", f"{obs} {xy} 0 0 0 {integ}",
+                f"0 0 {th} 0 0 {integ}", "0 0 0 v 0 v", "0 0 0 0 v v",
+                f"{integ} {integ} {integ} v v v"),
+        "Hzu": ("0 0", "0 0", "0 0", "v 0", "0 v", "v v"),
+        "Huu": ("v 0", "0 v"),
+        "hz": (f"{xy} {xy} {th} v v v",),
+        "hu": ("v v",),
+    }
 
 
-def _structure(name):
-    """STEP_STRUCTURE[name] as rows of 0.0, 1.0 or None (varies)."""
-    return [[{"0": 0.0, "1": 1.0, "v": None}[t] for t in row.split()]
-            for row in STEP_STRUCTURE[name]]
+def structure_rows(rows):
+    """One block of ``step_structure`` as rows of 0.0, 1.0 or None (varies)."""
+    return [[{"0": 0.0, "1": 1.0, "v": None}[t] for t in row.split()] for row in rows]
 
 
-def step_flops() -> tuple[int, int]:
+def step_flops(structure) -> tuple[int, int]:
     """Operations of one stage of the Riccati step and of one stage of the
-    rollout on ``STEP_STRUCTURE``: a product or sum with a structural 0 or
-    1 folds away, as the TPU kernel folds it when it is traced; every other
-    product and sum counts 1. P is dense after the first stage and counted
-    dense; each entry of the symmetrized P is formed once."""
+    rollout on a ``step_structure``: a product or sum with a structural 0
+    or 1 folds away, as the TPU kernel folds it when it is traced; every
+    other product and sum counts 1. P is dense after the first stage and
+    counted dense; each entry of the symmetrized P is formed once."""
     count = 0
 
     def mul(a, b):
@@ -557,7 +724,7 @@ def step_flops() -> tuple[int, int]:
     def cols(A):
         return [list(c) for c in zip(*A)]
 
-    S = {name: _structure(name) for name in STEP_STRUCTURE}
+    S = {name: structure_rows(rows) for name, rows in structure.items()}
     Fz, Gz, rz, Hzz, Hzu, Huu = (S[k] for k in ("Fz", "Gz", "rz", "Hzz", "Hzu", "Huu"))
     hz, hu, rz = S["hz"][0], S["hu"][0], rz[0]
     P, p, var2 = [[None] * 6 for _ in range(6)], [None] * 6, [[None] * 2 for _ in range(2)]
@@ -590,25 +757,68 @@ def step_flops() -> tuple[int, int]:
     return riccati, count
 
 
-def k2a_flops(N: int, M: int, n_al: int, n_sqp: int, n_alpha: int) -> int:
-    """Floating-point operations one scenario's solve needs: its closed
-    forms counted from csrc/fused_al_sqp.cu, the Riccati step and the
-    rollout on their structure (``step_flops``; the kernel itself does them
-    as dense 6x6 products, about four times the work). A multiply-add is 2;
-    sqrt, division and the trigonometric functions 1 each; comparisons,
-    negations and copies 0. The schedule is fixed, so every lane does the
-    same work."""
-    riccati, rollout_step = step_flops()
-    terminal = 30 + 30 * M                 # terminal_Pp
-    # dyn 12 (cos, sin, tan; v c, v s, v t / wb; t / wb, v (1 + t²) / wb),
-    # defect 13 (three x + dt f − x', the θ wrap), F 2, G 4
-    transition = 31
-    stage = 175 + 30 * M                   # stage_grad_hess (obstacles, rate, box)
+# Operations of the closed forms, counted from csrc/fused_al_sqp.cu as
+# ``k2a_flops`` counts them. f: the model's f alone (the merit's defect);
+# dyn: f, Jx and Ju (cos, sin, tan, atan 1 each); G: the varying entries of
+# dt·Ju.
+_MODEL_FLOPS = {  # model: (f, dyn, G)
+    UnicycleModel: (4, 4, 2),
+    SimpleCarModel: (7, 12, 4),
+    SimpleCarFrontWheelDrivingModel: (9, 15, 6),
+    KinematicBicycleModelVelocityInput: (11, 23, 6),
+}
+_GOAL_DX = 6     # x ⊖ xf: three differences and the θ wrap
+_QUAD_FORM = 8   # Σ q_i d_i² (and 5 for Σ r_j u_j²)
+
+
+def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int) -> int:
+    """Floating-point operations one scenario's solve of ``spec`` needs: its
+    closed forms counted from csrc/fused_al_sqp.cu, the Riccati step and the
+    rollout on their structure (``step_flops`` of ``step_structure``; the
+    kernel itself does them as dense 6x6 products, about four times the
+    work). A multiply-add is 2; sqrt, division and the trigonometric
+    functions 1 each; comparisons, negations and copies 0. The schedule is
+    fixed, so every lane does the same work."""
+    N, M = spec.N, spec.obstacle_cap
+    f_ops, dyn_ops, g_ops = _MODEL_FLOPS[type(spec.model)]
+    quad = spec.objective == "quadratic_form"
+    vdt, ball = spec.variable_dt, spec.ball_radius > 0.0
+    riccati, rollout_step = step_flops(step_structure(spec))
+    ball_g = 9                              # Σ w_i d_i² − r²
+    dt_rows_merit, dt_rows_pp, dt_rows_dual = 14, 14, 6
+    # terminal_Pp: equality, obstacles and the dt box (30 + 30 M); Qf,
+    # the trapezoidal tail, the ball (g, g′, its gradient and exact Hessian)
+    terminal = 30 + 30 * M - (0 if vdt else dt_rows_pp)
+    terminal += 9 * (spec.qf_diag is not None) + 28 * trapezoidal(spec)
+    terminal += (ball_g + 3 + 4 + 12 + 27) * ball
+    # defect 13 (three x + dt f − x', the θ wrap), F 2
+    transition = dyn_ops + 13 + 2 + g_ops
+    # stage_grad_hess: obstacles, rate and box rows (175 + 30 M); the
+    # quadratic form: plain 21, integral 52, hybrid 1
+    stage = 175 + 30 * M
+    if quad:
+        stage += (52 if spec.integral_form else 21) + (spec.hybrid_time_weight > 0.0)
     rollout = transition + rollout_step
-    merit_stage = 121 + 20 * M             # candidate, defect, penalties
+    # merit per stage: candidate, defect, penalties (121 + 20 M with the
+    # simple car's f); the quadratic form's stage cost (20, integral 22,
+    # hybrid 2)
+    merit_stage = 121 - 7 + f_ops + 20 * M
+    if quad:
+        merit_stage += (22 if spec.integral_form else 20) + 2 * (spec.hybrid_time_weight > 0.0)
+    # merit's terminal part (40): equality, dt box, ball row, minimum time;
+    # Qf 9, the tail 11, the ball's g
+    merit_end = 40 - (0 if vdt else dt_rows_merit) - quad
+    merit_end += 9 * (spec.qf_diag is not None) + 11 * trapezoidal(spec) + ball_g * ball
+    free_tau_and_cap = 3 + 4 if vdt else 0
     per_iter = (
-        terminal + N * (transition + stage + riccati) + 3 + N * rollout
-        + 4 + (n_alpha + 1) * (N * merit_stage + 40) + 13 * N + 6
+        terminal + N * (transition + stage + riccati) + free_tau_and_cap + N * rollout
+        + (n_alpha + 1) * (N * merit_stage + merit_end) + 13 * N + 6
     )
-    per_phase = N * (80 + 16 * M) + 20     # dual update
-    return n_al * n_sqp * per_iter + n_al * per_phase + 2
+    # dual update: the stage rows (80 + 16 M), the terminal rows and ρ (20)
+    per_phase = N * (80 + 16 * M) + 20 + (ball_g + 3) * ball - (0 if vdt else dt_rows_dual)
+    # the objective at the end: N·dt, or the stage costs and the terminal terms
+    final = 2
+    if quad:
+        final = N * (22 if spec.integral_form else 20) + 11 * trapezoidal(spec)
+    final += 9 * (spec.qf_diag is not None)
+    return n_al * n_sqp * per_iter + n_al * per_phase + final

@@ -6,50 +6,99 @@ card tests hold the kernels to these checks.
   agree on 99.5% of the lanes, a quarter of the lanes converged on both,
   and max |Δxs| on those within a tolerance set by the iteration budget.
 - ``f64_agreement``: float64, lane by lane. Two versions of the same math in
-  another order agree to rounding where the iterates are well conditioned.
-  Where they are not (a lane that does not converge, steering far outside
-  its box), rounding grows over the iterations. So every lane is held
-  against the plain version's own sensitivity to rounding: the plain
-  version run again from states one unit in the last place above and below
-  (``ulp_perturbed``). A fault in the kernel (a wrong dual update, snapshot
-  or selection) moves a lane far more than that. A lane whose sensitivity
-  exceeds CHAOTIC has no answer to hold the kernel to (one ulp of input
-  moves the plain version itself that far); such lanes are counted, and a
-  check at a short prefix of the schedule, before any lane gets there,
-  asks for none (``every_lane``).
+  another order agree to rounding where the iterates are well conditioned:
+  99.5% of the lanes both converged are within F64_RTOL. Where they are not
+  (a lane that does not converge, steering far outside its box), rounding
+  grows over the iterations. So every lane is held against the plain
+  version's own sensitivity to rounding: the plain version run again from
+  states one unit in the last place above and below (``ulp_perturbed``). A
+  fault in the kernel (a wrong dual update, snapshot or selection) moves a
+  lane far more than that. A lane whose sensitivity exceeds CHAOTIC has no
+  answer to hold the kernel to (one ulp of input moves the plain version
+  itself that far); such lanes are counted, and a check at a short prefix
+  of the schedule, before any lane gets there, asks for none
+  (``every_lane``).
+
+  Near a solution two comparisons of the solver are decided by rounding:
+  the line search picks among candidates whose merits differ by a few ulps
+  (the merit is flat to second order there), and the growth test compares
+  violations that are the rounding of converged defects. Two versions that
+  sum in another order may take such a tie either way, and states one ulp
+  apart need not flip it. So the plain version also runs with every near-tie
+  taken the other way (``tie_breaks``: once toward the first candidate and
+  growth, once toward the last candidate and no growth). A lane both
+  converged that this moves has a tie shown: it is held to ULP_FACTOR times
+  the larger of its two sensitivities (ρ left to the next rule), its ρ to
+  within one growth factor, and it is counted apart from the F64_RTOL share.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
+from mpc_local_planner_tpu_torch.solvers.al_sqp import Decisions
 
-F64_RTOL = 1e-8  # on the lanes both versions converged
+F64_RTOL = 1e-8  # on the lanes both versions converged with no tie shown
 F64_LANE_FRAC = 0.995  # of those lanes, within F64_RTOL
 # every lane: err(kernel, plain) <= ULP_FACTOR * max err(plain', plain) + ULP_FLOOR
 ULP_FACTOR = 100.0
 ULP_FLOOR = 1e-12
 CHAOTIC = 1e-6  # sensitivity beyond which a lane's answer is undetermined
+# near-ties: candidate merits within TIE_RTOL · max(|least|, 1) of the least
+# (the merit sums about 25 rows over 30 stages; summed in another order its
+# rounding is a few ulps, 1e-14 relative); growth-test violations within
+# VIOL_TIE of the bound (rounding of defects of states a few metres large,
+# eps 2.2e-16)
+TIE_RTOL = 1e-12
+VIOL_TIE = 1e-13
 
 
-def _leaves(r):
-    duals = [getattr(r.duals, f.name) for f in dataclasses.fields(r.duals)]
-    return [r.primal.xs, r.primal.us, r.primal.dt] + duals
+class TieBreak(Decisions):
+    """The solver's decisions with every near-tie taken one way: ``first``
+    picks the first candidate (the largest α) among those within TIE_RTOL of
+    the least merit and grows ρ when the growth test is within VIOL_TIE of
+    its bound; otherwise the last candidate (α = 0 is last) and no growth."""
+
+    def __init__(self, first: bool):
+        self.first = first
+
+    def pick(self, merits):
+        least = torch.amin(merits, dim=0)
+        tol = TIE_RTOL * torch.clamp(torch.abs(least), min=1.0)
+        near = (merits <= least + tol) & torch.isfinite(merits)
+        n = merits.shape[0]
+        idx = torch.arange(n, device=merits.device)[:, None].expand_as(merits)
+        if self.first:
+            return torch.amin(torch.where(near, idx, n), dim=0)
+        return torch.amax(torch.where(near, idx, -1), dim=0)
+
+    def stalled(self, viol, bound):
+        tie = torch.abs(viol - bound) <= VIOL_TIE
+        return (viol > bound) | tie if self.first else (viol > bound) & ~tie
 
 
-def lane_rel_err(a, b) -> torch.Tensor:
-    """Per lane, max |a − b| / max(|b|, 1) over xs, us, dt and the duals of
-    two ``SolveResult``s (float64, one value per lane)."""
-    err = torch.zeros_like(b.primal.dt, dtype=torch.float64)
-    for x, y in zip(_leaves(a), _leaves(b)):
+def tie_breaks():
+    """The two ``TieBreak`` rules the plain version runs under for
+    ``f64_agreement``'s ``outs_t``."""
+    return TieBreak(first=True), TieBreak(first=False)
+
+
+def _rel_errs(a, b) -> torch.Tensor:
+    """(leaves, lanes): per lane, max |a − b| / max(|b|, 1) of each of xs,
+    us, dt and the duals of two ``SolveResult``s, ρ last (float64)."""
+    leaves = lambda r: [r.primal.xs, r.primal.us, r.primal.dt] + [  # noqa: E731
+        getattr(r.duals, f.name) for f in dataclasses.fields(r.duals)
+    ]
+    rows = []
+    for x, y in zip(leaves(a), leaves(b)):
         x, y = x.double().reshape(x.shape[0], -1), y.double().reshape(y.shape[0], -1)
-        if y.shape[1]:
-            rel = torch.abs(x - y) / torch.clamp(torch.abs(y), min=1.0)
-            err = torch.maximum(err, rel.amax(dim=1))
-    return err
+        rel = torch.abs(x - y) / torch.clamp(torch.abs(y), min=1.0)
+        rows.append(rel.amax(dim=1) if y.shape[1] else rel.new_zeros(y.shape[0]))
+    return torch.stack(rows)
 
 
 def ulp_perturbed(init: Primal) -> tuple[Primal, Primal]:
@@ -81,45 +130,60 @@ def gate(out_k, out_p, iters: int):
     return info, passed
 
 
-def f64_agreement(out_k, out_p, outs_q, min_converged_frac: float = 0.25,
-                  every_lane: bool = False):
+def f64_agreement(out_k, out_p, outs_q, outs_t, rho_growth: float,
+                  min_converged_frac: float = 0.25, every_lane: bool = False):
     """Float64 agreement of ``out_k`` with ``out_p`` on the same inputs;
-    ``outs_q`` are the plain version from the ``ulp_perturbed`` inputs, and
-    a lane's rounding sensitivity is the larger of their errors. Passes when
-    the conv flags are identical on every lane, at least
-    ``min_converged_frac`` of the lanes converged on both, F64_LANE_FRAC of
-    those lanes are within F64_RTOL, and on every lane whose sensitivity is
-    at most CHAOTIC the kernel's error is at most ULP_FACTOR times that
-    sensitivity plus ULP_FLOOR; ``every_lane`` also asks that no lane be
-    beyond CHAOTIC. Returns (info, passed, per-lane errors, per-lane
-    sensitivities)."""
-    err = lane_rel_err(out_k, out_p)
-    sens = torch.stack([lane_rel_err(q, out_p) for q in outs_q]).amax(dim=0)
+    ``outs_q`` are the plain version from the ``ulp_perturbed`` inputs and
+    ``outs_t`` under the ``tie_breaks`` rules. Passes when the conv flags are
+    identical on every lane; at least ``min_converged_frac`` of the lanes
+    converged on both; F64_LANE_FRAC of those with no tie shown are within
+    F64_RTOL; on every lane whose one-ulp sensitivity is at most CHAOTIC the
+    kernel's error is at most ULP_FACTOR times that sensitivity plus
+    ULP_FLOOR, or, on a lane with a tie shown, at most ULP_FACTOR times the
+    larger of the one-ulp and the tie sensitivity plus ULP_FLOOR with ρ
+    within one growth factor; ``every_lane`` also asks that no lane be
+    beyond CHAOTIC. A NaN error fails its lane. Returns (info, passed,
+    per-lane errors, per-lane one-ulp sensitivities)."""
     both = out_k.converged & out_p.converged
-    n, n_both = len(err), int(torch.sum(both))
-    beyond = err > F64_RTOL
-    within = 1.0 - int(torch.sum(beyond & both)) / max(n_both, 1)
+    errs = _rel_errs(out_k, out_p)
+    err, err_v = errs.amax(dim=0), errs[:-1].amax(dim=0)  # with and without ρ
+    sens = torch.stack([_rel_errs(q, out_p).amax(dim=0) for q in outs_q]).amax(dim=0)
+    sens_tie = torch.stack([_rel_errs(t, out_p)[:-1].amax(dim=0) for t in outs_t]).amax(dim=0)
     chaotic = sens > CHAOTIC
-    over = (err > ULP_FACTOR * sens + ULP_FLOOR) & ~chaotic
+    tied = both & (sens_tie > 0.0)
+    untied = both & ~tied
+    rho_steps = torch.abs(torch.log(out_k.duals.rho.double() / out_p.duals.rho.double()))
+    rho_steps = rho_steps / math.log(rho_growth)
+    ref = torch.where(tied, torch.maximum(sens, sens_tie), sens)
+    bound = ULP_FACTOR * ref + ULP_FLOOR
+    within = torch.where(tied, (err_v <= bound) & (rho_steps <= 1.0 + 1e-9), err <= bound)
+    over = ~within & ~chaotic
+    n, n_both, n_untied = len(err), int(torch.sum(both)), int(torch.sum(untied))
+    beyond = ~(err <= F64_RTOL)
+    frac = 1.0 - int(torch.sum(untied & beyond)) / max(n_untied, 1)
+    ratio = torch.where(tied, err_v, err) / (ref + ULP_FLOOR)
     info = {
         "conv_identical": bool(torch.equal(out_k.converged, out_p.converged)),
         "converged": n_both,
         "lanes": n,
-        "within_frac_converged": within,
-        "max_err_converged": float(torch.max(torch.where(both, err, 0.0))),
+        "within_frac_converged": frac,
+        "max_err_converged": float(torch.max(torch.where(untied, err, 0.0))),
+        "converged_tied": int(torch.sum(tied)),
+        "tied_beyond_rtol": int(torch.sum(tied & ~(err_v <= F64_RTOL))),
+        "max_err_tied": float(torch.max(torch.where(tied, err_v, 0.0))),
+        "tied_rho_differs": int(torch.sum(tied & (rho_steps > 0.0))),
         "beyond_rtol": int(torch.sum(beyond)),
         "beyond_rtol_sensitivity": int(torch.sum(sens > F64_RTOL)),
         "max_err": float(torch.max(err)),
         "max_sensitivity": float(torch.max(sens)),
-        "max_err_over_sensitivity": float(torch.max(torch.where(
-            chaotic, 0.0, err / (sens + ULP_FLOOR)))),
+        "max_err_over_sensitivity": float(torch.max(torch.where(chaotic, 0.0, ratio))),
         "lanes_over_ulp_bound": int(torch.sum(over)),
         "lanes_chaotic": int(torch.sum(chaotic)),
     }
     passed = (
         info["conv_identical"]
         and n_both >= min_converged_frac * n
-        and within >= F64_LANE_FRAC
+        and frac >= F64_LANE_FRAC
         and info["lanes_over_ulp_bound"] == 0
         and not (every_lane and info["lanes_chaotic"])
     )

@@ -15,9 +15,9 @@ with masks. Ties of the PHR hinges go through ``torch.maximum``, whose
 gradient splits 0.5/0.5 like ``jnp.maximum`` (``clamp`` and ``relu`` do not:
 the Hessian of an exactly active hinge would come out ρ instead of ρ/4).
 ``make_solver`` sends a batched float32 CUDA solve of at most 16 iterations
-in the fused kernel's scope to kernel K2a (``ops/fused_al_sqp_cuda.py``),
-which runs the whole solve in one launch (``fused_dispatch_ok``); every other
-solve takes this un-fused path.
+in the fused kernel's scope (every spec ``OcpSpec`` admits) to the fused
+kernel (``ops/fused_al_sqp_cuda.py``), which runs the whole solve in one
+launch (``fused_dispatch_ok``); every other solve takes this un-fused path.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from mpc_local_planner_tpu_torch.device import const, pin_matmul_precision, reso
 from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE, ObstacleSet
 from mpc_local_planner_tpu_torch.ocp import constraints as C
 from mpc_local_planner_tpu_torch.ocp.collocation import stage_defect
+from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal
 from mpc_local_planner_tpu_torch.ocp.grid import Primal, initial_primal
 from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions, make_ocp_functions
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec
@@ -55,7 +56,7 @@ class SolverSettings:
 
     kkt: "auto" (or "pallas") = kernel K1 for CUDA tensors, the plain
     ``lqr_solve`` for CPU tensors; "scan" = the plain ``lqr_solve`` on any
-    device. fused: "auto" = kernel K2a for the solves ``fused_dispatch_ok``
+    device. fused: "auto" = the fused kernel for the solves ``fused_dispatch_ok``
     admits; "off" = always the un-fused path.
     """
 
@@ -89,6 +90,23 @@ class SolverSettings:
             base = dict(n_al=8, n_sqp=10)
         base.update(overrides)
         return SolverSettings(**base)
+
+
+class Decisions:
+    """The two comparisons of a solve that rounding can decide near a
+    solution: the line search's pick among the candidates' merits and the
+    penalty-growth test on the violation. ``solve`` takes them exactly;
+    ``solvers/agreement.py`` passes a rule that takes near-ties the other
+    way, to measure how far such a tie moves the answer."""
+
+    def pick(self, merits):
+        """The winning candidate per lane of the (C, B) merits: the first
+        least one."""
+        return torch.argmin(merits, dim=0)
+
+    def stalled(self, viol, bound):
+        """The growth test viol > viol_decrease_req · viol_prev, per lane."""
+        return viol > bound
 
 
 def _check_settings(settings: SolverSettings):
@@ -196,6 +214,8 @@ class StageData(NamedTuple):
     mu_rate: torch.Tensor  # (2*nu,)
     mu_box: torch.Tensor   # (2*nu,)
     obs: ObstacleSet       # this stage's obstacle set
+    xref: Optional[torch.Tensor] = None  # (3,) the quadratic form's reference
+    iw: Optional[torch.Tensor] = None    # (1,) integration weight of the stage
 
 
 class TermData(NamedTuple):
@@ -233,7 +253,21 @@ def _make_stage_fns(spec: OcpSpec):
         return w[0:3], w[3 : 3 + nu], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu]
 
     def objective(w, data: StageData):
-        return split(w)[3]  # minimum time: Σ_k dt = N·dt
+        if spec.objective != "quadratic_form":
+            return split(w)[3]  # minimum time: Σ_k dt = N·dt
+        x, u, dt = w[0:3], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu :]
+        dx = se2_boxminus(x, data.xref)
+        x_term = torch.sum(dx * dx * const(spec.q_diag, w), dim=-1, keepdim=True)
+        u_term = torch.sum(u * u * const(spec.r_diag, w), dim=-1, keepdim=True)
+        if spec.integral_form:
+            # data.iw: the integration rule's stage weight (trapezoidal: ½ at
+            # k = 0; the ½·dt·lx_N tail lives in the terminal stage)
+            c = (data.iw * x_term + u_term) * dt
+        else:
+            c = x_term + u_term
+        if spec.hybrid_time_weight > 0.0:
+            c = c + const((spec.hybrid_time_weight,), w) * dt
+        return torch.sum(c)
 
     def constraints_vec(w, data: StageData):
         x, up, u, dt = split(w)
@@ -279,10 +313,28 @@ def _make_stage_fns(spec: OcpSpec):
 
 
 def _make_terminal_fns(spec: OcpSpec):
-    """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)]. The
-    terminal objective is zero in this slice (no Qf, no via points)."""
+    """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)]; the
+    terminal objective is Qf and the ½·dt·lx(x_N) tail of the trapezoidal
+    quadratic form, and is left out of the merit where the spec has
+    neither."""
     nu = spec.nu
     M = spec.obstacle_cap
+    tail = trapezoidal(spec)
+    has_objective = spec.qf_diag is not None or tail
+
+    def objective(w, data: TermData):
+        x, dt = w[0:3], w[3 + nu : 4 + nu]
+        dx = se2_boxminus(x, data.xref)
+        terms = []
+        if spec.qf_diag is not None:
+            terms.append(torch.sum(dx * dx * const(spec.qf_diag, w), dim=-1, keepdim=True))
+        if tail:
+            q = const(spec.q_diag, w)
+            terms.append(const((0.5,), w) * dt * torch.sum(dx * dx * q, dim=-1, keepdim=True))
+        return torch.sum(torch.cat(terms))
+
+    def with_objective(c, w, data: TermData):
+        return c + objective(w, data) if has_objective else c
 
     def constraints_vec(w, data: TermData):
         x, dt = w[0:3], w[3 + nu : 4 + nu]  # dt as (1,): see _make_stage_fns
@@ -295,7 +347,10 @@ def _make_terminal_fns(spec: OcpSpec):
             parts.append(torch.sum(dx * dx * s, dim=-1, keepdim=True) - spec.ball_radius**2)
         else:
             parts.append(torch.full((1,), -1.0, dtype=w.dtype, device=w.device))
-        parts.append(torch.cat([dt - spec.dt_max, spec.dt_min - dt]))
+        if spec.variable_dt:
+            parts.append(torch.cat([dt - spec.dt_max, spec.dt_min - dt]))
+        else:  # fixed dt: rows inactive
+            parts.append(torch.full((2,), -1.0, dtype=w.dtype, device=w.device))
         return torch.cat(parts)
 
     def eq_vec(w, data: TermData):
@@ -307,14 +362,14 @@ def _make_terminal_fns(spec: OcpSpec):
         return torch.cat(mus + [data.mu_ball, data.mu_dt])
 
     def merit(w, data: TermData, rho):
-        c = _psi(constraints_vec(w, data), term_mu(data), rho)
+        c = with_objective(_psi(constraints_vec(w, data), term_mu(data), rho), w, data)
         return c + _phi(eq_vec(w, data), data.lam_term, rho)
 
     def hess_surrogate(w, data: TermData, rho, g0, aw):
         g = constraints_vec(w, data)
         g_rest, mu_rest = g[M:], term_mu(data)[M:]
         a = _hinge(mu_rest + rho * g_rest)
-        c = torch.sum(a * a - mu_rest * mu_rest) / (2.0 * rho)
+        c = with_objective(torch.sum(a * a - mu_rest * mu_rest) / (2.0 * rho), w, data)
         c = c + _phi(eq_vec(w, data), data.lam_term, rho)
         return c + torch.sum(0.5 * aw * (g[:M] - g0[:M]) ** 2)
 
@@ -358,8 +413,9 @@ def _al_merit(funcs: OcpFunctions, primal: Primal, scenario, duals: DualState):
     m = m + _psi(g_rate.flatten(-2), duals.mu_rate.flatten(-2), rho)
     g_box = C.control_box_inequalities(s, primal.us)
     m = m + _psi(g_box.flatten(-2), duals.mu_box.flatten(-2), rho)
-    g_dt = C.dt_inequalities(s, primal.dt, primal.xs.dtype)
-    m = m + _psi(g_dt, duals.mu_dt, rho)
+    if s.variable_dt:
+        g_dt = C.dt_inequalities(s, primal.dt, primal.xs.dtype)
+        m = m + _psi(g_dt, duals.mu_dt, rho)
     g_ball = C.terminal_ball_inequality(s, primal.xs, scenario.xf)
     return m + _psi(g_ball, duals.mu_ball, rho)
 
@@ -367,6 +423,14 @@ def _al_merit(funcs: OcpFunctions, primal: Primal, scenario, duals: DualState):
 # --------------------------------------------------------------------------- #
 # one SQP iteration: derivatives → Riccati → line search
 # --------------------------------------------------------------------------- #
+def dt_clip(spec) -> Tuple[float, float]:
+    """The line search's dt interval: [max(dt_min, 1e-3), dt_max] for a
+    variable dt, [dt_ref, dt_ref] for a fixed one."""
+    if spec.variable_dt:
+        return max(spec.dt_min, 1.0e-3), spec.dt_max
+    return spec.dt_ref, spec.dt_ref
+
+
 _ZI = (0, 1, 2, 3, 4, 7)  # z = [x, u_prev, dt] columns of w (nu = 2)
 _UI = (5, 6)              # u columns of w
 
@@ -394,6 +458,8 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     F = -Einv @ A
     G = -Einv @ Bm
     mcol = -torch.einsum("...ij,...j->...i", Einv, h)
+    if not spec.variable_dt:
+        mcol = torch.zeros_like(mcol)
     raff = -torch.einsum("...ij,...j->...i", Einv, cvals)
     Fz, Gz, rz = build_augmented_transition(F, G, mcol, raff, nu=nu)
 
@@ -405,22 +471,32 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     mu_obs_stage = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
     obs_on = torch.ones((B, N), dtype=dtype, device=xs.device)
     obs_on[:, 0] = 0.0
+    xref = iw = None  # the quadratic form's stage data
+    if spec.objective == "quadratic_form":
+        xref = _flat2(scenario.xf[:, None].expand(B, N, 3))
+        if spec.integral_form:
+            iw = torch.ones((B * N, 1), dtype=dtype, device=xs.device)
+            if trapezoidal(spec):
+                iw.view(B, N)[:, 0] = 0.5
     sdata = StageData(
         mu_obs=_flat2(mu_obs_stage),
         obs_on=_flat2(obs_on),
         mu_rate=_flat2(duals.mu_rate),
         mu_box=_flat2(duals.mu_box),
         obs=obs_stages,
+        xref=xref,
+        iw=iw,
     )
     u_ext = torch.cat([scenario.u_prev[:, None], us], dim=1)  # (B, N+1, nu)
     ws = _flat2(torch.cat([xk, u_ext[:, :-1], us, dt_b[..., None]], dim=-1))
     rho_s = _flat2(duals.rho[:, None].expand(B, N))
 
     _, stage_cons, stage_merit, stage_hess, stage_gn_w = stage_fns
-    gstage = vmap(grad(stage_merit))(ws, sdata, rho_s)
-    g0 = vmap(stage_cons)(ws, sdata)
-    aw = vmap(stage_gn_w)(sdata, g0, rho_s)
-    Hstage = vmap(hessian(stage_hess))(ws, sdata, rho_s, g0, aw)
+    sd = StageData(*(None if f is None else 0 for f in sdata))  # absent data: no vmap axis
+    gstage = vmap(grad(stage_merit), in_dims=(0, sd, 0))(ws, sdata, rho_s)
+    g0 = vmap(stage_cons, in_dims=(0, sd))(ws, sdata)
+    aw = vmap(stage_gn_w, in_dims=(sd, 0, 0))(sdata, g0, rho_s)
+    Hstage = vmap(hessian(stage_hess), in_dims=(0, sd, 0, 0, 0))(ws, sdata, rho_s, g0, aw)
     nw = ws.shape[-1]
     gstage = gstage.reshape(B, N, nw)
     Hstage = Hstage.reshape(B, N, nw, nw)
@@ -452,7 +528,8 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     )
 
 
-def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr):
+def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr,
+                   decisions):
     xs, us, dt = primal.xs, primal.us, primal.dt
     dtype = xs.dtype
     B = dt.shape[0]
@@ -473,8 +550,7 @@ def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, r
     dtau = torch.where(step_ok, step.dtau, 0.0)
 
     # ---- parallel-candidate line search on the AL merit ------------------ #
-    dt_lo = max(spec.dt_min, 1.0e-3)
-    dt_hi = spec.dt_max
+    dt_lo, dt_hi = dt_clip(spec)
     # relative trust region on dt: cap the step to a fraction of the current
     # dt by scaling the whole search direction
     alpha_cap = torch.where(
@@ -495,13 +571,15 @@ def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, r
         dt=torch.clamp(dt[None] + a_c * dtau[None], dt_lo, dt_hi),
     )
     merits = _al_merit(funcs, cands, scenario, duals)  # (C, B)
-    # non-finite candidate merits lose the line search; the α = 0 candidate
-    # equals the current iterate (the step is finite by construction above)
+    # non-finite candidate merits lose the line search. The α = 0 candidate
+    # keeps the current xs and us (the step is finite by construction above)
+    # but its dt is clipped too: on a fixed dt it is dt_ref, even where the
+    # warm start resampled the incoming dt (the JAX solver does the same)
     merits = torch.where(torch.isfinite(merits), merits, math.inf)
     merits = torch.cat(
         [merits[:-1], torch.clamp(merits[-1:], max=torch.finfo(dtype).max)], dim=0
     )
-    best = torch.argmin(merits, dim=0)  # (B,)
+    best = decisions.pick(merits)  # (B,)
     lane = torch.arange(B, device=dt.device)
     accepted = alphas[lane, best] > 0.0
     new_primal = Primal(
@@ -522,7 +600,8 @@ def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, r
 # --------------------------------------------------------------------------- #
 # dual (multiplier) updates
 # --------------------------------------------------------------------------- #
-def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, viol_prev):
+def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, viol_prev,
+                  decisions):
     """First-order multiplier update + conditional penalty growth (ρ grows
     when the violation stalls or is not yet well below tolerance)."""
     rho = duals.rho
@@ -544,7 +623,7 @@ def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, vio
     g_all = torch.cat([g.flatten(1) for g in (g_obs, g_rate, g_box, g_dt, g_ball)], dim=1)
     ineq_max = torch.clamp(g_all.amax(dim=1), min=0.0)
     viol = torch.maximum(eq_norm, ineq_max)
-    grow = (viol > settings.viol_decrease_req * viol_prev) | (
+    grow = decisions.stalled(viol, settings.viol_decrease_req * viol_prev) | (
         viol > 0.05 * settings.tol_eq
     )
     mask = const(spec.xf_fixed, te, dtype=torch.bool)
@@ -554,7 +633,7 @@ def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, vio
         mu_obs=upd(duals.mu_obs, g_obs),
         mu_rate=upd(duals.mu_rate, g_rate),
         mu_box=upd(duals.mu_box, g_box),
-        mu_dt=upd(duals.mu_dt, g_dt),
+        mu_dt=upd(duals.mu_dt, g_dt) if spec.variable_dt else duals.mu_dt,
         mu_ball=upd(duals.mu_ball, g_ball),
         rho=torch.where(
             grow, torch.clamp(rho * settings.rho_growth, max=settings.rho_max), rho
@@ -573,15 +652,18 @@ def solve(
     init: Primal,
     duals: DualState,
     kkt_system=None,
+    decisions: Optional[Decisions] = None,
 ) -> SolveResult:
     """Solve a batch of OCPs (one leading lane axis on every argument) on the
     device the tensors lie on, with the fixed n_al × n_sqp schedule.
 
     ``kkt_system(primal, duals)`` returns the Riccati inputs of one SQP
-    iteration; by default the AD derivatives of ``_kkt_system``. Kernel K2a's
-    plain version passes its closed forms.
+    iteration; by default the AD derivatives of ``_kkt_system``. The fused
+    kernel's plain version passes its closed forms. ``decisions`` takes the
+    line search's pick and the growth test (exact by default).
     """
     _check_settings(settings)
+    decisions = decisions or Decisions()
     if init.xs.dim() != 3:
         raise ValueError("solve takes one leading lane axis: xs (B, N+1, 3)")
     funcs = make_ocp_functions(spec)
@@ -608,10 +690,11 @@ def solve(
         reg = reg0  # reg restarts each phase: the dual update reshapes the merit
         for _sqp in range(settings.n_sqp):
             primal, reg = _sqp_iteration(
-                spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr
+                spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr,
+                decisions,
             )
         duals, viol_prev, eq_norm, viol = _update_duals(
-            spec, funcs, primal, scenario, duals, settings, viol_prev
+            spec, funcs, primal, scenario, duals, settings, viol_prev, decisions
         )
         # best-feasible snapshot: a later dual update can push a feasible
         # iterate back out of tolerance
@@ -644,7 +727,7 @@ def _check_device(device, *trees):
 
 def fused_dispatch_ok(spec, settings, scenario, dtype, device) -> bool:
     """The whole-solve-kernel admission decision of ``make_solver``: spec,
-    obstacle slots and candidate count in K2a's scope, float32, a CUDA
+    obstacle slots and candidate count in the fused kernel's scope, float32, a CUDA
     device, a budget of at most 16 iterations, and not ``early_exit`` (the
     kernel runs its schedule to the end). As on the TPU, CPU tensors take
     the un-fused path."""
@@ -667,7 +750,7 @@ def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device
 
     ``device`` defaults to CUDA (raises without a card); pass ``"cpu"`` to run
     on the CPU. Inputs must lie on that device. Solves that
-    ``fused_dispatch_ok`` admits launch kernel K2a (or raise); the rest take
+    ``fused_dispatch_ok`` admits launch the fused kernel (or raise); the rest take
     the un-fused ``solve``.
     """
     from mpc_local_planner_tpu_torch.ops.fused_al_sqp_cuda import fused_solve_cuda

@@ -263,8 +263,10 @@ def _small(batch=4, dtype=torch.float32):
         ("cold-budget", False),
         ("fused-off", False),
         ("early-exit", False),
-        ("terminal-ball", False),
+        ("terminal-ball", True),
         ("17-candidates", False),
+        ("17-obstacle-slots", False),
+        ("line-slots", False),
     ],
 )
 def test_torch_fused_dispatch_ok(case, admitted):
@@ -286,6 +288,13 @@ def test_torch_fused_dispatch_ok(case, admitted):
         spec = dataclasses.replace(spec, ball_radius=0.5)
     elif case == "17-candidates":
         st = dataclasses.replace(st, alphas=tuple(0.9**i for i in range(17)))
+    elif case == "17-obstacle-slots":
+        spec = dataclasses.replace(spec, obstacle_cap=17)
+    elif case == "line-slots":
+        lines = torch.zeros(scen.x0.shape[:1] + (1, 2, 2))
+        scen = dataclasses.replace(
+            scen, obstacles=dataclasses.replace(scen.obstacles, lines=lines)
+        )
     assert al_sqp.fused_dispatch_ok(spec, st, scen, dtype, device) is admitted
 
 
@@ -309,10 +318,11 @@ def test_torch_k2a_wrapper_refuses_what_the_kernel_does_not_take():
     spec, st, scen, init, duals = _small()
     with pytest.raises(ValueError, match="CUDA"):
         k2a.fused_solve_cuda(spec, st, scen, init, duals)
-    with pytest.raises(NotImplementedError, match="terminal ball"):
-        k2a.fused_solve_cuda(dataclasses.replace(spec, ball_radius=0.5), st, scen, init, duals)
-    with pytest.raises(NotImplementedError, match="terminal ball"):
-        k2a.fused_solve_plain(dataclasses.replace(spec, ball_radius=0.5), st, scen, init, duals)
+    wide = dataclasses.replace(spec, obstacle_cap=17)
+    with pytest.raises(NotImplementedError, match="M=17"):
+        k2a.fused_solve_cuda(wide, st, scen, init, duals)
+    with pytest.raises(NotImplementedError, match="M=17"):
+        k2a.fused_solve_plain(wide, st, scen, init, duals)
     strided = dataclasses.replace(init, xs=init.xs.mT.contiguous().mT)
     with pytest.raises(ValueError, match="xs is not contiguous"):
         k2a.kernel_io(spec, scen, strided, duals)
@@ -351,26 +361,40 @@ def test_torch_fleet_cycle_solves_pass_the_kernel_checks(monkeypatch):
 
 
 def test_torch_k2a_flops_count_the_schedule():
-    one = k2a.k2a_flops(30, 8, 1, 1, 3)
-    assert k2a.k2a_flops(30, 8, 3, 4, 3) > 11 * one
-    assert 5.0e5 < k2a.k2a_flops(30, 8, 3, 4, 3) < 1.0e6
-    assert k2a.k2a_flops(30, 8, 4, 4, 8) > k2a.k2a_flops(30, 8, 4, 4, 3)
+    from mpc_local_planner_tpu_torch.benchmarks import config2_diffdrive_obstacles
+
+    flagship = t_config3(N=30, obstacle_cap=8)
+    one = k2a.k2a_flops(flagship, 1, 1, 3)
+    assert k2a.k2a_flops(flagship, 3, 4, 3) > 11 * one
+    assert k2a.k2a_flops(flagship, 3, 4, 3) == 788_378  # the count PERF.md's bound uses
+    assert k2a.k2a_flops(flagship, 4, 4, 8) > k2a.k2a_flops(flagship, 4, 4, 3)
     # the structured step against the dense 6x6 algebra the kernel runs
     # (1895 operations per stage for the step, 134 for the rollout's products)
-    riccati, rollout = k2a.step_flops()
+    riccati, rollout = k2a.step_flops(k2a.step_structure(flagship))
     assert riccati < 1895 // 3 and rollout < 134 // 2
+    # config #2: the fixed dt drops the step's dt column and the dt rows; the
+    # quadratic form, Qf and the ball add their terms
+    c2 = config2_diffdrive_obstacles(N=30, obstacle_cap=10)
+    riccati2, rollout2 = k2a.step_flops(k2a.step_structure(c2))
+    assert riccati2 < riccati and rollout2 < rollout
+    no_extras = dataclasses.replace(c2, qf_diag=None, ball_radius=0.0)
+    assert k2a.k2a_flops(c2, 3, 4, 3) > k2a.k2a_flops(no_extras, 3, 4, 3)
+    assert k2a.k2a_flops(dataclasses.replace(c2, integral_form=True), 3, 4, 3) > k2a.k2a_flops(
+        c2, 3, 4, 3)
+    assert 5.0e5 < k2a.k2a_flops(c2, 3, 4, 3) < 1.0e6
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
 def test_torch_k2a_step_structure_matches_the_plain_tensors(ties):
-    """The constants of ``STEP_STRUCTURE``, which ``k2a_flops`` leaves out
+    """The constants of ``step_structure``, which ``k2a_flops`` leaves out
     of the bound, are those of the plain version's step inputs."""
     spec, _, scen, primal, duals = _iterate(4, ties=ties)
     kkt = k2a.fused_kkt_system(spec, primal, scen, duals, k2a.circle_slots(scen.obstacles))
+    structure = k2a.step_structure(spec)
     for name, a in zip(KKT_NAMES, kkt):
-        if name not in k2a.STEP_STRUCTURE:
+        if name not in structure:
             continue
-        want = k2a._structure(name)
+        want = k2a.structure_rows(structure[name])
         a = a.reshape(a.shape[:2] + (len(want), len(want[0])))
         for i, row in enumerate(want):
             for j, c in enumerate(row):
@@ -381,11 +405,14 @@ def test_torch_k2a_step_structure_matches_the_plain_tensors(ties):
 @functools.lru_cache(maxsize=1)
 def _plain_f64_results():
     """The plain version in float64 from the straight-line seed (no lane
-    converges at this budget) and from its states moved by one ulp."""
+    converges at this budget), from its states moved by one ulp and with its
+    near-ties taken the other way."""
     spec, st, scen, init, duals = _small(batch=8, dtype=torch.float64)
     out_p = k2a.fused_solve_plain(spec, st, scen, init, duals)
     outs_q = [k2a.fused_solve_plain(spec, st, scen, q, duals) for q in agreement.ulp_perturbed(init)]
-    return out_p, outs_q
+    outs_t = [k2a.fused_solve_plain(spec, st, scen, init, duals, decisions=d)
+              for d in agreement.tie_breaks()]
+    return out_p, outs_q, outs_t, st.rho_growth
 
 
 def _corrupt(r, case):
@@ -404,12 +431,12 @@ def _corrupt(r, case):
 def test_torch_f64_agreement_holds_every_lane_to_rounding(case):
     """``agreement.f64_agreement`` passes two versions that differ by
     rounding and catches a fault confined to one unconverged lane."""
-    out_p, outs_q = _plain_f64_results()
+    out_p, outs_q, outs_t, growth = _plain_f64_results()
     assert not bool(out_p.converged.any())
-    _, _, _, sens = agreement.f64_agreement(out_p, out_p, outs_q, 0.0)
+    _, _, _, sens = agreement.f64_agreement(out_p, out_p, outs_q, outs_t, growth, 0.0)
     assert float(sens.max()) < 1e-9  # the check is tight on every lane
     info, passed, _, _ = agreement.f64_agreement(
-        _corrupt(outs_q[0], case), out_p, outs_q, 0.0, every_lane=True
+        _corrupt(outs_q[0], case), out_p, outs_q, outs_t, growth, 0.0, every_lane=True
     )
     assert passed is (case == "same"), info
     if case in ("wrong-dual", "wrong-snapshot"):

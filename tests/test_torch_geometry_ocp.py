@@ -153,9 +153,9 @@ def test_torch_simple_car_dynamics_bounds_and_linearization():
     "override",
     [
         dict(collocation="midpoint_differences"),
-        dict(objective="quadratic_form"),
-        dict(qf_diag=(1.0, 1.0, 1.0)),
-        dict(variable_dt=False),
+        dict(objective="minimum_time_via_points"),
+        dict(collocation="crank_nicolson_differences"),
+        dict(collocation="shooting_rk4_2"),
         dict(nonuniform_dt=True),
         dict(via_cap=2),
         dict(enable_dynamic_obstacles=True),

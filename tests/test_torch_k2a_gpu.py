@@ -1,7 +1,11 @@
-"""Kernel K2a (``csrc/fused_al_sqp.cu``) against its plain PyTorch version
-(``fused_solve_plain``), on the card.
+"""The fused kernel (``csrc/fused_al_sqp.cu``) against its plain PyTorch
+version (``fused_solve_plain``), on the card: the flagship (K2a), BASELINE
+config #2 (unicycle, quadratic form, Qf, terminal ball, fixed dt), config #1
+(no obstacle slot, integral left-sum) and the flagship with the front-wheel
+car and the kinematic bicycle.
 
-K2a has no CPU or interpret mode, so these tests skip without a CUDA card.
+The kernel has no CPU or interpret mode, so these tests skip without a CUDA
+card.
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine that has only PyTorch:
 
@@ -13,29 +17,55 @@ the next warm solve's inputs from a cold solve. Tolerances
 - float64, at the whole budget and after one SQP iteration: conv flags
   identical on every lane; max relative |Δ| (over xs, us, dt and the duals,
   relative to max(|plain|, 1)) ≤ 1e-8 on at least 99.5% of the lanes both
-  converged; on every lane at most 100 times the plain version's own change
-  under a one-ulp change of its states, plus 1e-12, where that change is
-  below 1e-6 (on every lane after one iteration).
+  converged with no line-search or growth-test tie shown; on every lane at
+  most 100 times the plain version's own change under a one-ulp change of
+  its states, plus 1e-12, where that change is below 1e-6 (on every lane
+  after one iteration); on a lane both converged with a tie shown, 100 times
+  the larger of that change and the plain version's change when it takes
+  its near-ties the other way, with ρ within one growth factor.
 - float32: the bench gate's semantics (bench.py): conv flags agree on
   99.5% of lanes, a quarter of the lanes converged on both, max |Δxs| on
   those ≤ 5e-2 at 12 iterations and 1e-1 at 16.
 """
 
 import dataclasses
+import json
 
 import pytest
 import torch
 
-from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, random_ensemble
+from mpc_local_planner_tpu_torch.benchmarks import (
+    config1_unicycle_quadratic,
+    config2_diffdrive_obstacles,
+    config3_carlike_min_time,
+    random_ensemble,
+)
 from mpc_local_planner_tpu_torch.geometry.footprints import PointFootprint
 from mpc_local_planner_tpu_torch.ocp.grid import warm_start_resample
 from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
 from mpc_local_planner_tpu_torch.solvers import agreement, al_sqp
+from mpc_local_planner_tpu_torch.systems.models import (
+    KinematicBicycleModelVelocityInput,
+    SimpleCarFrontWheelDrivingModel,
+)
 
 WARM = dict(
     n_al=3, n_sqp=4, rho0=120.0, reg0=1.0, tol_eq=1e-3, tol_ineq=1e-3, alphas=(1.0, 0.5, 0.22)
 )
 RESCUE = dict(WARM, n_al=4, alphas=(1.0, 0.7, 0.5, 0.35, 0.22, 0.14, 0.08, 0.03))
+FAMILY = {
+    "config2": lambda: config2_diffdrive_obstacles(N=30, obstacle_cap=10),
+    "config1": lambda: dataclasses.replace(config1_unicycle_quadratic(N=20), integral_form=True),
+    "front-wheel": lambda: dataclasses.replace(
+        config3_carlike_min_time(N=30, obstacle_cap=8),
+        model=SimpleCarFrontWheelDrivingModel(wheelbase=0.5),
+    ),
+    "bicycle": lambda: dataclasses.replace(
+        config3_carlike_min_time(N=30, obstacle_cap=8),
+        model=KinematicBicycleModelVelocityInput(lf=0.3, lr=0.2),
+    ),
+}
 
 
 def _card():
@@ -44,11 +74,12 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1):
+def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0):
     """300 lanes (not a multiple of the 32-thread block: the ragged last
     block is exercised) in the state of the fleet cycle's next warm solve:
-    a cold solve (the plain version at the cold preset), then converged
-    lanes advanced one stage, the primal resampled and the duals shifted."""
+    a cold solve (the plain version at the cold preset) and ``cycles``
+    fleet cycles with the plain warm solve, then converged lanes advanced
+    one stage, the primal resampled and the duals shifted."""
     spec = spec or config3_carlike_min_time(N=30, obstacle_cap=8)
     st = al_sqp.SolverSettings(**settings)
     cold = al_sqp.SolverSettings.for_spec(spec)
@@ -56,6 +87,14 @@ def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1):
     scen = random_ensemble(spec, batch, gen, dtype=dtype, device=dev)
     init, duals = al_sqp.default_init(spec, cold, scen, dtype=dtype)
     r = k2a.fused_solve_plain(spec, cold, scen, init, duals)
+    if cycles:
+        duals0 = al_sqp.init_duals(spec, st, dtype, dev, batch=(batch,))
+        cycle = make_fleet_cycle(
+            spec, st, duals0, device=dev,
+            solve=lambda s, i, d: k2a.fused_solve_plain(spec, st, s, i, d),
+        )
+        for _ in range(cycles):
+            scen, r = cycle(scen, r)
     x0n = torch.where(r.converged[:, None], r.primal.xs[:, 1, :], scen.x0)
     init = warm_start_resample(r.primal, x0n, steps=1, spec=spec)
     duals = al_sqp.shift_duals(r.duals, st, steps=1)
@@ -72,12 +111,15 @@ def _check_f64(spec, st, scen, init, duals):
         assert k2a.fused_solve_cuda.launches == before + 1
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
         outs_q = [k2a.fused_solve_plain(spec, sp, scen, q, duals) for q in perturbed]
+        outs_t = [k2a.fused_solve_plain(spec, sp, scen, init, duals, decisions=d)
+                  for d in agreement.tie_breaks()]
         torch.cuda.synchronize()
         assert out_k.primal.xs.dtype == torch.float64
         info, passed, _, _ = agreement.f64_agreement(
-            out_k, out_p, outs_q, 0.0 if short else 0.25, every_lane=short
+            out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else 0.25,
+            every_lane=short,
         )
-        assert passed, info
+        assert passed, json.dumps(info)
 
 
 def _check_f32(spec, st, scen, init, duals):
@@ -85,7 +127,7 @@ def _check_f32(spec, st, scen, init, duals):
     out_p = k2a.fused_solve_plain(spec, st, scen, init, duals)
     torch.cuda.synchronize()
     info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp)
-    assert passed, info
+    assert passed, json.dumps(info)
     both = out_k.converged & out_p.converged
     assert bool(torch.isfinite(out_k.primal.xs[both]).all())
 
@@ -109,6 +151,30 @@ def test_torch_k2a_kernel_matches_plain_on_a_point_footprint_with_a_free_heading
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(FAMILY))
+def test_torch_fused_kernel_matches_plain_across_the_family(case, dtype):
+    """From the live state of two fleet cycles (a single warm solve after
+    the cold solve converges under a quarter of config #2's lanes)."""
+    args = _warm_state(_card(), dtype, WARM, spec=FAMILY[case](), cycles=2)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
+def test_torch_make_solver_launches_the_kernel_for_config2s_warm_solve():
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(
+        dev, torch.float32, WARM, batch=64, spec=FAMILY["config2"]()
+    )
+    before = k2a.fused_solve_cuda.launches
+    out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert bool((out.primal.dt == torch.tensor(0.3, dtype=torch.float32)).all())
+    al_sqp.make_solver(spec, dataclasses.replace(st, fused="off"), dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_torch_make_solver_launches_k2a_for_the_warm_solve():
     dev = _card()
     spec, st, scen, init, duals = _warm_state(dev, torch.float32, WARM, batch=64)
@@ -129,8 +195,8 @@ def test_torch_k2a_kernel_refuses_what_it_does_not_take():
     short = dataclasses.replace(duals, mu_obs=duals.mu_obs[:, :, :2])
     with pytest.raises(ValueError, match="mu_obs has shape"):
         k2a.fused_solve_cuda(spec, st, scen, init, short)
-    with pytest.raises(NotImplementedError, match="terminal ball"):
-        k2a.fused_solve_cuda(dataclasses.replace(spec, ball_radius=0.5), st, scen, init, duals)
+    with pytest.raises(NotImplementedError, match="M=17"):
+        k2a.fused_solve_cuda(dataclasses.replace(spec, obstacle_cap=17), st, scen, init, duals)
     strided = dataclasses.replace(init, us=init.us.mT.contiguous().mT)
     with pytest.raises(ValueError, match="us is not contiguous"):
         k2a.fused_solve_cuda(spec, st, scen, strided, duals)
