@@ -47,11 +47,38 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                prefix, float32) at B=1024 for the flagship with the
                front-wheel car and with the kinematic bicycle, and for
                config #1 (no obstacle slot, integral left-sum), each from
-               its own cold solve and two fused fleet cycles
+               its own cold solve and two fused fleet cycles; run last,
+               with phase 23
  15. gate    — config #2's fused warm solve against the un-fused one, 256
                lanes of its live warm state
  16. trace   — one config #2 warm cycle under torch.profiler
- 17. summary — the kernels line, the card line, then the result line
+ 17. path A  — the reference's car-like config (family_spec
+               "canonical_carlike": the simple car with the two-disc
+               footprint, 8 circle slots, minimum time) on the fused path as
+               bench.py's families mode runs it: cold 16×15 (un-fused, K1),
+               2 settle + 8 timed warm cycles (3×4) with the 1024-slot 4×4
+               rescue, the cold oracle; 20 fused launches, 480 of K1, none
+               in the warm cycles
+ 18. kernel  — the fused kernel against its plain version on path A's live
+               warm state (4096 lanes at 3×4, 1024 at 4×4)
+ 19. gate    — path A's fused warm solve against the un-fused one; trace
+ 20. path B  — the wall world (family_spec "converter_lines": the flagship
+               disc, 6 line slots from the wall sampler) at the family's
+               shipping defaults but the straight-line seed: warm 4×4, the
+               2048-slot 4×4 rescue chained twice per cycle, stuck_restart=2;
+               30 fused launches (3 per cycle), 480 of K1
+ 21. kernel  — the fused kernel against its plain version on path B's live
+               warm state (4096 lanes at 4×4, the 2048-slot rescue)
+ 22. gate    — path B's fused warm solve against the un-fused one; trace
+ 23. K2c     — the kernel against its plain version at B=1024 (float64 at
+               every prefix, float32) on polygon slots with a varying vertex
+               count, dynamic circle and line slots, all four families with
+               the two-disc footprint and dynamic obstacles, and the
+               kinematic bicycle with the two-disc footprint, each from its
+               own cold solve and two fused fleet cycles. The seven cases of
+               phases 14 and 23 run at once, each in a process of its own
+               (``chip_smoke.py --family-case NAME``)
+ 24. summary — the kernels line, the card line, then the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -68,6 +95,7 @@ import time
 
 BATCH = 4096
 RESCUE_SLOTS = 1024
+LINES_RESCUE_SLOTS = 2048  # the wall world's rescue (bench.py families mode)
 GATE_LANES = 256
 SETTLE_CYCLES = 2
 TIMED_CYCLES = 8
@@ -84,14 +112,18 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # (solvers/agreement.py): conv flags identical on every lane; max relative
 # |Δ| over xs, us, dt and the duals within 1e-8 on 99.5% of the lanes both
 # converged with no tie shown; and on every lane at most 100 times the plain
-# version's own change under a one-ulp change of its states (up or down).
-# A lane both converged that the plain version leaves elsewhere when it
-# takes its near-ties of the line search and the growth test the other way
-# (a tie shown) is held to 100 times the larger of the two changes, its ρ to
-# one growth factor. The check runs at every prefix of the solve's schedule
-# (1×1, 1×2, then whole AL phases), so a lane is held tight before its
-# rounding can grow; a lane whose own change passes 1e-6 (a chaotic lane) is
-# counted and left out of it, and at 1×1 no lane may be.
+# version's own change under rounding. A lane both converged that the
+# plain version leaves elsewhere when it takes its near-ties of the line
+# search and the growth test the other way (a tie shown) is held to 100
+# times the larger of the two changes, its ρ to one growth factor. The check
+# runs at every prefix of the solve's schedule (1×1, 1×2, then whole AL
+# phases), so a lane is held tight before its rounding can grow; a lane
+# whose own change passes 1e-6 (a chaotic lane) is counted and left out of
+# it, but at 1×1 every lane is held, and none beyond 1e-4
+# (agreement.EVERY_LANE_CAP). The plain version's own change is its largest
+# under a one-ulp change of its states and under one ulp on each entry of
+# its per-iteration KKT inputs, the rounding by which the kernel's
+# derivatives differ from it.
 
 
 def _fail(msg):
@@ -138,12 +170,15 @@ def config2():
     return config2_diffdrive_obstacles(N=30, obstacle_cap=10)
 
 
-def ensemble(spec, batch, device, seed=0):
+def ensemble(spec, batch, device, seed=0, family=None):
+    """``random_ensemble``, or ``family_ensemble`` of a named family."""
     import torch
 
-    from mpc_local_planner_tpu_torch.benchmarks import random_ensemble
+    from mpc_local_planner_tpu_torch.benchmarks import family_ensemble, random_ensemble
 
     gen = torch.Generator().manual_seed(seed)
+    if family is not None:
+        return family_ensemble(family, spec, batch, gen, dtype=torch.float32, device=device)
     return random_ensemble(spec, batch, gen, dtype=torch.float32, device=device)
 
 
@@ -236,10 +271,13 @@ def kernel_phase(spec, warm, device, batches=(BATCH, RESCUE_SLOTS), tag="K1"):
 
 
 def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH,
-              slots=RESCUE_SLOTS):
-    """bench.py::main on the port. ``cold_start`` = (scenarios, cold result)
-    skips the cold solve. Returns (extra, settled state, seconds, the cycle,
-    the cold start, K1's launch count after the timed cycles)."""
+              slots=RESCUE_SLOTS, family=None, chain=1, stuck_restart=0):
+    """bench.py::main on the port (families mode for a named ``family``:
+    its ensemble, the rescue chained ``chain`` times per cycle, the
+    stuck-lane restart). ``cold_start`` = (scenarios, cold result) skips
+    the cold solve. Returns (extra, settled state, seconds, one cycle from
+    the settled state, the cold start, K1's launch count after the timed
+    cycles)."""
     import torch
 
     from mpc_local_planner_tpu_torch.ocp.grid import initial_primal
@@ -254,12 +292,27 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
 
     duals0 = init_duals(spec, cold, dtype=torch.float32, device=device, batch=(batch,))
     cold_solve = make_solver(spec, cold, device)
-    rescue = make_rescue(spec, warm, slots, rescue_settings=rescue_set, device=device)
-    cycle = make_fleet_cycle(spec, warm, duals0, rescue=rescue, device=device)
+    rescue1 = make_rescue(spec, warm, slots, rescue_settings=rescue_set, device=device)
+
+    def rescue(scen, r):
+        for _ in range(chain):
+            r = rescue1(scen, r)
+        return r
+
+    cycle = make_fleet_cycle(spec, warm, duals0, rescue=rescue, device=device,
+                             stuck_restart=stuck_restart)
+    stuck = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+    def run(scen, r):
+        nonlocal stuck
+        if not stuck_restart:
+            return cycle(scen, r)
+        scen, r, stuck = cycle(scen, r, stuck)
+        return scen, r
 
     secs = {}
     if cold_start is None:
-        scen = ensemble(spec, batch, device)
+        scen = ensemble(spec, batch, device, family=family)
         t0 = time.perf_counter()
         r = cold_solve(scen, initial_primal(spec, scen), duals0)
         sync()
@@ -267,12 +320,20 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         cold_start = (scen, r)
     scen, r = cold_start
     for _ in range(SETTLE_CYCLES):
-        scen, r = cycle(scen, r)
+        scen, r = run(scen, r)
     sync()
     settled = (scen, r)
+    stuck_settled = stuck
+
+    def one_cycle(scen_, r_):
+        """One cycle from the settled state's stuck counts."""
+        if not stuck_restart:
+            return cycle(scen_, r_)
+        return cycle(scen_, r_, stuck_settled)[:2]
+
     t0 = time.perf_counter()
     for _ in range(TIMED_CYCLES):
-        scen, r = cycle(scen, r)
+        scen, r = run(scen, r)
     n_conv = int(torch.sum(r.converged))  # host fetch ends the chain
     dt = (time.perf_counter() - t0) / TIMED_CYCLES
     k1_after_cycles = riccati_cuda.lqr_solve_cuda.launches
@@ -291,7 +352,7 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         "feasible_frac_cold_oracle": n_feas / batch,
         "conv_on_feasible": int(torch.sum(r.converged & feas)) / max(n_feas, 1),
     }
-    return extra, settled, secs, cycle, cold_start, k1_after_cycles
+    return extra, settled, secs, one_cycle, cold_start, k1_after_cycles
 
 
 def warm_inputs(spec, warm, settled, n):
@@ -347,20 +408,20 @@ def k2a_f64_phase(spec, st, args64, tag):
     from mpc_local_planner_tpu_torch.solvers import agreement
 
     scen, init, duals = args64
-    perturbed = agreement.ulp_perturbed(init)
     rows = []
     for n_al, n_sqp in schedule_prefixes(st):
         sp = dataclasses.replace(st, n_al=n_al, n_sqp=n_sqp)
         last = (n_al, n_sqp) == (st.n_al, st.n_sqp)
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
-        outs_q = [k2a.fused_solve_plain(spec, sp, scen, q, duals) for q in perturbed]
-        outs_t = [k2a.fused_solve_plain(spec, sp, scen, init, duals, decisions=d)
-                  for d in agreement.tie_breaks()]
+        outs_q, outs_r, outs_t = agreement.plain_runs(
+            lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw), init
+        )
         torch.cuda.synchronize()
         info, passed, err, sens = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth,
             min_converged_frac=0.25 if last else 0.0, every_lane=(n_al, n_sqp) == (1, 1),
+            outs_r=outs_r,
         )
         print(f"{tag} f64 at {n_al}x{n_sqp}: {json.dumps(info)} passed={passed}")
         if not passed:
@@ -399,21 +460,23 @@ def k2a_check(spec, st, args32, tag):
     return info
 
 
-def k2a_phase(spec, warm, rescue_set, settled, name="K2a"):
+def k2a_phase(spec, warm, rescue_set, settled, name="K2a", slots=RESCUE_SLOTS):
     """The fused kernel against its plain version on the live warm state:
-    the next warm solve's inputs at 4096 lanes (3×4, 3 candidates) and at
-    1024 lanes with the rescue's settings (4×4, 8 candidates), in float64
-    and float32; kernel, plain and bound times."""
+    the next warm solve's inputs at 4096 lanes under ``warm`` and at
+    ``slots`` lanes with the rescue's settings, in float64 and float32;
+    kernel, plain and bound times (the bound counts this run's slot
+    families and polygon edges)."""
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
 
     report = {}
-    for batch, st in ((BATCH, warm), (RESCUE_SLOTS, rescue_set)):
+    for batch, st in ((BATCH, warm), (slots, rescue_set)):
         args32 = warm_inputs(spec, st, settled, batch)
         tag = f"{name} B={batch} {st.n_al}x{st.n_sqp}"
         info = k2a_check(spec, st, args32, tag)
         ins, outs = k2a.kernel_io(spec, *args32)
         nbytes = sum(a.numel() * a.element_size() for a in ins + outs)
-        flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas))
+        flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas),
+                                      args32[0].obstacles)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOP_PER_S * 1e3
         row = {
@@ -432,25 +495,13 @@ def k2a_phase(spec, warm, rescue_set, settled, name="K2a"):
     return report
 
 
-def family_phase(warm, device, batch=RESCUE_SLOTS):
-    """The fused kernel against its plain version at ``batch`` lanes for the
-    branches that no main path runs: the flagship with the front-wheel car
-    and with the kinematic bicycle, and config #1 (no obstacle slot, point
-    footprint, integral left-sum). Each starts from its own cold solve
-    (un-fused, K1) and two fleet cycles (fused), then the fleet cycle's
-    next warm inputs."""
-    import torch
-
+def model_cases():
+    """Phase 14's specs: the flagship with the front-wheel car and with the
+    kinematic bicycle, and config #1 (no obstacle slot, point footprint,
+    integral left-sum)."""
     from mpc_local_planner_tpu_torch.benchmarks import (
         config1_unicycle_quadratic,
         config3_carlike_min_time,
-    )
-    from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
-    from mpc_local_planner_tpu_torch.solvers.al_sqp import (
-        SolverSettings,
-        default_init,
-        init_duals,
-        make_solver,
     )
     from mpc_local_planner_tpu_torch.systems.models import (
         KinematicBicycleModelVelocityInput,
@@ -458,27 +509,160 @@ def family_phase(warm, device, batch=RESCUE_SLOTS):
     )
 
     car = config3_carlike_min_time(N=30, obstacle_cap=8)
-    cases = (
-        ("front-wheel", dataclasses.replace(car, model=SimpleCarFrontWheelDrivingModel(0.5))),
-        ("bicycle", dataclasses.replace(car, model=KinematicBicycleModelVelocityInput(0.3, 0.2))),
-        ("config1", dataclasses.replace(config1_unicycle_quadratic(N=20), integral_form=True)),
+    return (
+        ("front-wheel", dataclasses.replace(car, model=SimpleCarFrontWheelDrivingModel(0.5)), None),
+        ("bicycle", dataclasses.replace(car, model=KinematicBicycleModelVelocityInput(0.3, 0.2)),
+         None),
+        ("config1", dataclasses.replace(config1_unicycle_quadratic(N=20), integral_form=True),
+         None),
     )
-    for name, spec in cases:
-        t0 = time.perf_counter()
-        cold = SolverSettings.for_spec(spec)
+
+
+def k2c_cases():
+    """Phase 23's specs and slot mixes (``benchmarks.mixed_obstacles``, as
+    the JAX package's tests/test_fused_solver.py draws them): polygon slots
+    with a varying vertex count, dynamic circle and line slots, all four
+    families with the canonical two-disc footprint and dynamic obstacles,
+    and the kinematic bicycle with the two-disc footprint (8 circle slots,
+    ``random_ensemble``)."""
+    from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, family_spec
+    from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint
+    from mpc_local_planner_tpu_torch.systems.models import KinematicBicycleModelVelocityInput
+
+    def car(footprint, dynamic=False, **slots):
+        M = sum(slots.get(k, 0) for k in ("mp", "mc", "ml", "mg"))
+        spec = dataclasses.replace(config3_carlike_min_time(N=30, obstacle_cap=M),
+                                   footprint=footprint, enable_dynamic_obstacles=dynamic)
+        return spec, dict(slots, dynamic=dynamic)
+
+    two = family_spec("canonical_carlike", N=30).footprint
+    return (
+        ("polygons", *car(CircularFootprint(0.15), mc=1, mg=2, V=5, vary_nv=True)),
+        ("lines-dynamic", *car(CircularFootprint(0.2), True, mc=2, ml=3)),
+        ("mixed-dynamic", *car(two, True, mp=1, mc=2, ml=2, mg=1, V=4)),
+        ("bicycle-two-circles", dataclasses.replace(
+            family_spec("canonical_carlike", N=30),
+            model=KinematicBicycleModelVelocityInput(0.3, 0.2)), None),
+    )
+
+
+def family_case(name, batch=RESCUE_SLOTS):
+    """One case of phases 14 and 23: the fused kernel against its plain
+    version on ``family_state``'s warm inputs."""
+    spec, warm, args32 = family_state(name, batch)
+    k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
+
+
+def family_state(name, batch=RESCUE_SLOTS):
+    """One case of ``model_cases`` and ``k2c_cases`` (a spec, and a slot mix
+    for ``benchmarks.mixed_obstacles`` or None for ``random_ensemble``'s
+    circles) at ``batch`` lanes: its own cold solve (un-fused, K1) and two
+    fleet cycles (fused, the flagship's warm settings). Returns (spec, the
+    warm settings, the fleet cycle's next warm inputs)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import mixed_obstacles
+    from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import (
+        SolverSettings,
+        default_init,
+        init_duals,
+        make_solver,
+    )
+
+    device = torch.device("cuda", 0)
+    spec, slots = {n: (s, m) for n, s, m in model_cases() + k2c_cases()}[name]
+    warm = dataclasses.replace(flagship()[2], fused="auto")
+    t0 = time.perf_counter()
+    cold = SolverSettings.for_spec(spec)
+    if slots is None:
         scen = ensemble(spec, batch, device)
-        init, duals = default_init(spec, cold, scen)
-        r = make_solver(spec, cold, device)(scen, init, duals)
-        duals0 = init_duals(spec, warm, dtype=torch.float32, device=device, batch=(batch,))
-        cycle = make_fleet_cycle(spec, warm, duals0, device=device)
-        for _ in range(SETTLE_CYCLES):
-            scen, r = cycle(scen, r)
-        torch.cuda.synchronize()
-        print(f"{name}: cold {cold.n_al}x{cold.n_sqp} solve and {SETTLE_CYCLES} cycles at "
-              f"B={batch} in {time.perf_counter() - t0:.2f} s, converged "
-              f"{int(torch.sum(r.converged))}")
-        args32 = warm_inputs(spec, warm, (scen, r), batch)
-        k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
+    else:
+        scen = ensemble(dataclasses.replace(spec, obstacle_cap=0), batch, device)
+        gen = torch.Generator().manual_seed(1)
+        scen = dataclasses.replace(scen, obstacles=mixed_obstacles(
+            batch, gen, dtype=torch.float32, device=device, **slots))
+    init, duals = default_init(spec, cold, scen)
+    r = make_solver(spec, cold, device)(scen, init, duals)
+    duals0 = init_duals(spec, warm, dtype=torch.float32, device=device, batch=(batch,))
+    cycle = make_fleet_cycle(spec, warm, duals0, device=device)
+    for _ in range(SETTLE_CYCLES):
+        scen, r = cycle(scen, r)
+    torch.cuda.synchronize()
+    print(f"{name}: cold {cold.n_al}x{cold.n_sqp} solve and {SETTLE_CYCLES} cycles at "
+          f"B={batch} in {time.perf_counter() - t0:.2f} s, converged "
+          f"{int(torch.sum(r.converged))}")
+    return spec, warm, warm_inputs(spec, warm, (scen, r), batch)
+
+
+def family_phase(names):
+    """Phases 14 and 23: each ``family_case`` in a process of its own, all at
+    once (a case's cold solve is host-bound and leaves the card idle, so the
+    cases share the card and the host's cores); prints each case's lines in
+    order and fails if any case failed. Every process is waited for, and
+    killed if this one stops early."""
+    procs = [
+        (name, subprocess.Popen([sys.executable, __file__, "--family-case", name],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in names
+    ]
+    failed = []
+    try:
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            print(out, end="", flush=True)
+            if proc.returncode != 0:
+                failed.append(name)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
+
+
+def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
+    """A warm fleet cycle on the fused path (``main_path``'s keywords pass
+    through): the fused kernel must carry every warm solve and rescue pass
+    (1 + chain launches per cycle), K1 the cold solve and the oracle and
+    nothing in the warm cycles, and converged_frac reach ``floor``. Prints
+    the path's line; returns (extra, settled state, one cycle, fused
+    launches)."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    riccati_cuda.lqr_solve_cuda.launches = 0
+    k2a.fused_solve_cuda.launches = 0
+    t0 = time.perf_counter()
+    extra, settled, secs, cycle, _, k1_before_oracle = main_path(
+        spec, cold, warm_f, rescue_f, device, **kw
+    )
+    fused = k2a.fused_solve_cuda.launches
+    k1 = riccati_cuda.lqr_solve_cuda.launches
+    cold_iters = cold.n_al * cold.n_sqp
+    print(json.dumps({**extra, "path": tag, "fused_launches": fused, "k1_launches": k1,
+                      "k1_launches_in_warm_cycles": k1_before_oracle - cold_iters,
+                      "device": card, **secs, "main_path_s": time.perf_counter() - t0}))
+    expected = (1 + kw.get("chain", 1)) * (SETTLE_CYCLES + TIMED_CYCLES)
+    if fused != expected:
+        _fail(f"the fused kernel launched {fused} times on the {tag} path, expected {expected}")
+    if k1 != 2 * cold_iters or k1_before_oracle != cold_iters:
+        _fail(f"K1 launched {k1} times on the {tag} path ({k1_before_oracle} before the "
+              f"oracle), expected {2 * cold_iters} (the cold solve and the oracle)")
+    if not extra["converged_frac"] >= floor:
+        _fail(f"{tag} converged_frac {extra['converged_frac']} below the {floor} floor")
+    return extra, settled, cycle, fused
+
+
+def gate_and_trace(tag, spec, warm, warm_f, settled, cycle, cycle_ms):
+    """The fused warm solve against the un-fused one on 256 lanes of the
+    live warm state, then one warm cycle under torch.profiler."""
+    gate, passed = gate_phase(spec, warm, warm_f, settled)
+    print(json.dumps({f"{tag}_fused_vs_unfused_gate": gate, "passed": passed}))
+    if not passed:
+        _fail(f"{tag} fused-vs-un-fused gate failed: {gate}")
+    print(json.dumps({f"trace_{tag}": trace_phase(cycle, settled, cycle_ms)}))
 
 
 def trace_phase(cycle, settled, cycle_ms):
@@ -622,46 +806,65 @@ def main():
     # ---- 12. config #2 main path, fused ------------------------------------- #
     warm2_f = dataclasses.replace(warm2, fused="auto")
     rescue2_f = dataclasses.replace(rescue2, fused="auto")
-    riccati_cuda.lqr_solve_cuda.launches = 0
-    k2a.fused_solve_cuda.launches = 0
-    t0 = time.perf_counter()
-    extra2, settled2, secs2, cycle2, _, k1_before_oracle = main_path(
-        spec2, cold2, warm2_f, rescue2_f, device
+    extra2, settled2, cycle2, fused2 = fused_path(
+        "config2_fused", spec2, cold2, warm2_f, rescue2_f, device, card, 0.25
     )
-    fused2 = k2a.fused_solve_cuda.launches
-    k1_2 = riccati_cuda.lqr_solve_cuda.launches
-    main2_s = time.perf_counter() - t0
-    print(json.dumps({**extra2, "path": "config2_fused", "fused_launches": fused2,
-                      "k1_launches": k1_2,
-                      "k1_launches_in_warm_cycles": k1_before_oracle - cold2.n_al * cold2.n_sqp,
-                      "device": card, **secs2, "main_path_s": main2_s}))
-    cycles = SETTLE_CYCLES + TIMED_CYCLES
-    if fused2 != 2 * cycles:
-        _fail(f"the fused kernel launched {fused2} times on config #2's path, "
-              f"expected {2 * cycles}")
-    if k1_2 != 2 * cold2.n_al * cold2.n_sqp or k1_before_oracle != cold2.n_al * cold2.n_sqp:
-        _fail(f"K1 launched {k1_2} times on config #2's path ({k1_before_oracle} before the "
-              f"oracle), expected {2 * cold2.n_al * cold2.n_sqp} (the cold solve and the oracle)")
-    if not extra2["converged_frac"] >= 0.25:
-        _fail(f"config #2 converged_frac {extra2['converged_frac']} below the 0.25 floor")
 
     # ---- 13. the kernel against its plain version on config #2 -------------- #
     k2_rows = k2a_phase(spec2, warm2_f, rescue2_f, settled2, name="config2")
 
-    # ---- 14. the other models and config #1, B=1024 -------------------------- #
-    family_phase(warm_f, device)
+    # ---- 15-16. config #2 fused-vs-un-fused gate, trace ---------------------- #
+    gate_and_trace("config2", spec2, warm2, warm2_f, settled2, cycle2, extra2["cycle_ms"])
 
-    # ---- 15. config #2 fused-vs-un-fused gate ------------------------------- #
-    gate2, passed = gate_phase(spec2, warm2, warm2_f, settled2)
-    print(json.dumps({"config2_fused_vs_unfused_gate": gate2, "passed": passed}))
-    if not passed:
-        _fail(f"config #2 fused-vs-un-fused gate failed: {gate2}")
+    # ---- 17-19. path A: the reference's car-like config (two discs) --------- #
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
 
-    # ---- 16. where one config #2 warm cycle's device time goes ------------- #
-    print(json.dumps({"trace_config2": trace_phase(cycle2, settled2, extra2["cycle_ms"])}))
+    specA, coldA, warmA, rescueA = fleet_settings(family_spec("canonical_carlike", N=30))
+    warmA_f = dataclasses.replace(warmA, fused="auto")
+    rescueA_f = dataclasses.replace(rescueA, fused="auto")
+    extraA, settledA, cycleA, fusedA = fused_path(
+        "canonical_carlike_fused", specA, coldA, warmA_f, rescueA_f, device, card, 0.5,
+        family="canonical_carlike",
+    )
+    rows_a = k2a_phase(specA, warmA_f, rescueA_f, settledA, name="pathA")
+    gate_and_trace("canonical_carlike", specA, warmA, warmA_f, settledA, cycleA,
+                   extraA["cycle_ms"])
 
-    # ---- 17. summary ---------------------------------------------------- #
+    # ---- 20-22. path B: the wall world (line slots), warm 4x4, chained ------ #
+    specB, coldB, warmB, _ = fleet_settings(family_spec("converter_lines", N=30))
+    warmB = dataclasses.replace(warmB, n_al=4)
+    warmB_f = dataclasses.replace(warmB, fused="auto")
+    rescueB_f = dataclasses.replace(warmB_f, alphas=rescue_set.alphas)
+    extraB, settledB, cycleB, fusedB = fused_path(
+        "converter_lines_fused", specB, coldB, warmB_f, rescueB_f, device, card, 0.25,
+        family="converter_lines", slots=LINES_RESCUE_SLOTS, chain=2, stuck_restart=2,
+    )
+    rows_b = k2a_phase(specB, warmB_f, rescueB_f, settledB, name="pathB",
+                       slots=LINES_RESCUE_SLOTS)
+    gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
+                   extraB["cycle_ms"])
+
+    # ---- 14 and 23. the other models, config #1 and the K2c cases, B=1024 -- #
+    family_phase([name for name, _, _ in model_cases() + k2c_cases()])
+
+    # ---- 24. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
+
+    def fused_row(name, launches, r):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
+            "replaces": "mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:264",
+            "launches": launches,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        }
+
     print(json.dumps({"kernels": [{
         "name": "K1 riccati_sweep",
         "route": "cuda",
@@ -674,36 +877,33 @@ def main():
         "bound_ms": row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-    }, {
-        "name": "K2a fused_al_sqp",
-        "route": "cuda",
-        "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
-        "replaces": "mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:264",
-        "launches": k2a_launches,
-        "max_abs_err": row2["max_abs_err"],
-        "ms": row2["ms"],
-        "plain_ms": row2["plain_ms"],
-        "bound_ms": row2["bound_ms"],
-        "bound_by": row2["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "K2 fused_al_sqp: unicycle, quadratic form, terminal ball, fixed dt (config #2)",
-        "route": "cuda",
-        "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
-        "replaces": "mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:264",
-        "launches": fused2,
-        "max_abs_err": row3["max_abs_err"],
-        "ms": row3["ms"],
-        "plain_ms": row3["plain_ms"],
-        "bound_ms": row3["bound_ms"],
-        "bound_by": row3["bound_by"],
-        "library_ms": None,
-    }]}))
+    },
+        fused_row("K2a fused_al_sqp", k2a_launches, row2),
+        fused_row("K2 fused_al_sqp: unicycle, quadratic form, terminal ball, fixed dt "
+                  "(config #2)", fused2, row3),
+        fused_row("K2 fused_al_sqp: simple car, two-disc footprint (K2c; the reference's "
+                  "car-like config, path A)", fusedA, rows_a[BATCH]),
+        fused_row("K2 fused_al_sqp: simple car, disc, line slots (K2c; the wall world, "
+                  "path B, warm 4x4)", fusedB, rows_b[BATCH]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))
 
 
+def family_worker(name):
+    """``chip_smoke.py --family-case NAME``: one case of ``family_phase``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    family_case(name)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--family-case"]:
+        family_worker(sys.argv[2])
+    else:
+        main()

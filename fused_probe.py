@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Three measurements of the fused kernel (``csrc/fused_al_sqp.cu``) on one
+NVIDIA GPU, beside ``chip_smoke.py``:
+
+    python3 fused_probe.py [registers] [timing] [rounding]   (all by default)
+
+- registers: builds the kernel's ``<float, simple car, minimum time>`` and
+  ``<float, unicycle, quadratic form>`` instantiations with each part of the
+  geometry (the ``GEO`` template parameter: a second disc, line slots,
+  polygon slots, moving slots) compiled in alone, and prints ptxas'
+  registers, stack frame and spills for each.
+- timing: the flagship's and config #2's warm solves at B=4096 from the
+  straight-line seed, through the ``GEO_NONE`` instantiation and through
+  ``GEO_ALL`` on the same inputs (the same spec with dynamic obstacles at zero
+  velocity, which predicts every slot where it stands); CUDA events, median
+  of 25 launches each, in the order none, all, all, none.
+- rounding: ``chip_smoke.py``'s ``mixed-dynamic`` case at B=1024, float64,
+  at the first two prefixes of the warm schedule (1×1, 1×2): for every lane
+  whose error or sensitivity passes 1e-8, the kernel's error against the
+  plain version's move under many sign patterns of one ulp on its KKT inputs
+  (``agreement.KktRounding``) and under one ulp on its states.
+
+Prints one JSON line per measurement. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+import statistics
+import sys
+
+import chip_smoke
+
+PARTS = {"GEO_NONE": 0, "GEO_DISCS": 1, "GEO_LINES": 2, "GEO_POLYGONS": 4, "GEO_DYNAMIC": 8,
+         "GEO_ALL": 15}
+ROUNDING_PATTERNS = 32
+
+
+def registers():
+    """ptxas' report for each part of the geometry compiled in alone: one
+    source per instantiation, all built at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import nvcc_build
+
+    source = k2a.SOURCE.read_text()
+    # the kernel templates without the entry points (which instantiate the
+    # launched ones), then a pointer to the one probed instantiation
+    body = source[: source.index('extern "C" {')]
+    nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build(case):
+        model, quad, part = case
+        name = f"fused_probe_{model}_{quad}_{part}"
+        probe = nvcc_build.BUILD_DIR / f"{name}.cu"
+        probe.write_text(body + f"void* fused_probe_kernel = (void*)&k2a_kernel<float, {model}, "
+                                f"{quad}, {part}>;\n")
+        lib = nvcc_build.BUILD_DIR / f"lib{name}.so"
+        lib.unlink(missing_ok=True)
+        ptxas = nvcc_build.build_library(probe, lib)["ptxas"]
+        row = {"model": model, "quadratic": quad == "true", "geo": part}
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            found = re.search(pat, ptxas)
+            row[key] = int(found.group(1)) if found else None
+        return row
+
+    cases = [(model, quad, part) for model, quad in (("SIMPLE_CAR", "false"), ("UNICYCLE", "true"))
+             for part in PARTS]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        rows = list(pool.map(build, cases))
+    print(json.dumps({"registers": rows}))
+
+
+def timing():
+    """GEO_NONE against GEO_ALL on the same flagship and config #2 inputs."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.solvers import al_sqp
+
+    device = torch.device("cuda", 0)
+    out = {}
+    for tag, spec in (("flagship", chip_smoke.flagship()[0]), ("config2", chip_smoke.config2())):
+        warm = dataclasses.replace(chip_smoke.fleet_settings(spec)[2], fused="auto")
+        scen = chip_smoke.ensemble(spec, chip_smoke.BATCH, device)
+        init, duals = al_sqp.default_init(spec, warm, scen)
+        moving = dataclasses.replace(spec, enable_dynamic_obstacles=True)
+        vels = [scen.obstacles.circle_vels, scen.obstacles.point_vels]
+        assert all(not bool(v.any()) for v in vels), "the ensemble's slots must stand still"
+        res = {s: k2a.fused_solve_cuda(s_, warm, scen, init, duals)
+               for s, s_ in (("none", spec), ("all", moving))}
+        diff = max(float(torch.max(torch.abs(a - b)))
+                   for a, b in ((res["none"].primal.xs, res["all"].primal.xs),
+                                (res["none"].primal.us, res["all"].primal.us)))
+        times = {"none": [], "all": []}
+        for s in ("none", "all", "all", "none"):
+            s_ = spec if s == "none" else moving
+            times[s].append(chip_smoke._cuda_ms(
+                lambda: k2a.fused_solve_cuda(s_, warm, scen, init, duals), 25))
+        out[tag] = {"geo_none_ms": times["none"], "geo_all_ms": times["all"],
+                    "max_abs_diff_xs_us": diff,
+                    "conv_identical": bool(torch.equal(res["none"].converged,
+                                                       res["all"].converged))}
+    print(json.dumps({"timing": out, "card": chip_smoke.card_line()}))
+
+
+def rounding():
+    """The mixed-dynamic case's lanes beyond 1e-8 at 1×1 and 1×2: the
+    kernel's error against the plain version's moves under rounding."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.solvers import agreement
+
+    spec, warm, args32 = chip_smoke.family_state("mixed-dynamic")
+    scen, init, duals = chip_smoke._double(args32)
+    for n_al, n_sqp in ((1, 1), (1, 2)):
+        sp = dataclasses.replace(warm, n_al=n_al, n_sqp=n_sqp)
+        plain = lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw)  # noqa: E731
+        out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
+        out_p = plain(init)
+        move = lambda o: agreement._rel_errs(o, out_p).amax(dim=0)  # noqa: E731
+        err = move(out_k)
+        states = torch.stack([move(plain(q)) for q in agreement.ulp_perturbed(init)]).amax(dim=0)
+        kkt = torch.stack([move(plain(init, kkt_rounding=agreement.KktRounding(seed)))
+                           for seed in range(ROUNDING_PATTERNS)])
+        torch.cuda.synchronize()
+        rule = torch.maximum(states, kkt[:2].amax(dim=0))  # the sensitivity the rule takes
+        lanes = []
+        for b in torch.nonzero((err > 1e-8) | (rule > 1e-8)).flatten().tolist():
+            moves = sorted(float(m) for m in kkt[:, b])
+            lanes.append({
+                "lane": b, "err": float(err[b]), "rule_sensitivity": float(rule[b]),
+                "states_move": float(states[b]),
+                "kkt_move_min": moves[0], "kkt_move_median": statistics.median(moves),
+                "kkt_move_max": moves[-1],
+                "patterns_moving_more_than_err": sum(m >= float(err[b]) for m in moves),
+                "err_over_max_move": float(err[b]) / max(moves[-1], 1e-300),
+            })
+        print(json.dumps({"rounding": f"mixed-dynamic B={args32[0].x0.shape[0]} "
+                                      f"{n_al}x{n_sqp} f64", "patterns": ROUNDING_PATTERNS,
+                          "lanes": lanes}))
+
+
+def main(names):
+    import torch
+
+    if not torch.cuda.is_available():
+        chip_smoke._fail("torch.cuda.is_available() is false: this probe needs a CUDA card")
+    print(f"device: {chip_smoke.card_line()}")
+    for name in names or ("registers", "timing", "rounding"):
+        {"registers": registers, "timing": timing, "rounding": rounding}[name]()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

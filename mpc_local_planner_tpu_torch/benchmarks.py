@@ -1,14 +1,22 @@
 """Benchmark problem definitions (port of ``mpc_local_planner_tpu.benchmarks``:
-BASELINE.json configs #1-#3 and the scenario ensemble)."""
+BASELINE.json configs #1-#3, the scenario ensemble, and the flagship,
+canonical car-like and wall-world families with their ensembles)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+import math
+
 import torch
 
 from mpc_local_planner_tpu_torch.device import resolve_device
-from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint, PointFootprint
+from mpc_local_planner_tpu_torch.geometry.footprints import (
+    CircularFootprint,
+    PointFootprint,
+    TwoCirclesFootprint,
+)
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec, Scenario
 from mpc_local_planner_tpu_torch.systems.models import (
@@ -114,3 +122,129 @@ def random_ensemble(
         polygon_vels=empty.polygon_vels, polygon_mask=empty.polygon_mask,
     )
     return Scenario(x0, xf, obstacles, via_points, via_mask, u_prev)
+
+
+# the families of the JAX package's family_spec that the port does not run
+# yet, with the ROADMAP item that brings each
+_FAMILIES_TO_PORT = {
+    "via_points": "M9, K2d via points",
+    "polygon_footprint": "M9, K2c footprints",
+    "nonuniform": "M9, K2f",
+}
+
+
+def family_spec(name: str, N: int = 30) -> OcpSpec:
+    """Widened-family variants of the flagship car-like minimum-time config:
+    ``canonical_carlike`` is the reference's own footprint (two_circles,
+    examples/cfg/carlike_minimum_time.yaml), ``converter_lines`` the wall
+    worlds of costmap_converter's line output (6 slots, filled with lines by
+    ``family_ensemble``)."""
+    base = config3_carlike_min_time(N=N, obstacle_cap=8)
+    if name == "flagship":
+        return base
+    if name == "canonical_carlike":
+        return dataclasses.replace(
+            base,
+            footprint=TwoCirclesFootprint(
+                front_offset=0.15, front_radius=0.2, rear_offset=-0.15, rear_radius=0.2,
+            ),
+        )
+    if name == "converter_lines":
+        return dataclasses.replace(base, obstacle_cap=6)
+    if name in _FAMILIES_TO_PORT:
+        raise NotImplementedError(
+            f"family {name!r} is not ported yet (ROADMAP {_FAMILIES_TO_PORT[name]})"
+        )
+    raise ValueError(f"unknown family {name!r}")
+
+
+def family_ensemble(name: str, spec: OcpSpec, batch: int, generator: torch.Generator,
+                    dtype=torch.float32, device=None) -> Scenario:
+    """Scenario ensemble for a family: ``random_ensemble``'s, and for
+    ``converter_lines`` wall segments in place of the circle slots (0.8 m
+    walls across the corridor between start and goal, tilted up to 0.5 rad,
+    kept clear of both endpoints like the circle sampler). Drawn from
+    ``generator`` after ``random_ensemble``'s numbers."""
+    scen = random_ensemble(spec, batch, generator, dtype=dtype, device=device)
+    if name != "converter_lines":
+        return scen
+    dev = scen.x0.device
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+        return (lo + (hi - lo) * u).to(dev)
+
+    M = spec.obstacle_cap
+    d = scen.xf[:, :2] - scen.x0[:, :2]
+    ang = torch.atan2(d[:, 1], d[:, 0])
+    dist = torch.linalg.norm(d, dim=-1)
+    heading = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
+    normal = torch.stack([-torch.sin(ang), torch.cos(ang)], dim=-1)
+    frac = uniform((batch, M), 0.25, 0.75)
+    lateral = uniform((batch, M), -1.0, 1.0)
+    wall_ang = uniform((batch, M), -0.5, 0.5)
+    half = 0.4
+    mid = frac[..., None] * dist[:, None, None] * heading[:, None, :] + lateral[
+        ..., None
+    ] * normal[:, None, :]
+    wdir = (
+        torch.cos(wall_ang)[..., None] * normal[:, None, :]
+        + torch.sin(wall_ang)[..., None] * heading[:, None, :]
+    )
+    ends = torch.stack([mid - half * wdir, mid + half * wdir], dim=-2)
+    obstacles = dataclasses.replace(
+        scen.obstacles,
+        circles=torch.zeros((batch, 0, 2), dtype=dtype, device=dev),
+        circle_radii=torch.zeros((batch, 0), dtype=dtype, device=dev),
+        circle_vels=torch.zeros((batch, 0, 2), dtype=dtype, device=dev),
+        circle_mask=torch.zeros((batch, 0), dtype=torch.bool, device=dev),
+        lines=ends,
+        line_vels=torch.zeros((batch, M, 2), dtype=dtype, device=dev),
+        line_mask=torch.abs(lateral) > 0.45,
+    )
+    return dataclasses.replace(scen, obstacles=obstacles)
+
+
+def mixed_obstacles(batch: int, generator: torch.Generator, mp: int = 0, mc: int = 0,
+                    ml: int = 0, mg: int = 0, V: int = 4, dynamic: bool = False,
+                    vary_nv: bool = False, dtype=torch.float32, device=None) -> ObstacleSet:
+    """A random ObstacleSet with every requested slot family, as the JAX
+    package's fused-kernel tests draw it (``tests/test_fused_solver.py``):
+    points and circles in [0.3, 2.2]², circle radii in [0.1, 0.3], segments
+    from a point in that box to within ±0.7 of it, star-shaped polygons of V
+    vertices (radii 0.15-0.4 about a center in [0.5, 2.0]²; with
+    ``vary_nv`` 3 to V of them active), a quarter of the slots masked,
+    velocities in [−0.4, 0.4]² when ``dynamic``. Drawn from ``generator``."""
+    dev = resolve_device(device)
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+        return (lo + (hi - lo) * u).to(dev)
+
+    def vel(n):
+        return uniform((batch, n, 2), -0.4, 0.4) if dynamic else torch.zeros(
+            (batch, n, 2), dtype=dtype, device=dev)
+
+    def mask(n):
+        return uniform((batch, n), 0.0, 1.0) > 0.25
+
+    line_a = uniform((batch, ml, 2), 0.3, 2.2)
+    lines = torch.stack([line_a, line_a + uniform((batch, ml, 2), -0.7, 0.7)], dim=-2)
+    centers = uniform((batch, mg, 2), 0.5, 2.0)
+    ang = torch.sort(uniform((batch, mg, V), 0.0, 2.0 * math.pi), dim=-1).values
+    rad = uniform((batch, mg, V), 0.15, 0.4)
+    polygons = centers[..., None, :] + torch.stack(
+        [rad * torch.cos(ang), rad * torch.sin(ang)], dim=-1)
+    if vary_nv and V > 3:
+        nv = 3 + torch.randint(0, V - 2, (batch, mg), generator=generator,
+                               device=generator.device)
+    else:
+        nv = torch.full((batch, mg), V)
+    return ObstacleSet(
+        points=uniform((batch, mp, 2), 0.3, 2.2), point_vels=vel(mp), point_mask=mask(mp),
+        circles=uniform((batch, mc, 2), 0.3, 2.2), circle_radii=uniform((batch, mc), 0.1, 0.3),
+        circle_vels=vel(mc), circle_mask=mask(mc),
+        lines=lines, line_vels=vel(ml), line_mask=mask(ml),
+        polygons=polygons, polygon_nv=nv.to(device=dev, dtype=torch.int32),
+        polygon_vels=vel(mg), polygon_mask=mask(mg),
+    )

@@ -5,13 +5,15 @@
 // mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel on the
 // scope the port admits: the models "unicycle", "simple_car",
 // "front_wheel" and the kinematic bicycle (template parameter MODEL; the
-// Pallas dyn branches), forward differences, one footprint disc at the
-// pose, static point and circle obstacle slots, minimum time or the
-// quadratic form (template parameter QUAD; plain or integral, left-sum or
-// trapezoidal, the hybrid time weight), the terminal quadratic cost, the
-// terminal ball, and a uniform dt that is a decision variable or fixed at
-// dt_ref. K2a (simple car, minimum time, variable dt, no ball) is the
-// instantiation <T, SIMPLE_CAR, false>. Per scenario it computes:
+// Pallas dyn branches), forward differences, a footprint of one or two
+// discs on the body axis, point, circle, line and polygon obstacle slots,
+// static or moving (the Pallas obs_terms for disc-family footprints),
+// minimum time or the quadratic form (template parameter QUAD; plain or
+// integral, left-sum or trapezoidal, the hybrid time weight), the terminal
+// quadratic cost, the terminal ball, and a uniform dt that is a decision
+// variable or fixed at dt_ref. K2a (simple car, minimum time, variable dt,
+// no ball, one disc at the pose, static circle slots) is the instantiation
+// <T, SIMPLE_CAR, false, GEO_NONE>. Per scenario it computes:
 //   per SQP iteration: the closed-form forward-difference linearization, the
 //     terminal P/p, the stage AL gradients and Hessians streamed into the
 //     backward Riccati sweep (2x2 Quu inverse, K/kff tape), the free dtau
@@ -43,7 +45,12 @@
 // model and the objective family are template parameters, so the inner
 // loops carry no branch on them; the objective's forms (integral,
 // trapezoidal, hybrid), Qf, the ball and a fixed dt are runtime flags that
-// every thread of a launch shares.
+// every thread of a launch shares. The geometry (disc count and offsets,
+// slot-family counts, vertex pad, dynamic flag) is runtime too, but the
+// template parameter GEO compiles it away where a launch needs none of it:
+// GEO_NONE (one disc at the pose, static point and circle slots, the
+// flagship and config #2) keeps the registers of a kernel without the
+// geometry, GEO_ALL reads every part at run time.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
 // the step (dxs, dus) and the best-feasible snapshot in local memory (which
 // the hardware interleaves across the threads of a warp), the primal and
@@ -75,6 +82,7 @@ constexpr int NA = 6;  // z = [dx (3), du_prev (2), dtau]
 constexpr int MAX_N = 64;
 constexpr int MAX_M = 16;
 constexpr int MAX_ALPHAS = 16;
+constexpr int MAX_V = 16;  // padded polygon vertices (JAX fused_obstacles_supported)
 constexpr int THREADS = 32;
 constexpr double BIG = 1.0e6;   // geometry.obstacles.BIG_DISTANCE
 constexpr double EPS = 1.0e-12; // geometry.distances._EPS (safe norm)
@@ -83,6 +91,19 @@ constexpr double TWO_PI = 6.283185307179586;
 
 // the MODEL template parameter (ops/fused_al_sqp_cuda.py MODEL_IDS)
 enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
+
+// the GEO template parameter: the parts of the geometry an instantiation
+// reads at run time; a part left out is compiled away. The entry points
+// launch GEO_NONE or GEO_ALL; the parts between them only measure what
+// each part costs in registers.
+enum GeoParts {
+  GEO_NONE = 0,
+  GEO_DISCS = 1,     // a second disc, discs off the pose (theta rows)
+  GEO_LINES = 2,     // line slots
+  GEO_POLYGONS = 4,  // polygon slots
+  GEO_DYNAMIC = 8,   // moving slots
+  GEO_ALL = 15,
+};
 
 }  // namespace
 
@@ -93,7 +114,12 @@ struct K2aParams {
   int xf_fixed[3];
   int model, quadratic;  // the template parameters of the instantiation
   int integral, trapezoidal, has_qf, variable_dt;
-  double wheelbase, bike_a, bike_lr, fp_radius, min_dist;
+  // obstacle slots: Mc point and circle slots, Ml line slots, Mg polygon
+  // slots of V padded vertices (M = Mc + Ml + Mg, in that row order); the
+  // footprint as n_disc (1 or 2) discs on the body x-axis; dynamic: slots
+  // move at their velocities
+  int Mc, Ml, Mg, V, n_disc, dynamic;
+  double wheelbase, bike_a, bike_lr, disc_off[2], disc_r[2], min_dist;
   double lo_u[2], hi_u[2], lo_r[2], hi_r[2];  // rate limits sanitized to +-BIG
   double q[3], r[2], qf[3], hybrid, ball_w[3], ball_r;
   double dt_min, dt_max, dt_lo, dt_hi;
@@ -109,8 +135,13 @@ template <typename T>
 struct K2aArgs {
   // inputs
   const T *xs_i, *us_i, *dt_i, *xf, *u_prev;
-  const T *oc, *orad;               // circle slots: centers (B,M,2), radii (B,M)
-  const unsigned char* omask;       // (B,M) bool
+  const T *oc, *orad, *ovel;        // point and circle slots: (B,Mc,2), (B,Mc), (B,Mc,2)
+  const unsigned char* omask;       // (B,Mc) bool
+  const T *ln, *lvel;               // line slots: endpoints (B,Ml,2,2), velocities (B,Ml,2)
+  const unsigned char* lmask;       // (B,Ml) bool
+  const T *pg, *pvel;               // polygon slots: vertices (B,Mg,V,2), velocities (B,Mg,2)
+  const int* pnv;                   // (B,Mg) active vertex counts
+  const unsigned char* pmask;       // (B,Mg) bool
   const T *ld_i, *lt_i, *mo_i, *mr_i, *mb_i, *md_i, *mball_i, *rho_i;
   // outputs: the working state, updated in place
   T *xs, *us, *dt, *ld, *lt, *mo, *mr, *mb, *md, *mball, *rho;
@@ -153,15 +184,24 @@ template <typename T> __device__ __forceinline__ T wrap(T th) {
   return m - T(PI);
 }
 
-template <typename T, int MODEL, bool QUAD>
+// the footprint discs at one pose: centers and their theta derivatives
+template <typename T>
+struct Discs {
+  T px[2], py[2], dpx[2], dpy[2];
+};
+
+template <typename T, int MODEL, bool QUAD, int GEO>
 struct Lane {
-  int N, M;
-  T wb, bike_a, bike_lr, fp_r, min_dist, dt_min, dt_max, dt_lo, dt_hi;
+  int N, M, Mc, Ml, Mg, V, n_disc;
+  bool dynamic, rot;  // rot: a disc sits off the pose (theta-dependent rows)
+  T disc_off[2], disc_r[2];
+  T wb, bike_a, bike_lr, min_dist, dt_min, dt_max, dt_lo, dt_hi, dt0;
   T lo_u[NU], hi_u[NU], lo_r[NU], hi_r[NU];
   T q[NX], r[NU], qf[NX], hybrid, ball_w[NX], ball_r;
   bool fixed[NX], integral, trapezoidal, has_qf, ball_on, vdt;
-  const T *xf, *u_prev, *oc, *orad;
-  const unsigned char* omask;
+  const T *xf, *u_prev, *oc, *orad, *ovel, *ln, *lvel, *pg, *pvel;
+  const unsigned char *omask, *lmask, *pmask;
+  const int* pnv;
   T *xs, *us, *ld, *lt, *mo, *mr, *mb, *md, *mball;
   T dt, rho;
   // the step, the gain tape and the best-feasible snapshot (local memory)
@@ -342,15 +382,205 @@ struct Lane {
     Gz[5][0] = Gz[5][1] = T(0);
   }
 
-  // obstacle row j at pose x: g = min_dist - d (d = the disc's distance to
-  // the slot, BIG on a masked slot) and the position gradient of g
-  __device__ __forceinline__ T obstacle_g(const T x[NX], int j, T& gx, T& gy) const {
-    const T ex = x[0] - oc[2 * j], ey = x[1] - oc[2 * j + 1];
+  // ---- obstacle geometry (the Pallas kernel's obs_terms for disc-family
+  // footprints): each disc's distance is its center's distance to the slot
+  // minus its radius, two discs combine by their minimum with the 0.5 tie
+  // split; the gradients are the AD chains of geometry/distances with JAX's
+  // subgradients (the segment clip 0.5 at an exact 0 or 1, an equal split
+  // among tied polygon edges)
+
+  __device__ __forceinline__ void discs_at(const T x[NX], Discs<T>& D) const {
+    if constexpr (!(GEO & GEO_DISCS)) {
+      D.px[0] = x[0];
+      D.py[0] = x[1];
+      D.dpx[0] = D.dpy[0] = T(0);
+      return;
+    }
+    T c = T(0), s = T(0);
+    if (rot) {
+      c = cos(x[2]);
+      s = sin(x[2]);
+    }
+    for (int i = 0; i < n_disc; ++i) {
+      const T off = disc_off[i];
+      if (off == T(0)) {
+        D.px[i] = x[0];
+        D.py[i] = x[1];
+        D.dpx[i] = D.dpy[i] = T(0);
+      } else {
+        D.px[i] = x[0] + off * c;
+        D.py[i] = x[1] + off * s;
+        D.dpx[i] = -off * s;
+        D.dpy[i] = off * c;
+      }
+    }
+  }
+
+  // point_to_segment from p to [a, b]; with GRAD its gradient in p
+  template <bool GRAD>
+  __device__ __forceinline__ T point_seg(T px, T py, T ax, T ay, T bx, T by, T& gx,
+                                         T& gy) const {
+    const T abx = bx - ax, aby = by - ay;
+    const T d2 = abx * abx + aby * aby;
+    const T denom = d2 < T(EPS) ? T(EPS) : d2;
+    const T sx = px - ax, sy = py - ay;
+    const T t_raw = (sx * abx + sy * aby) / denom;
+    const T t = t_raw < T(0) ? T(0) : (t_raw > T(1) ? T(1) : t_raw);
+    const T ex = sx - t * abx, ey = sy - t * aby;
     const T dn = sqrt(ex * ex + ey * ey + T(EPS));
-    const T d = (omask[j] ? dn - orad[j] : T(BIG)) - fp_r;
-    gx = -(ex / dn);
-    gy = -(ey / dn);
+    if (GRAD) {
+      const T g1 = t_raw > T(0) ? T(1) : (t_raw == T(0) ? T(0.5) : T(0));
+      const T y = t_raw > T(0) ? t_raw : T(0);
+      const T g2 = y < T(1) ? T(1) : (y == T(1) ? T(0.5) : T(0));
+      const T eab = (ex * abx + ey * aby) * (g1 * g2) / denom;
+      gx = (ex - eab * abx) / dn;
+      gy = (ey - eab * aby) / dn;
+    }
+    return dn;
+  }
+
+  // whether the slots move (compiled away without GEO_DYNAMIC)
+  __device__ __forceinline__ bool moving() const {
+    if constexpr ((GEO & GEO_DYNAMIC) != 0) return dynamic;
+    return false;
+  }
+
+  // the distance from the disc center p to slot j at time t (BIG on a
+  // masked slot) before the disc's radius, and with GRAD its gradient in p
+  template <bool GRAD>
+  __device__ __forceinline__ T slot_dist(int j, T px, T py, T t, T& gx, T& gy) const {
+    if constexpr ((GEO & GEO_LINES) != 0) {
+      if (j >= Mc && j < Mc + Ml) return line_dist<GRAD>(j - Mc, px, py, t, gx, gy);
+    }
+    if constexpr ((GEO & GEO_POLYGONS) != 0) {
+      if (j >= Mc + Ml) return polygon_dist<GRAD>(j - Mc - Ml, px, py, t, gx, gy);
+    }
+    T cx = oc[2 * j], cy = oc[2 * j + 1];
+    if (moving()) {
+      cx = cx + ovel[2 * j] * t;
+      cy = cy + ovel[2 * j + 1] * t;
+    }
+    const T ex = px - cx, ey = py - cy;
+    const T dn = sqrt(ex * ex + ey * ey + T(EPS));
+    if (GRAD) {
+      gx = ex / dn;
+      gy = ey / dn;
+    }
+    return omask[j] ? dn - orad[j] : T(BIG);
+  }
+
+  // line slot l: point_to_segment from p to its moved endpoints
+  template <bool GRAD>
+  __device__ __forceinline__ T line_dist(int l, T px, T py, T t, T& gx, T& gy) const {
+    const T* e = ln + 4 * l;
+    T shx = T(0), shy = T(0);
+    if (moving()) {
+      shx = lvel[2 * l] * t;
+      shy = lvel[2 * l + 1] * t;
+    }
+    const T dn = point_seg<GRAD>(px, py, e[0] + shx, e[1] + shy, e[2] + shx, e[3] + shy, gx, gy);
+    return lmask[l] ? dn : T(BIG);
+  }
+
+  // polygon slot g: point_to_polygon_signed, the minimum over the active
+  // edges (edge v runs from vertex v to vertex v + 1, or 0 after the last),
+  // negated inside by the even-odd crossing count
+  template <bool GRAD>
+  __device__ __forceinline__ T polygon_dist(int g, T px, T py, T t, T& gx, T& gy) const {
+    const T* vx = pg + 2 * V * g;
+    int nv = pnv[g];
+    nv = nv < V ? nv : V;
+    T shx = T(0), shy = T(0);
+    if (moving()) {
+      shx = pvel[2 * g] * t;
+      shy = pvel[2 * g + 1] * t;
+    }
+    T dmin = T(INFINITY), sgx = T(0), sgy = T(0);
+    int cnt = 0, crossings = 0;
+    for (int v = 0; v < nv; ++v) {
+      const int w = v + 1 == nv ? 0 : v + 1;
+      const T ax = vx[2 * v] + shx, ay = vx[2 * v + 1] + shy;
+      const T bx = vx[2 * w] + shx, by = vx[2 * w + 1] + shy;
+      T ex, ey;
+      const T d = point_seg<GRAD>(px, py, ax, ay, bx, by, ex, ey);
+      if (d < dmin || d != d) {
+        dmin = d;
+        sgx = ex;
+        sgy = ey;
+        cnt = 1;
+      } else if (d == dmin) {
+        sgx += ex;
+        sgy += ey;
+        ++cnt;
+      }
+      const bool cond = (ay > py) != (by > py);
+      const T dy = fabs(by - ay) < T(EPS) ? T(EPS) : by - ay;
+      const T x_int = ax + (py - ay) * (bx - ax) / dy;
+      if (cond && px < x_int) ++crossings;
+    }
+    const T sgn = (crossings & 1) ? T(-1) : T(1);
+    if (GRAD) {
+      const T n = cnt > 0 ? T(cnt) : T(1);
+      gx = sgn * (sgx / n);
+      gy = sgn * (sgy / n);
+    }
+    return pmask[g] ? sgn * dmin : T(BIG);
+  }
+
+  // obstacle row j at the discs D, time t: g = min_dist - d and with GRAD
+  // its pose gradient g3 = (dg/dx, dg/dy, dg/dtheta)
+  template <bool GRAD>
+  __device__ __forceinline__ T obs_row(const Discs<T>& D, int j, T t, T g3[NX]) const {
+    T gx = T(0), gy = T(0);
+    T d = slot_dist<GRAD>(j, D.px[0], D.py[0], t, gx, gy) - disc_r[0];
+    T gth = GRAD ? gx * D.dpx[0] + gy * D.dpy[0] : T(0);
+    if ((GEO & GEO_DISCS) != 0 && n_disc == 2) {
+      T hx = T(0), hy = T(0);
+      const T d2 = slot_dist<GRAD>(j, D.px[1], D.py[1], t, hx, hy) - disc_r[1];
+      if (GRAD) {
+        const T hth = hx * D.dpx[1] + hy * D.dpy[1];
+        const T w1 = d < d2 ? T(1) : (d == d2 ? T(0.5) : T(0));
+        const T w2 = d2 < d ? T(1) : (d2 == d ? T(0.5) : T(0));
+        gx = w1 * gx + w2 * hx;
+        gy = w1 * gy + w2 * hy;
+        gth = w1 * gth + w2 * hth;
+      }
+      d = vmin(d, d2);
+    }
+    if (GRAD) {
+      g3[0] = -gx;
+      g3[1] = -gy;
+      g3[2] = -gth;
+    }
     return min_dist - d;
+  }
+
+  // the obstacle rows' AL gradient and crisp Gauss-Newton block on the pose
+  // at x with multiplier row mu_row, time t: a = max(0, mu + rho g),
+  // aw = rho [mu + rho g > 0]
+  __device__ __forceinline__ void obstacle_block(const T x[NX], const T* mu_row, T t, T h[NA],
+                                                 T H[NA][NA]) const {
+    Discs<T> D;
+    discs_at(x, D);
+    for (int j = 0; j < M; ++j) {
+      T g3[NX];
+      const T g = obs_row<true>(D, j, t, g3);
+      const T tt = mu_row[j] + rho * g;
+      const T a = hinge(tt);
+      const T aw = tt > T(0) ? rho : T(0);
+      for (int r = 0; r < NX; ++r) {
+        h[r] += a * g3[r];
+        for (int c = r; c < NX; ++c) H[r][c] += aw * g3[r] * g3[c];
+      }
+    }
+    H[1][0] = H[0][1];
+    H[2][0] = H[0][2];
+    H[2][1] = H[1][2];
+  }
+
+  // the prediction time of pose i at dt (0 for static slots)
+  __device__ __forceinline__ T pose_time(int i, T dtv) const {
+    return moving() ? T(i) * dtv : T(0);
   }
 
   // rows of the stage inequalities that are linear: rate (4) and box (4)
@@ -423,24 +653,9 @@ struct Lane {
       hz[5] = T(1);  // minimum time: the stage cost dt has a unit gradient
     }
 
-    // obstacles at x_k with multiplier row k-1 (inactive at k = 0); the
-    // Gauss-Newton weight is crisp: rho where mu + rho g > 0
-    if (k > 0) {
-      const T* mu_row = mo + (k - 1) * M;
-      for (int j = 0; j < M; ++j) {
-        T gx, gy;
-        const T g = obstacle_g(xk, j, gx, gy);
-        const T t = mu_row[j] + rho * g;
-        const T a = hinge(t);
-        const T aw = t > T(0) ? rho : T(0);
-        hz[0] += a * gx;
-        hz[1] += a * gy;
-        Hzz[0][0] += aw * gx * gx;
-        Hzz[0][1] += aw * gx * gy;
-        Hzz[1][1] += aw * gy * gy;
-      }
-      Hzz[1][0] = Hzz[0][1];
-    }
+    // obstacles at x_k with multiplier row k-1 (inactive at k = 0), predicted
+    // to k dt at the solve's initial dt
+    if (k > 0) obstacle_block(xk, mo + (k - 1) * M, pose_time(k, dt0), hz, Hzz);
 
     // rate rows g = +-(du - b dt): J over [u_prev (z), dt (z), u (v)]
     T gr[4];
@@ -501,20 +716,7 @@ struct Lane {
         p[i] += T(2) * qf[i] * gd[i];
       }
     }
-    const T* mu_row = mo + (N - 1) * M;
-    for (int j = 0; j < M; ++j) {
-      T gx, gy;
-      const T g = obstacle_g(xN, j, gx, gy);
-      const T t = mu_row[j] + rho * g;
-      const T a = hinge(t);
-      const T aw = t > T(0) ? rho : T(0);
-      p[0] += a * gx;
-      p[1] += a * gy;
-      P[0][0] += aw * gx * gx;
-      P[0][1] += aw * gx * gy;
-      P[1][1] += aw * gy * gy;
-    }
-    P[1][0] = P[0][1];
+    obstacle_block(xN, mo + (N - 1) * M, pose_time(N, dt0), p, P);
     if (QUAD && integral && trapezoidal) {
       // the 1/2 dt lx(x_N) tail, exact, with its dtau cross terms
       p[5] += T(0.5) * (q[0] * gd[0] * gd[0] + q[1] * gd[1] * gd[1] + q[2] * gd[2] * gd[2]);
@@ -721,12 +923,17 @@ struct Lane {
         eq_lin += ld[k * NX + i] * c[i];
         eq_sq += c[i] * c[i];
       }
-      // obstacle row k belongs to pose x_{k+1}
-      for (int j = 0; j < M; ++j) {
-        T gx, gy;
-        const T mu = mo[k * M + j];
-        const T a = hinge(mu + rho * obstacle_g(xk1, j, gx, gy));
-        ineq += a * a - mu * mu;
+      // obstacle row k belongs to pose x_{k+1}, predicted at the
+      // candidate's dt
+      if (M > 0) {
+        Discs<T> D;
+        discs_at(xk1, D);
+        const T t = pose_time(k + 1, dtv);
+        for (int j = 0; j < M; ++j) {
+          const T mu = mo[k * M + j];
+          const T a = hinge(mu + rho * obs_row<false>(D, j, t, nullptr));
+          ineq += a * a - mu * mu;
+        }
       }
       T gr[4], gb[4];
       rate_g(uk, up, dtv, gr);
@@ -765,18 +972,29 @@ struct Lane {
   }
 };
 
-template <typename T, int MODEL, bool QUAD>
+template <typename T, int MODEL, bool QUAD, int GEO>
 __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const K2aParams prm) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
-  Lane<T, MODEL, QUAD> L;
+  Lane<T, MODEL, QUAD, GEO> L;
   L.N = N;
   L.M = M;
+  L.Mc = prm.Mc;
+  L.Ml = prm.Ml;
+  L.Mg = prm.Mg;
+  L.V = prm.V;
+  L.n_disc = prm.n_disc;
+  L.dynamic = prm.dynamic != 0;
+  L.rot = false;
+  for (int i = 0; i < 2; ++i) {
+    L.disc_off[i] = T(prm.disc_off[i]);
+    L.disc_r[i] = T(prm.disc_r[i]);
+    L.rot = L.rot || (i < prm.n_disc && prm.disc_off[i] != 0.0);
+  }
   L.wb = T(prm.wheelbase);
   L.bike_a = T(prm.bike_a);
   L.bike_lr = T(prm.bike_lr);
-  L.fp_r = T(prm.fp_radius);
   L.min_dist = T(prm.min_dist);
   L.dt_min = T(prm.dt_min);
   L.dt_max = T(prm.dt_max);
@@ -805,9 +1023,17 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
   const size_t bb = static_cast<size_t>(b);
   L.xf = a.xf + bb * NX;
   L.u_prev = a.u_prev + bb * NU;
-  L.oc = a.oc + bb * M * 2;
-  L.orad = a.orad + bb * M;
-  L.omask = a.omask + bb * M;
+  L.oc = a.oc + bb * prm.Mc * 2;
+  L.orad = a.orad + bb * prm.Mc;
+  L.ovel = a.ovel + bb * prm.Mc * 2;
+  L.omask = a.omask + bb * prm.Mc;
+  L.ln = a.ln + bb * prm.Ml * 4;
+  L.lvel = a.lvel + bb * prm.Ml * 2;
+  L.lmask = a.lmask + bb * prm.Ml;
+  L.pg = a.pg + bb * prm.Mg * prm.V * 2;
+  L.pvel = a.pvel + bb * prm.Mg * 2;
+  L.pnv = a.pnv + bb * prm.Mg;
+  L.pmask = a.pmask + bb * prm.Mg;
   L.xs = a.xs + bb * (N + 1) * NX;
   L.us = a.us + bb * N * NU;
   L.ld = a.ld + bb * N * NX;
@@ -831,6 +1057,7 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
   for (int i = 0; i < 2; ++i) L.md[i] = a.md_i[bb * 2 + i];
   L.mball[0] = a.mball_i[bb];
   L.dt = a.dt_i[b];
+  L.dt0 = L.dt;  // the derivatives predict dynamic slots at the initial dt
   L.rho = a.rho_i[b];
 
   const T inf = T(INFINITY);
@@ -895,11 +1122,16 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
         L.ld[k * NX + i] += rho * c[i];
         eq_m = vmax(eq_m, T(fabs(c[i])));
       }
-      for (int j = 0; j < M; ++j) {
-        T gx, gy;
-        const T g = L.obstacle_g(xk1, j, gx, gy);
-        L.mo[k * M + j] = hinge(L.mo[k * M + j] + rho * g);
-        in_m = vmax(in_m, g);
+      if (M > 0) {
+        // predicted at the current dt
+        Discs<T> D;
+        L.discs_at(xk1, D);
+        const T t = L.pose_time(k + 1, L.dt);
+        for (int j = 0; j < M; ++j) {
+          const T g = L.template obs_row<false>(D, j, t, nullptr);
+          L.mo[k * M + j] = hinge(L.mo[k * M + j] + rho * g);
+          in_m = vmax(in_m, g);
+        }
       }
       T gr[4], gb[4];
       L.rate_g(uk, up, L.dt, gr);
@@ -992,7 +1224,12 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
 template <typename T, int MODEL, bool QUAD>
 void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   const int blocks = (a.B + THREADS - 1) / THREADS;
-  k2a_kernel<T, MODEL, QUAD><<<blocks, THREADS, 0, stream>>>(a, prm);
+  const bool plain_geometry = prm.n_disc == 1 && prm.disc_off[0] == 0.0 && prm.Ml == 0 &&
+                              prm.Mg == 0 && prm.dynamic == 0;
+  if (plain_geometry)
+    k2a_kernel<T, MODEL, QUAD, GEO_NONE><<<blocks, THREADS, 0, stream>>>(a, prm);
+  else
+    k2a_kernel<T, MODEL, QUAD, GEO_ALL><<<blocks, THREADS, 0, stream>>>(a, prm);
 }
 
 template <typename T, int MODEL>
@@ -1007,7 +1244,9 @@ template <typename T>
 int launch(const K2aParams* prm, const void* const* in, void* const* out, int B, void* stream) {
   if (B <= 0 || prm->N <= 0 || prm->N > MAX_N || prm->M < 0 || prm->M > MAX_M ||
       prm->n_alpha <= 0 || prm->n_alpha > MAX_ALPHAS || prm->n_al <= 0 || prm->n_sqp <= 0 ||
-      prm->model < UNICYCLE || prm->model > BICYCLE)
+      prm->model < UNICYCLE || prm->model > BICYCLE || prm->Mc < 0 || prm->Ml < 0 ||
+      prm->Mg < 0 || prm->Mc + prm->Ml + prm->Mg != prm->M || prm->V > MAX_V ||
+      (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
@@ -1018,14 +1257,22 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, int B,
   a.oc = static_cast<const T*>(in[5]);
   a.orad = static_cast<const T*>(in[6]);
   a.omask = static_cast<const unsigned char*>(in[7]);
-  a.ld_i = static_cast<const T*>(in[8]);
-  a.lt_i = static_cast<const T*>(in[9]);
-  a.mo_i = static_cast<const T*>(in[10]);
-  a.mr_i = static_cast<const T*>(in[11]);
-  a.mb_i = static_cast<const T*>(in[12]);
-  a.md_i = static_cast<const T*>(in[13]);
-  a.mball_i = static_cast<const T*>(in[14]);
-  a.rho_i = static_cast<const T*>(in[15]);
+  a.ovel = static_cast<const T*>(in[8]);
+  a.ln = static_cast<const T*>(in[9]);
+  a.lvel = static_cast<const T*>(in[10]);
+  a.lmask = static_cast<const unsigned char*>(in[11]);
+  a.pg = static_cast<const T*>(in[12]);
+  a.pnv = static_cast<const int*>(in[13]);
+  a.pvel = static_cast<const T*>(in[14]);
+  a.pmask = static_cast<const unsigned char*>(in[15]);
+  a.ld_i = static_cast<const T*>(in[16]);
+  a.lt_i = static_cast<const T*>(in[17]);
+  a.mo_i = static_cast<const T*>(in[18]);
+  a.mr_i = static_cast<const T*>(in[19]);
+  a.mb_i = static_cast<const T*>(in[20]);
+  a.md_i = static_cast<const T*>(in[21]);
+  a.mball_i = static_cast<const T*>(in[22]);
+  a.rho_i = static_cast<const T*>(in[23]);
   a.xs = static_cast<T*>(out[0]);
   a.us = static_cast<T*>(out[1]);
   a.dt = static_cast<T*>(out[2]);
@@ -1059,10 +1306,13 @@ extern "C" {
 int k2a_max_n() { return MAX_N; }
 int k2a_max_m() { return MAX_M; }
 int k2a_max_alphas() { return MAX_ALPHAS; }
+int k2a_max_v() { return MAX_V; }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 
-// in: xs, us, dt, xf, u_prev, circle centers, radii, mask, lam_def,
-//     lam_term, mu_obs, mu_rate, mu_box, mu_dt, mu_ball, rho (16 pointers)
+// in: xs, us, dt, xf, u_prev, point and circle centers, radii, mask,
+//     velocities, line endpoints, velocities, mask, polygon vertices, vertex
+//     counts (int32), velocities, mask, lam_def, lam_term, mu_obs, mu_rate,
+//     mu_box, mu_dt, mu_ball, rho (24 pointers)
 // out: xs, us, dt, lam_def, lam_term, mu_obs, mu_rate, mu_box, mu_dt,
 //      mu_ball, rho, cost, eq_norm, ineq_viol, converged (15 pointers)
 int k2a_fused_solve_f32(const K2aParams* prm, const void* const* in, void* const* out, int B,

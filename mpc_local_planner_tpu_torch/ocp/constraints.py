@@ -16,11 +16,19 @@ from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE
 
 
 def obstacle_inequalities(spec, xs, dt, scenario):
-    """Per-stage obstacle terms, stages k = 1..N (x_0 is fixed): (..., N, M)."""
+    """Per-stage obstacle terms, stages k = 1..N (x_0 is fixed): (..., N, M).
+    Dynamic obstacles are predicted to t_k = k·dt at this trajectory's dt
+    (a line-search candidate's, a dual update's current one)."""
     if spec.obstacle_cap == 0:
         return xs.new_zeros(xs.shape[:-2] + (spec.N, 0))
     poses = xs[..., 1:, :]
-    d = spec.footprint.distances(poses, scenario.obstacles.with_stage_axis())
+    obs = scenario.obstacles.with_stage_axis()
+    if spec.enable_dynamic_obstacles:
+        # constant-velocity extrapolation to the stage times t_k = k·dt, dt
+        # detached: predicted positions are stage data, not decision-dependent
+        k = torch.arange(1, spec.N + 1, dtype=xs.dtype, device=xs.device)
+        obs = obs.predict(k * dt.detach()[..., None])
+    d = spec.footprint.distances(poses, obs)
     return spec.min_obstacle_dist - d
 
 

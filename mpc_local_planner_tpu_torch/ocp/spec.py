@@ -3,10 +3,11 @@
 
 ``OcpSpec`` takes the JAX package's constructor arguments. The port runs the
 unicycle, both Ackermann cars and the kinematic bicycle with forward
-differences, a point or disc footprint, point and circle obstacle slots,
-minimum time or the quadratic form (plain or integral, left-sum or
-trapezoidal, with the hybrid time weight), the terminal quadratic cost and
-the terminal ball, on a uniform grid with a fixed or variable dt. It raises
+differences, a point, disc or two-disc footprint, point, circle, line and
+polygon obstacle slots, static or dynamic (constant velocity), minimum time
+or the quadratic form (plain or integral, left-sum or trapezoidal, with the
+hybrid time weight), the terminal quadratic cost and the terminal ball, on
+a uniform grid with a fixed or variable dt. It raises
 ``NotImplementedError`` naming the ROADMAP item for anything else.
 """
 
@@ -20,6 +21,7 @@ import torch
 from mpc_local_planner_tpu_torch.geometry.footprints import (
     CircularFootprint,
     PointFootprint,
+    TwoCirclesFootprint,
 )
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.systems.models import (
@@ -79,8 +81,8 @@ class OcpSpec:
             raise ValueError("nonuniform_dt requires variable_dt")
         if type(self.model) not in MODELS:
             _not_ported(f"model {type(self.model).__name__}")
-        if type(self.footprint) not in (PointFootprint, CircularFootprint):
-            _not_ported(f"footprint {type(self.footprint).__name__}", "M9, K2c")
+        if type(self.footprint) not in (PointFootprint, CircularFootprint, TwoCirclesFootprint):
+            _not_ported(f"footprint {type(self.footprint).__name__}", "M9, K2c footprints")
         if self.collocation != "forward_differences":
             _not_ported(f"collocation {self.collocation!r}", "M9, K2b and K2e")
         if self.objective not in ("minimum_time", "quadratic_form"):
@@ -93,8 +95,6 @@ class OcpSpec:
             _not_ported("the non-uniform per-stage dt grid", "M9, K2f")
         if self.via_cap:
             _not_ported("via points", "M9, K2d")
-        if self.enable_dynamic_obstacles:
-            _not_ported("dynamic obstacles", "M9, K2c")
 
     @property
     def nx(self) -> int:

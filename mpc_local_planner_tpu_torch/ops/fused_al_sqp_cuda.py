@@ -5,14 +5,17 @@ Replaces the TPU kernel
 ``mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel``
 (launched by ``fused_solve``) on the scope that ``OcpSpec`` admits: the
 unicycle, both Ackermann cars and the kinematic bicycle (template parameter
-of the kernel), forward differences, a point or disc footprint, static point
-and circle obstacle slots, minimum time or the quadratic form (template
-parameter; plain or integral, left-sum or trapezoidal, hybrid time weight),
-the terminal quadratic cost and the terminal ball, on a uniform grid with a
-variable or fixed dt. K2a, the first specialization ported (simple car,
-minimum time, variable dt), is one instantiation. Still to port: the midpoint and
-Crank–Nicolson rules (K2b), other footprints and line and polygon slots
-(K2c), via points (K2d), shooting (K2e) and the non-uniform grid (K2f). The
+of the kernel), forward differences, a point, disc or two-disc footprint,
+point, circle, line and polygon obstacle slots, static or dynamic (runtime
+values of the launch; the kernel compiles them away for a launch with one
+disc at the pose and static point and circle slots), minimum time or the
+quadratic form (template parameter; plain or integral, left-sum or
+trapezoidal, hybrid time weight), the terminal quadratic cost and the
+terminal ball, on a uniform grid with a variable or fixed dt. K2a, the
+first specialization ported (simple car, minimum time, variable dt), is one
+instantiation. Still to port: the midpoint and Crank–Nicolson rules (K2b),
+the line and polygon footprints (K2c), via points (K2d), shooting (K2e) and
+the non-uniform grid (K2f). The
 source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
 n_al × n_sqp schedule to its end — closed-form derivatives streamed into
 the Riccati sweep, the rollout, the NaN quarantine, the candidate line
@@ -47,8 +50,14 @@ import dataclasses
 import torch
 
 from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, se2_boxminus
-from mpc_local_planner_tpu_torch.geometry.distances import _EPS
-from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint, PointFootprint
+from mpc_local_planner_tpu_torch.core.tree import tree_map
+from mpc_local_planner_tpu_torch.geometry.distances import _EPS, _polygon_edges
+from mpc_local_planner_tpu_torch.geometry.footprints import (
+    CircularFootprint,
+    PointFootprint,
+    TwoCirclesFootprint,
+    disc_footprint,
+)
 from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE
 from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
@@ -58,6 +67,7 @@ from mpc_local_planner_tpu_torch.solvers.al_sqp import (
     DualState,
     SolveResult,
     _hinge,
+    _stage_obstacles,
     dt_clip,
     solve,
 )
@@ -70,8 +80,9 @@ from mpc_local_planner_tpu_torch.systems.models import (
 )
 
 SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
-# compile-time maxima of the kernel (csrc/fused_al_sqp.cu)
-MAX_N, MAX_M, MAX_ALPHAS = 64, 16, 16
+# compile-time maxima of the kernel (csrc/fused_al_sqp.cu): stages, obstacle
+# slots, line-search candidates, padded polygon vertices
+MAX_N, MAX_M, MAX_ALPHAS, MAX_V = 64, 16, 16, 16
 
 _lib = None
 
@@ -93,16 +104,14 @@ def _spec_scope_error(spec):
     ROADMAP item that ports it."""
     if type(spec.model) not in MODELS:
         return f"model {type(spec.model).__name__}"
-    if type(spec.footprint) not in (PointFootprint, CircularFootprint):
-        return f"footprint {type(spec.footprint).__name__} (K2c)"
+    if type(spec.footprint) not in (PointFootprint, CircularFootprint, TwoCirclesFootprint):
+        return f"footprint {type(spec.footprint).__name__} (K2c footprints)"
     if spec.collocation != "forward_differences":
         return f"collocation {spec.collocation!r} (K2b, K2e)"
     if spec.objective not in ("minimum_time", "quadratic_form") or spec.via_cap:
         return f"objective {spec.objective!r} with via points (K2d)"
     if spec.nonuniform_dt:
         return "the non-uniform per-stage dt grid (K2f)"
-    if spec.enable_dynamic_obstacles:
-        return "dynamic obstacles (K2c)"
     if spec.N > MAX_N or spec.obstacle_cap > MAX_M:
         return f"N={spec.N}, M={spec.obstacle_cap} (at most {MAX_N} and {MAX_M})"
     return None
@@ -114,10 +123,10 @@ def fused_supported(spec) -> bool:
 
 
 def fused_obstacles_supported(scenario) -> bool:
-    """The kernel reads point and circle slots only (line and polygon slots:
-    K2c)."""
+    """Every slot family is in the kernel's scope; polygon slots up to
+    MAX_V padded vertices (JAX ``fused_obstacles_supported``)."""
     o = scenario.obstacles
-    return o.lines.shape[-3] == 0 and o.polygons.shape[-3] == 0
+    return o.polygons.shape[-3] == 0 or o.polygons.shape[-2] <= MAX_V
 
 
 # --------------------------------------------------------------------------- #
@@ -183,29 +192,113 @@ def defect_linearization(spec, xk, uk, xk1, dt):
 
 def circle_slots(obstacles):
     """Point and circle slots as one family: centers (B, M, 2), radii (B, M)
-    (points have radius 0) and masks (B, M), points first as in
-    ``footprints.distances``."""
+    (points have radius 0), masks (B, M) and velocities (B, M, 2), points
+    first as in ``footprints.distances``."""
     o = obstacles
     centers = torch.cat([o.points, o.circles], dim=-2)
     radii = torch.cat([torch.zeros_like(o.points[..., 0]), o.circle_radii], dim=-1)
     mask = torch.cat([o.point_mask, o.circle_mask], dim=-1)
-    return centers, radii, mask
+    vels = torch.cat([o.point_vels, o.circle_vels], dim=-2)
+    return centers, radii, mask, vels
 
 
-def _footprint_radius(spec):
-    return spec.footprint.radius if isinstance(spec.footprint, CircularFootprint) else 0.0
+def _disc_centers(spec, x):
+    """The footprint discs at poses x (..., 3): [(px, py, radius, dpx/dθ,
+    dpy/dθ)], each disc at p + offset·(cos θ, sin θ) (Pallas ``fp_points``)."""
+    out = []
+    for off, r in disc_footprint(spec.footprint):
+        if off == 0.0:
+            zero = torch.zeros_like(x[..., 0])
+            out.append((x[..., 0], x[..., 1], r, zero, zero))
+        else:
+            c, s = torch.cos(x[..., 2]), torch.sin(x[..., 2])
+            out.append((x[..., 0] + off * c, x[..., 1] + off * s, r, -off * s, off * c))
+    return out
 
 
-def obstacle_rows(spec, x, slots):
-    """Obstacle rows at poses x (..., 3): g = min_dist − d (..., M), with d the
-    footprint disc's safe-norm distance to each slot (BIG on a masked slot),
-    and the position gradient of g (..., M, 2). ``slots`` broadcast against
-    x's leading dims."""
-    centers, radii, mask = slots
-    e = x[..., None, :2] - centers
-    dn = torch.sqrt(torch.sum(e * e, dim=-1) + _EPS)
-    d = torch.where(mask, dn - radii, BIG_DISTANCE) - _footprint_radius(spec)
-    return spec.min_obstacle_dist - d, -(e / dn[..., None])
+def _clip_gate(t_raw):
+    """AD gate of jnp.clip(t_raw, 0, 1): 0.5 at an exact 0 or 1."""
+    g1 = torch.where(t_raw > 0.0, 1.0, torch.where(t_raw == 0.0, 0.5, 0.0))
+    y = torch.clamp(t_raw, min=0.0)
+    g2 = torch.where(y < 1.0, 1.0, torch.where(y == 1.0, 0.5, 0.0))
+    return g1 * g2
+
+
+def _sel_lt(a, b):
+    """Weight of ``a`` in torch.minimum(a, b): 1, 0.5 at a tie, 0."""
+    return torch.where(a < b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _point_seg(px, py, ax, ay, bx, by):
+    """point_to_segment from the disc center p to the segment [a, b] and its
+    gradient in p (Pallas ``d_point_seg``)."""
+    abx, aby = bx - ax, by - ay
+    denom = torch.clamp(abx * abx + aby * aby, min=_EPS)
+    sx, sy = px - ax, py - ay
+    t_raw = (sx * abx + sy * aby) / denom
+    t = torch.clamp(t_raw, 0.0, 1.0)
+    ex, ey = sx - t * abx, sy - t * aby
+    dn = torch.sqrt(ex * ex + ey * ey + _EPS)
+    eab = (ex * abx + ey * aby) * _clip_gate(t_raw) / denom
+    return dn, (ex - eab * abx) / dn, (ey - eab * aby) / dn
+
+
+def _polygon_rows(px, py, polys, nv):
+    """point_to_polygon_signed from the disc center p (..., 1) to padded
+    polygons (..., Mg, V, 2) with nv active vertices (..., Mg), and its
+    gradient in p: the minimum over the active edges (an equal split among
+    tied edges, as jnp.min), negated inside by the even-odd rule."""
+    a, b, act = _polygon_edges(polys, nv)
+    ax, ay, bx, by = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    qx, qy = px[..., None, None], py[..., None, None]
+    d, gx, gy = _point_seg(qx, qy, ax, ay, bx, by)
+    d = torch.where(act, d, torch.inf)
+    dmin = torch.amin(d, dim=-1)
+    w = ((d == dmin[..., None]) & act).to(d.dtype)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
+    gx, gy = torch.sum(w * gx, dim=-1), torch.sum(w * gy, dim=-1)
+    cond = (ay > qy) != (by > qy)
+    dy = torch.where(torch.abs(by - ay) < _EPS, _EPS, by - ay)
+    x_int = ax + (qy - ay) * (bx - ax) / dy
+    crossing = cond & (qx < x_int) & act
+    sgn = torch.where(torch.remainder(torch.sum(crossing.int(), dim=-1), 2) == 1, -1.0, 1.0)
+    return sgn * dmin, sgn * gx, sgn * gy
+
+
+def obstacle_rows(spec, x, obs):
+    """Obstacle rows at poses x (..., 3): g = min_dist − d (..., M), d the
+    footprint's distance to each slot of ``obs`` (an ObstacleSet whose
+    leaves broadcast against x's leading dims; BIG on a masked slot), in the
+    order [points and circles, lines, polygons], and the pose gradient of g
+    (..., M, 3). Each disc's distance is its center's minus its radius; two
+    discs combine by their minimum with the 0.5 tie split (Pallas
+    ``obs_terms``). A family with no slot adds no row and no work."""
+    centers, radii, cmask, _ = circle_slots(obs)
+    lines = obs.lines
+    d_all, g_all = [], []
+    for px, py, r, dpx, dpy in _disc_centers(spec, x):
+        qx, qy = px[..., None], py[..., None]
+        ex, ey = qx - centers[..., 0], qy - centers[..., 1]
+        dn = torch.sqrt(ex * ex + ey * ey + _EPS)
+        rows = [(torch.where(cmask, dn - radii, BIG_DISTANCE), ex / dn, ey / dn)]
+        if lines.shape[-3]:
+            dl, lgx, lgy = _point_seg(
+                qx, qy, lines[..., 0, 0], lines[..., 0, 1], lines[..., 1, 0], lines[..., 1, 1]
+            )
+            rows.append((torch.where(obs.line_mask, dl, BIG_DISTANCE), lgx, lgy))
+        if obs.polygons.shape[-3]:
+            dg, ggx, ggy = _polygon_rows(px, py, obs.polygons, obs.polygon_nv)
+            rows.append((torch.where(obs.polygon_mask, dg, BIG_DISTANCE), ggx, ggy))
+        d, gx, gy = (torch.cat(parts, dim=-1) for parts in zip(*rows))
+        d = d - r
+        d_all.append(d)
+        g_all.append(torch.stack([gx, gy, gx * dpx[..., None] + gy * dpy[..., None]], dim=-1))
+    d, grad = d_all[0], g_all[0]
+    if len(d_all) == 2:
+        w1, w2 = _sel_lt(d_all[0], d_all[1]), _sel_lt(d_all[1], d_all[0])
+        d = torch.minimum(d_all[0], d_all[1])
+        grad = w1[..., None] * g_all[0] + w2[..., None] * g_all[1]
+    return spec.min_obstacle_dist - d, -grad
 
 
 def hinge_w(t, rho):
@@ -278,14 +371,30 @@ def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu):
         hz[..., 5] += spec.hybrid_time_weight
 
 
-def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slots,
+def _obstacle_block(g, grad, t, on, rho, h, H):
+    """The obstacle rows' part of an AL gradient and Gauss-Newton Hessian,
+    added in place on the pose: a = max(0, t)·on, crisp weight ρ·on·[t > 0],
+    h[:3] += Σ a ∇g, H[:3, :3] += Σ aw ∇g ∇gᵀ (symmetric)."""
+    a = _hinge(t) * on
+    aw = rho * on * (t > 0.0).to(g.dtype)
+    for i in range(3):
+        h[..., i] += torch.sum(a * grad[..., i], dim=-1)
+        for j in range(i, 3):
+            H[..., i, j] += torch.sum(aw * grad[..., i] * grad[..., j], dim=-1)
+    for i in range(3):
+        for j in range(i + 1, 3):
+            H[..., j, i] = H[..., i, j]
+
+
+def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
                     xref=None, iw=None):
     """Exact AL gradient (hz (..., 6), hu (..., 2)) and hybrid Gauss-Newton
     Hessian blocks (Hzz, Hzu, Huu) of the stage merit over z = [x, u_prev,
     dt] and v = u. ``mu_obs`` (..., M) is the stage's multiplier row, ``on``
-    zeroes the obstacle block at k = 0; the quadratic form reads ``xref``
-    (..., 3) and the integration weight ``iw``; all leading dims are batch
-    dims."""
+    zeroes the obstacle block at k = 0, ``obs`` the stage's obstacle set
+    (dynamic obstacles predicted to its time); the quadratic form reads
+    ``xref`` (..., 3) and the integration weight ``iw``; all leading dims are
+    batch dims."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     hz = torch.zeros(lead + (6,), **opts)
     hu = torch.zeros(lead + (2,), **opts)
@@ -297,18 +406,10 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slot
     else:
         hz[..., 5] = 1.0  # minimum time: the stage cost dt
 
-    # obstacles at x_k: crisp Gauss-Newton weight ρ·[μ + ρg > 0]
-    g, grad = obstacle_rows(spec, xk, slots)
+    # obstacles at x_k: crisp Gauss-Newton weight ρ·[μ + ρg > 0] on the pose
+    g, grad = obstacle_rows(spec, xk, obs)
     r, onm = rho[..., None], on[..., None]
-    t = mu_obs * onm + r * g
-    a = _hinge(t) * onm
-    aw = r * onm * (t > 0.0).to(dt.dtype)
-    gx, gy = grad[..., 0], grad[..., 1]
-    hz[..., 0] += torch.sum(a * gx, dim=-1)
-    hz[..., 1] += torch.sum(a * gy, dim=-1)
-    Hzz[..., 0, 0] += torch.sum(aw * gx * gx, dim=-1)
-    Hzz[..., 0, 1] = Hzz[..., 1, 0] = torch.sum(aw * gx * gy, dim=-1)
-    Hzz[..., 1, 1] += torch.sum(aw * gy * gy, dim=-1)
+    _obstacle_block(g, grad, mu_obs * onm + r * g, onm, r, hz, Hzz)
 
     # rate rows g = ±(du − b·dt): J over u_prev and dt (z) and u (v)
     bounds = _rate_bounds(spec)
@@ -338,12 +439,13 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, slot
     return hz, hu, Hzz, Hzu, Huu
 
 
-def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots, mu_ball=None):
+def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=None):
     """PN (..., 6, 6) and pN (..., 6) of the terminal merit: the masked
-    terminal equality, Qf, the obstacle Gauss-Newton block at x_N
-    (multiplier row N−1), the ½·dt·lx(x_N) tail of the trapezoidal quadratic
-    form, the terminal ball (exact PSD Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the
-    0.5 tie subgradient) and the dt box on a variable dt."""
+    terminal equality, Qf, the obstacle Gauss-Newton block on the pose at
+    x_N (multiplier row N−1, ``obs`` predicted to its time), the ½·dt·lx(x_N)
+    tail of the trapezoidal quadratic form, the terminal ball (exact PSD
+    Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the 0.5 tie subgradient) and the dt
+    box on a variable dt."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     P = torch.zeros(lead + (6, 6), **opts)
     p = torch.zeros(lead + (6,), **opts)
@@ -356,18 +458,9 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, slots, mu_ball=N
         for i, qf in enumerate(spec.qf_diag):
             P[..., i, i] += 2.0 * qf
             p[..., i] += 2.0 * qf * gd[..., i]
-    g, grad = obstacle_rows(spec, xN, slots)
+    g, grad = obstacle_rows(spec, xN, obs)
     r = rho[..., None]
-    t = mu_obs + r * g
-    a = _hinge(t)
-    aw = r * (t > 0.0).to(dt.dtype)
-    gx, gy = grad[..., 0], grad[..., 1]
-    p[..., 0] += torch.sum(a * gx, dim=-1)
-    p[..., 1] += torch.sum(a * gy, dim=-1)
-    P[..., 0, 0] += torch.sum(aw * gx * gx, dim=-1)
-    P[..., 0, 1] += torch.sum(aw * gx * gy, dim=-1)
-    P[..., 1, 0] = P[..., 0, 1]
-    P[..., 1, 1] += torch.sum(aw * gy * gy, dim=-1)
+    _obstacle_block(g, grad, mu_obs + r * g, 1.0, r, p, P)
     if trapezoidal(spec):
         q = spec.q_diag
         p[..., 5] += 0.5 * sum(q[i] * gd[..., i] * gd[..., i] for i in range(3))
@@ -402,10 +495,11 @@ def ball_g(spec, xN, xf):
     return g, torch.stack([2.0 * w[i] * d[..., i] for i in range(3)], dim=-1)
 
 
-def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, slots):
+def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k):
     """The Riccati inputs (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN) of one
     SQP iteration from the kernel's closed forms; the counterpart of the AD
-    ``al_sqp._kkt_system``."""
+    ``al_sqp._kkt_system``. ``obs_k`` holds the per-stage obstacle sets
+    (B, N+1, ...), ``al_sqp._stage_obstacles`` at the solve's initial dt."""
     N, M = spec.N, spec.obstacle_cap
     xs, us, dt = primal.xs, primal.us, primal.dt
     B = dt.shape[0]
@@ -419,17 +513,17 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, slots):
     mu_obs = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
     on = torch.ones((B, N), dtype=dt.dtype, device=dt.device)
     on[:, 0] = 0.0
-    stage_slots = tuple(a[:, None] for a in slots)
     iw = torch.ones((N,), dtype=dt.dtype, device=dt.device)
     if trapezoidal(spec):
         iw[0] = 0.5
     hz, hu, Hzz, Hzu, Huu = stage_grad_hess(
         spec, xs[:, :-1], us, up, dt_b, mu_obs, on, duals.mu_rate, duals.mu_box,
-        duals.rho[:, None].expand(B, N), stage_slots, scenario.xf[:, None], iw,
+        duals.rho[:, None].expand(B, N), tree_map(lambda a: a[:, :N], obs_k),
+        scenario.xf[:, None], iw,
     )
     PN, pN = terminal_Pp(
         spec, xs[:, N], dt, scenario.xf, duals.lam_term, duals.mu_obs[:, N - 1],
-        duals.mu_dt, duals.rho, slots, duals.mu_ball,
+        duals.mu_dt, duals.rho, tree_map(lambda a: a[:, N], obs_k), duals.mu_ball,
     )
     return tuple(a.contiguous() for a in (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN))
 
@@ -437,28 +531,32 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, slots):
 def _check_scope(spec, settings, scenario):
     reason = _spec_scope_error(spec)
     if reason is None and not fused_obstacles_supported(scenario):
-        reason = "line or polygon obstacle slots"
+        reason = f"polygons of {scenario.obstacles.polygons.shape[-2]} padded vertices " \
+                 f"(at most {MAX_V})"
     if reason is None and len(settings.alphas) > MAX_ALPHAS:
         reason = f"{len(settings.alphas)} line-search candidates (at most {MAX_ALPHAS})"
     if reason is not None:
         raise NotImplementedError(
             f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
-            "midpoint and Crank-Nicolson rules (K2b), other footprints and line and "
-            "polygon slots (K2c), via points (K2d), shooting (K2e), the non-uniform "
-            "grid (K2f)"
+            "midpoint and Crank-Nicolson rules (K2b), the line and polygon footprints "
+            "(K2c), via points (K2d), shooting (K2e), the non-uniform grid (K2f)"
         )
 
 
 def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState,
-                      decisions=None) -> SolveResult:
+                      decisions=None, kkt_rounding=None) -> SolveResult:
     """The kernel's plain PyTorch version on any device: the whole warm solve
     with the kernel's closed-form derivatives and the plain ``lqr_solve``
-    (``decisions``: as ``al_sqp.solve`` takes it)."""
+    (``decisions``: as ``al_sqp.solve`` takes it; ``kkt_rounding``: applied
+    to each iteration's KKT inputs, ``agreement.kkt_roundings``)."""
     _check_scope(spec, settings, scenario)
-    slots = circle_slots(scenario.obstacles)
+    # the derivatives predict dynamic obstacles at the initial dt, the merit
+    # and the dual update (``solve``) at the trajectory's own dt
+    obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
 
     def kkt_system(primal, duals):
-        return fused_kkt_system(spec, primal, scenario, duals, slots)
+        kkt = fused_kkt_system(spec, primal, scenario, duals, obs_k)
+        return kkt if kkt_rounding is None else kkt_rounding(kkt)
 
     plain = dataclasses.replace(settings, kkt="scan", fused="off")
     return solve(spec, plain, scenario, init, duals, kkt_system=kkt_system,
@@ -478,9 +576,11 @@ class _Params(ctypes.Structure):
         ("model", ctypes.c_int), ("quadratic", ctypes.c_int),
         ("integral", ctypes.c_int), ("trapezoidal", ctypes.c_int),
         ("has_qf", ctypes.c_int), ("variable_dt", ctypes.c_int),
+        ("Mc", ctypes.c_int), ("Ml", ctypes.c_int), ("Mg", ctypes.c_int), ("V", ctypes.c_int),
+        ("n_disc", ctypes.c_int), ("dynamic", ctypes.c_int),
         ("wheelbase", ctypes.c_double), ("bike_a", ctypes.c_double),
-        ("bike_lr", ctypes.c_double), ("fp_radius", ctypes.c_double),
-        ("min_dist", ctypes.c_double),
+        ("bike_lr", ctypes.c_double), ("disc_off", ctypes.c_double * 2),
+        ("disc_r", ctypes.c_double * 2), ("min_dist", ctypes.c_double),
         ("lo_u", ctypes.c_double * 2), ("hi_u", ctypes.c_double * 2),
         ("lo_r", ctypes.c_double * 2), ("hi_r", ctypes.c_double * 2),
         ("q", ctypes.c_double * 3), ("r", ctypes.c_double * 2),
@@ -499,7 +599,8 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _params(spec, settings) -> _Params:
+def _params(spec, settings, obstacles) -> _Params:
+    """The kernel's ``K2aParams`` for a launch on ``obstacles``."""
     lo_u, hi_u = (b.tolist() for b in spec.control_box())
     lo_r, hi_r = _rate_bounds(spec)
     alphas = [float(a) for a in settings.alphas]
@@ -507,16 +608,23 @@ def _params(spec, settings) -> _Params:
     model = spec.model
     bicycle = type(model) is KinematicBicycleModelVelocityInput
     dt_lo, dt_hi = dt_clip(spec)
+    discs = disc_footprint(spec.footprint)
+    pad = list(discs) + [(0.0, 0.0)] * (2 - len(discs))
+    o = obstacles
     return _Params(
         N=spec.N, M=spec.obstacle_cap, n_al=settings.n_al, n_sqp=settings.n_sqp,
         n_alpha=len(alphas), xf_fixed=(ctypes.c_int * 3)(*(int(b) for b in spec.xf_fixed)),
         model=MODEL_IDS[type(model)], quadratic=int(spec.objective == "quadratic_form"),
         integral=int(spec.integral_form), trapezoidal=int(trapezoidal(spec)),
         has_qf=int(spec.qf_diag is not None), variable_dt=int(spec.variable_dt),
+        Mc=o.points.shape[-2] + o.circles.shape[-2], Ml=o.lines.shape[-3],
+        Mg=o.polygons.shape[-3], V=o.polygons.shape[-2], n_disc=len(discs),
+        dynamic=int(spec.enable_dynamic_obstacles),
         wheelbase=getattr(model, "wheelbase", 0.0),
         bike_a=_bicycle_a(model) if bicycle else 0.0,
         bike_lr=model.lr if bicycle else 0.0,
-        fp_radius=_footprint_radius(spec), min_dist=spec.min_obstacle_dist,
+        disc_off=d2(*(o for o, _ in pad)), disc_r=d2(*(r for _, r in pad)),
+        min_dist=spec.min_obstacle_dist,
         lo_u=d2(*lo_u), hi_u=d2(*hi_u), lo_r=d2(*lo_r), hi_r=d2(*hi_r),
         q=d3(*spec.q_diag), r=d2(*spec.r_diag), qf=d3(*(spec.qf_diag or (0.0,) * 3)),
         hybrid=spec.hybrid_time_weight, ball_w=d3(*spec.ball_weights),
@@ -547,13 +655,14 @@ def bind(path):
     for fn in (lib.k2a_fused_solve_f32, lib.k2a_fused_solve_f64):
         fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("k2a_max_n", "k2a_max_m", "k2a_max_alphas", "k2a_params_size"):
+    names = ("k2a_max_n", "k2a_max_m", "k2a_max_alphas", "k2a_max_v", "k2a_params_size")
+    for name in names:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.k2a_error_string.argtypes = [ctypes.c_int]
     lib.k2a_error_string.restype = ctypes.c_char_p
-    limits = (lib.k2a_max_n(), lib.k2a_max_m(), lib.k2a_max_alphas(), lib.k2a_params_size())
-    if limits != (MAX_N, MAX_M, MAX_ALPHAS, ctypes.sizeof(_Params)):
+    limits = tuple(getattr(lib, name)() for name in names)
+    if limits != (MAX_N, MAX_M, MAX_ALPHAS, MAX_V, ctypes.sizeof(_Params)):
         raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
     return lib
 
@@ -567,14 +676,22 @@ def _load():
 
 
 _IN_NAMES = (
-    "xs", "us", "dt", "xf", "u_prev", "centers", "radii", "mask", "lam_def",
-    "lam_term", "mu_obs", "mu_rate", "mu_box", "mu_dt", "mu_ball", "rho",
+    "xs", "us", "dt", "xf", "u_prev", "centers", "radii", "circle_mask", "circle_vels",
+    "lines", "line_vels", "line_mask", "polygons", "polygon_nv", "polygon_vels",
+    "polygon_mask", "lam_def", "lam_term", "mu_obs", "mu_rate", "mu_box", "mu_dt",
+    "mu_ball", "rho",
 )
+_NOT_FLOAT = {"circle_mask": torch.bool, "line_mask": torch.bool, "polygon_nv": torch.int32,
+              "polygon_mask": torch.bool}
 
 
 def kernel_io(spec, scenario, init: Primal, duals: DualState):
-    """The kernel's 16 inputs (checked: one device, float32 or float64,
-    contiguous, the expected shapes) and its 15 freshly allocated outputs."""
+    """The kernel's 24 inputs (checked: one device, float32 or float64, the
+    masks bool and the vertex counts int32, contiguous, the expected shapes,
+    slot families adding up to the spec's M) and its 15 freshly allocated
+    outputs. The obstacle inputs are the point and circle slots as one
+    family (``circle_slots``), then the line and the polygon slots, each
+    with its velocities."""
     xs = init.xs
     dev, dtype = xs.device, xs.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -582,18 +699,24 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
     B, N, M = xs.shape[0], spec.N, spec.obstacle_cap
     if B == 0:
         raise ValueError("the fused kernel needs a non-empty batch")
-    centers, radii, mask = circle_slots(scenario.obstacles)
+    o = scenario.obstacles
+    centers, radii, cmask, cvels = circle_slots(o)
+    Mc, Ml, Mg, V = centers.shape[-2], o.lines.shape[-3], o.polygons.shape[-3], o.polygons.shape[-2]
+    if Mc + Ml + Mg != M:
+        raise ValueError(f"fused kernel: {Mc}+{Ml}+{Mg} obstacle slots, the spec has M={M}")
     ins = (
-        xs, init.us, init.dt, scenario.xf, scenario.u_prev, centers, radii, mask,
-        duals.lam_def, duals.lam_term, duals.mu_obs, duals.mu_rate, duals.mu_box,
-        duals.mu_dt, duals.mu_ball, duals.rho,
+        xs, init.us, init.dt, scenario.xf, scenario.u_prev, centers, radii, cmask, cvels,
+        o.lines, o.line_vels, o.line_mask, o.polygons, o.polygon_nv, o.polygon_vels,
+        o.polygon_mask, duals.lam_def, duals.lam_term, duals.mu_obs, duals.mu_rate,
+        duals.mu_box, duals.mu_dt, duals.mu_ball, duals.rho,
     )
     shapes = (
-        (B, N + 1, 3), (B, N, 2), (B,), (B, 3), (B, 2), (B, M, 2), (B, M), (B, M),
-        (B, N, 3), (B, 3), (B, N, M), (B, N, 4), (B, N, 4), (B, 2), (B, 1), (B,),
+        (B, N + 1, 3), (B, N, 2), (B,), (B, 3), (B, 2), (B, Mc, 2), (B, Mc), (B, Mc),
+        (B, Mc, 2), (B, Ml, 2, 2), (B, Ml, 2), (B, Ml), (B, Mg, V, 2), (B, Mg), (B, Mg, 2),
+        (B, Mg), (B, N, 3), (B, 3), (B, N, M), (B, N, 4), (B, N, 4), (B, 2), (B, 1), (B,),
     )
     for name, a, shape in zip(_IN_NAMES, ins, shapes):
-        want = torch.bool if name == "mask" else dtype
+        want = _NOT_FLOAT.get(name, dtype)
         if a.device != dev:
             raise ValueError(f"fused kernel: {name} is on {a.device}, xs on {dev}")
         if a.dtype != want:
@@ -603,15 +726,15 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
         if not a.is_contiguous():
             raise ValueError(f"fused kernel: {name} is not contiguous")
     # xs, us, dt, the 8 dual fields, cost, eq_norm, ineq_viol; converged
-    out_shapes = shapes[:3] + shapes[8:] + ((B,),) * 3
+    out_shapes = shapes[:3] + shapes[16:] + ((B,),) * 3
     outs = tuple(torch.empty(s, dtype=dtype, device=dev) for s in out_shapes)
     return ins, outs + (torch.empty((B,), dtype=torch.bool, device=dev),)
 
 
-def launch(lib, spec, settings, ins, outs, stream) -> None:
+def launch(lib, spec, settings, ins, outs, stream, obstacles) -> None:
     """Run the kernel on ``ins`` into ``outs`` on ``stream``; raises on a
     refused launch."""
-    params = _params(spec, settings)
+    params = _params(spec, settings, obstacles)
     in_ptrs = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(a.data_ptr() for a in outs))
     fn = lib.k2a_fused_solve_f32 if ins[0].dtype == torch.float32 else lib.k2a_fused_solve_f64
@@ -642,7 +765,8 @@ def fused_solve_cuda(spec, settings, scenario, init: Primal, duals: DualState) -
     lib = _load()
     dev = init.xs.device
     with torch.cuda.device(dev):
-        launch(lib, spec, settings, ins, outs, torch.cuda.current_stream(dev).cuda_stream)
+        launch(lib, spec, settings, ins, outs, torch.cuda.current_stream(dev).cuda_stream,
+               scenario.obstacles)
     fused_solve_cuda.launches += 1
     return result_of(outs)
 
@@ -657,8 +781,9 @@ fused_solve_cuda.launches = 0
 # same constant at every stage and iterate, "v" varies. Fz, Gz and rz are the
 # augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju,
 # the dt column m = f only on a variable dt); Hzz, Hzu, Huu, hz and hu are
-# ``stage_grad_hess``'s blocks (obstacles on x, y; the quadratic form on x,
-# u and, integral, dt; rate rows on u_prev, dt and u; box rows on u).
+# ``stage_grad_hess``'s blocks (obstacles on x, y and, where a footprint disc
+# sits off the pose, θ; the quadratic form on x, u and, integral, dt; rate
+# rows on u_prev, dt and u; box rows on u).
 # tests/test_torch_fused.py and tests/test_torch_quadratic.py hold them
 # against the plain version's tensors.
 def step_structure(spec) -> dict:
@@ -669,15 +794,17 @@ def step_structure(spec) -> dict:
     quad = spec.objective == "quadratic_form"
     integ = "v" if quad and spec.integral_form else "0"
     obs = "v" if spec.obstacle_cap else "0"
+    rot = spec.obstacle_cap and any(off != 0.0 for off, _ in disc_footprint(spec.footprint))
+    o_th = "v" if rot else "0"
     xy = "v" if spec.obstacle_cap or quad else "0"
-    th = "v" if quad else "0"
+    th = "v" if quad or rot else "0"
     return {
         "Fz": (f"1 0 v 0 0 {m}", f"0 1 v 0 0 {m}", f"0 0 1 0 0 {m}", "0 0 0 0 0 0",
                "0 0 0 0 0 0", "0 0 0 0 0 1"),
         "Gz": (f"v {g01}", f"v {g01}", f"{g20} v", "1 0", "0 1", "0 0"),
         "rz": ("v v v 0 0 0",),
-        "Hzz": (f"{xy} {obs} 0 0 0 {integ}", f"{obs} {xy} 0 0 0 {integ}",
-                f"0 0 {th} 0 0 {integ}", "0 0 0 v 0 v", "0 0 0 0 v v",
+        "Hzz": (f"{xy} {obs} {o_th} 0 0 {integ}", f"{obs} {xy} {o_th} 0 0 {integ}",
+                f"{o_th} {o_th} {th} 0 0 {integ}", "0 0 0 v 0 v", "0 0 0 0 v v",
                 f"{integ} {integ} {integ} v v v"),
         "Hzu": ("0 0", "0 0", "0 0", "v 0", "0 v", "v v"),
         "Huu": ("v 0", "0 v"),
@@ -771,38 +898,75 @@ _GOAL_DX = 6     # x ⊖ xf: three differences and the θ wrap
 _QUAD_FORM = 8   # Σ q_i d_i² (and 5 for Σ r_j u_j²)
 
 
-def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int) -> int:
+def _geometry_flops(spec, obstacles):
+    """Operations of the obstacle rows at one pose, counted from
+    csrc/fused_al_sqp.cu: (value only, value and pose gradient, the AL
+    terms of one slot in the derivatives). Per slot and disc: a point or
+    circle slot 9 (the gradient 4 more), a line slot 21 (11), a polygon slot
+    26 per active edge and 2 (13 per active edge and 4), the θ chain of a
+    disc off the pose 3; per slot g = min_dist − d 1, the minimum of two
+    discs' gradients 9, the dynamic shift 4 (point, circle), 6 (line) or
+    2 + 2 per vertex (polygon); per pose the prediction time 1 and, with a
+    disc off the pose, cos, sin and 6 per such disc. The AL terms are 16
+    per slot on the (x, y) block, 27 on the 3×3 pose block. Polygon edges
+    are this run's mean active count over the lanes of ``obstacles``."""
+    discs = disc_footprint(spec.footprint)
+    nd, n_off = len(discs), sum(off != 0.0 for off, _ in discs)
+    if obstacles is None:
+        mc, ml, mg, edges = spec.obstacle_cap, 0, 0, 0.0
+    else:
+        o = obstacles
+        mc = o.points.shape[-2] + o.circles.shape[-2]
+        ml, mg = o.lines.shape[-3], o.polygons.shape[-3]
+        edges = float(o.polygon_nv.double().sum(dim=-1).mean()) if mg else 0.0
+    m = mc + ml + mg
+    value = (9 * mc + 21 * ml + 2 * mg) * nd + 26 * edges * nd + m
+    if spec.enable_dynamic_obstacles:
+        value += 4 * mc + 6 * ml + 2 * mg + 2 * edges + 1
+    if n_off and m:
+        value += 2 + 6 * n_off
+    grad = (4 * mc + 11 * ml + 4 * mg) * nd + 13 * edges * nd + 3 * m * n_off
+    grad += 9 * m * (nd == 2)
+    al = 27 if n_off else 16
+    return value, value + grad, al
+
+
+def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:
     """Floating-point operations one scenario's solve of ``spec`` needs: its
     closed forms counted from csrc/fused_al_sqp.cu, the Riccati step and the
     rollout on their structure (``step_flops`` of ``step_structure``; the
     kernel itself does them as dense 6x6 products, about four times the
     work). A multiply-add is 2; sqrt, division and the trigonometric
     functions 1 each; comparisons, negations and copies 0. The schedule is
-    fixed, so every lane does the same work."""
+    fixed, so every lane does the same work but for its polygon edges.
+    ``obstacles`` (the run's ObstacleSet) gives the slot families; without
+    it every slot is a circle slot."""
     N, M = spec.N, spec.obstacle_cap
     f_ops, dyn_ops, g_ops = _MODEL_FLOPS[type(spec.model)]
     quad = spec.objective == "quadratic_form"
     vdt, ball = spec.variable_dt, spec.ball_radius > 0.0
     riccati, rollout_step = step_flops(step_structure(spec))
+    obs_value, obs_grad, obs_al = _geometry_flops(spec, obstacles)
+    obs_deriv = obs_grad + obs_al * M
     ball_g = 9                              # Σ w_i d_i² − r²
     dt_rows_merit, dt_rows_pp, dt_rows_dual = 14, 14, 6
-    # terminal_Pp: equality, obstacles and the dt box (30 + 30 M); Qf,
-    # the trapezoidal tail, the ball (g, g′, its gradient and exact Hessian)
-    terminal = 30 + 30 * M - (0 if vdt else dt_rows_pp)
+    # terminal_Pp: equality and the dt box (30), the obstacle rows; Qf, the
+    # trapezoidal tail, the ball (g, g′, its gradient and exact Hessian)
+    terminal = 30 + obs_deriv - (0 if vdt else dt_rows_pp)
     terminal += 9 * (spec.qf_diag is not None) + 28 * trapezoidal(spec)
     terminal += (ball_g + 3 + 4 + 12 + 27) * ball
     # defect 13 (three x + dt f − x', the θ wrap), F 2
     transition = dyn_ops + 13 + 2 + g_ops
-    # stage_grad_hess: obstacles, rate and box rows (175 + 30 M); the
+    # stage_grad_hess: rate and box rows (175), the obstacle rows; the
     # quadratic form: plain 21, integral 52, hybrid 1
-    stage = 175 + 30 * M
+    stage = 175 + obs_deriv
     if quad:
         stage += (52 if spec.integral_form else 21) + (spec.hybrid_time_weight > 0.0)
     rollout = transition + rollout_step
-    # merit per stage: candidate, defect, penalties (121 + 20 M with the
-    # simple car's f); the quadratic form's stage cost (20, integral 22,
-    # hybrid 2)
-    merit_stage = 121 - 7 + f_ops + 20 * M
+    # merit per stage: candidate, defect, penalties (121 with the simple
+    # car's f), the obstacle rows and their penalties (10 per slot); the
+    # quadratic form's stage cost (20, integral 22, hybrid 2)
+    merit_stage = 121 - 7 + f_ops + obs_value + 10 * M
     if quad:
         merit_stage += (22 if spec.integral_form else 20) + 2 * (spec.hybrid_time_weight > 0.0)
     # merit's terminal part (40): equality, dt box, ball row, minimum time;
@@ -814,11 +978,13 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int) -> int:
         terminal + N * (transition + stage + riccati) + free_tau_and_cap + N * rollout
         + (n_alpha + 1) * (N * merit_stage + merit_end) + 13 * N + 6
     )
-    # dual update: the stage rows (80 + 16 M), the terminal rows and ρ (20)
-    per_phase = N * (80 + 16 * M) + 20 + (ball_g + 3) * ball - (0 if vdt else dt_rows_dual)
+    # dual update: the stage rows (80), the obstacle rows and their updates
+    # (6 per slot), the terminal rows and ρ (20)
+    per_phase = (N * (80 + obs_value + 6 * M) + 20 + (ball_g + 3) * ball
+                 - (0 if vdt else dt_rows_dual))
     # the objective at the end: N·dt, or the stage costs and the terminal terms
     final = 2
     if quad:
         final = N * (22 if spec.integral_form else 20) + 11 * trapezoidal(spec)
     final += 9 * (spec.qf_diag is not None)
-    return n_al * n_sqp * per_iter + n_al * per_phase + final
+    return round(n_al * n_sqp * per_iter + n_al * per_phase + final)

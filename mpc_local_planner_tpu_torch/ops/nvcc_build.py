@@ -20,6 +20,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # the device optimizer works on the source's kernels on every core at once
+    "--split-compile=0",
 )
 
 

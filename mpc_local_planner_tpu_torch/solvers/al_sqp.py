@@ -384,9 +384,14 @@ def _make_terminal_fns(spec: OcpSpec):
 # per-solve data assembly
 # --------------------------------------------------------------------------- #
 def _stage_obstacles(spec, scenario, dt, n):
-    """Per-stage obstacle sets (..., n, M, ...): the field at t = 0 for the
-    static obstacles of this slice (dynamic obstacles raise in OcpSpec)."""
-    t = torch.zeros(dt.shape + (n,), dtype=dt.dtype, device=dt.device)
+    """Per-stage obstacle sets (..., n, M, ...): stage i holds the field at
+    t = i·dt with dynamic obstacles (constant-velocity prediction, dt
+    detached: stage data, not decision-dependent), at t = 0 without."""
+    i = torch.arange(n, dtype=dt.dtype, device=dt.device)
+    if spec.enable_dynamic_obstacles:
+        t = i * dt.detach()[..., None]
+    else:
+        t = torch.zeros(dt.shape + (n,), dtype=dt.dtype, device=dt.device)
     return scenario.obstacles.predict_stages(t)
 
 
@@ -670,7 +675,9 @@ def solve(
     if kkt_system is None:
         stage_fns = _make_stage_fns(spec)
         term_fns = _make_terminal_fns(spec)
-        # hoisted out of the iteration loops: loop-invariant for static obstacles
+        # hoisted out of the iteration loops: the derivatives predict dynamic
+        # obstacles at the solve's initial dt (the merit and the dual update
+        # predict at the trajectory's own dt, in ``constraints``)
         obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
 
         def kkt_system(primal, duals):

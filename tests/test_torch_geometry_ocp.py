@@ -158,7 +158,7 @@ def test_torch_simple_car_dynamics_bounds_and_linearization():
         dict(collocation="shooting_rk4_2"),
         dict(nonuniform_dt=True),
         dict(via_cap=2),
-        dict(enable_dynamic_obstacles=True),
+        dict(collocation="shooting_rk4"),
         dict(model=object()),
         dict(footprint=object()),
     ],

@@ -1,8 +1,11 @@
 """The fused kernel (``csrc/fused_al_sqp.cu``) against its plain PyTorch
 version (``fused_solve_plain``), on the card: the flagship (K2a), BASELINE
 config #2 (unicycle, quadratic form, Qf, terminal ball, fixed dt), config #1
-(no obstacle slot, integral left-sum) and the flagship with the front-wheel
-car and the kinematic bicycle.
+(no obstacle slot, integral left-sum), the flagship with the front-wheel
+car and the kinematic bicycle, and the geometry of K2c: the reference's
+car-like config (two discs), the wall world (line slots), polygon slots
+with a varying vertex count, dynamic line slots, all four slot families with
+two discs and dynamic obstacles, and the bicycle with two discs.
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -19,7 +22,8 @@ the next warm solve's inputs from a cold solve. Tolerances
   relative to max(|plain|, 1)) ≤ 1e-8 on at least 99.5% of the lanes both
   converged with no line-search or growth-test tie shown; on every lane at
   most 100 times the plain version's own change under a one-ulp change of
-  its states, plus 1e-12, where that change is below 1e-6 (on every lane
+  its states or of its KKT inputs, plus 1e-12, where that change is below
+  1e-6 (on every lane
   after one iteration); on a lane both converged with a tie shown, 100 times
   the larger of that change and the plain version's change when it takes
   its near-ties the other way, with ρ within one growth factor.
@@ -38,9 +42,16 @@ from mpc_local_planner_tpu_torch.benchmarks import (
     config1_unicycle_quadratic,
     config2_diffdrive_obstacles,
     config3_carlike_min_time,
+    family_ensemble,
+    family_spec,
+    mixed_obstacles,
     random_ensemble,
 )
-from mpc_local_planner_tpu_torch.geometry.footprints import PointFootprint
+from mpc_local_planner_tpu_torch.geometry.footprints import (
+    CircularFootprint,
+    PointFootprint,
+    TwoCirclesFootprint,
+)
 from mpc_local_planner_tpu_torch.ocp.grid import warm_start_resample
 from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
 from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
@@ -66,6 +77,32 @@ FAMILY = {
         model=KinematicBicycleModelVelocityInput(lf=0.3, lr=0.2),
     ),
 }
+# the fused kernel's geometry (K2c): (spec, slot mix for
+# ``benchmarks.mixed_obstacles`` or the family whose ensemble it runs)
+TWO_DISCS = dict(front_offset=0.15, front_radius=0.2, rear_offset=-0.15, rear_radius=0.2)
+
+
+def _k2c_spec(footprint, dynamic=False, **slots):
+    M = sum(slots.get(k, 0) for k in ("mp", "mc", "ml", "mg"))
+    spec = dataclasses.replace(
+        config3_carlike_min_time(N=30, obstacle_cap=M), footprint=footprint,
+        enable_dynamic_obstacles=dynamic,
+    )
+    return spec, dict(slots, dynamic=dynamic)
+
+
+K2C = {
+    "canonical_carlike": lambda: (family_spec("canonical_carlike"), "canonical_carlike"),
+    "converter_lines": lambda: (family_spec("converter_lines"), "converter_lines"),
+    "polygons": lambda: _k2c_spec(CircularFootprint(0.15), mc=1, mg=2, V=5, vary_nv=True),
+    "lines-dynamic": lambda: _k2c_spec(CircularFootprint(0.2), True, mc=2, ml=3),
+    "mixed-dynamic": lambda: _k2c_spec(
+        TwoCirclesFootprint(**TWO_DISCS), True, mp=1, mc=2, ml=2, mg=1, V=4
+    ),
+    "bicycle-two-circles": lambda: (dataclasses.replace(
+        family_spec("canonical_carlike"), model=KinematicBicycleModelVelocityInput(0.3, 0.2)
+    ), "canonical_carlike"),
+}
 
 
 def _card():
@@ -74,17 +111,32 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0):
+def _ensemble(spec, batch, gen, dtype, dev, slots):
+    """``random_ensemble``; a family's ensemble where ``slots`` names one;
+    its obstacles replaced by ``mixed_obstacles(**slots)`` where it is a
+    slot mix."""
+    if isinstance(slots, str):
+        return family_ensemble(slots, spec, batch, gen, dtype=dtype, device=dev)
+    if slots is None:
+        return random_ensemble(spec, batch, gen, dtype=dtype, device=dev)
+    scen = random_ensemble(dataclasses.replace(spec, obstacle_cap=0), batch, gen,
+                           dtype=dtype, device=dev)
+    obs = mixed_obstacles(batch, gen, dtype=dtype, device=dev, **slots)
+    return dataclasses.replace(scen, obstacles=obs)
+
+
+def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0, slots=None):
     """300 lanes (not a multiple of the 32-thread block: the ragged last
     block is exercised) in the state of the fleet cycle's next warm solve:
     a cold solve (the plain version at the cold preset) and ``cycles``
     fleet cycles with the plain warm solve, then converged lanes advanced
-    one stage, the primal resampled and the duals shifted."""
+    one stage, the primal resampled and the duals shifted. ``slots``: as
+    ``_ensemble`` takes it."""
     spec = spec or config3_carlike_min_time(N=30, obstacle_cap=8)
     st = al_sqp.SolverSettings(**settings)
     cold = al_sqp.SolverSettings.for_spec(spec)
     gen = torch.Generator().manual_seed(seed)
-    scen = random_ensemble(spec, batch, gen, dtype=dtype, device=dev)
+    scen = _ensemble(spec, batch, gen, dtype, dev, slots)
     init, duals = al_sqp.default_init(spec, cold, scen, dtype=dtype)
     r = k2a.fused_solve_plain(spec, cold, scen, init, duals)
     if cycles:
@@ -104,20 +156,19 @@ def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0):
 def _check_f64(spec, st, scen, init, duals):
     """agreement.f64_agreement at the whole budget and after one SQP
     iteration, before rounding can grow on any lane."""
-    perturbed = agreement.ulp_perturbed(init)
     for sp, short in ((st, False), (dataclasses.replace(st, n_al=1, n_sqp=1), True)):
         before = k2a.fused_solve_cuda.launches
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
         assert k2a.fused_solve_cuda.launches == before + 1
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
-        outs_q = [k2a.fused_solve_plain(spec, sp, scen, q, duals) for q in perturbed]
-        outs_t = [k2a.fused_solve_plain(spec, sp, scen, init, duals, decisions=d)
-                  for d in agreement.tie_breaks()]
+        outs_q, outs_r, outs_t = agreement.plain_runs(
+            lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw), init  # noqa: B023
+        )
         torch.cuda.synchronize()
         assert out_k.primal.xs.dtype == torch.float64
         info, passed, _, _ = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else 0.25,
-            every_lane=short,
+            every_lane=short, outs_r=outs_r,
         )
         assert passed, json.dumps(info)
 
@@ -158,6 +209,32 @@ def test_torch_fused_kernel_matches_plain_across_the_family(case, dtype):
     the cold solve converges under a quarter of config #2's lanes)."""
     args = _warm_state(_card(), dtype, WARM, spec=FAMILY[case](), cycles=2)
     (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(K2C))
+def test_torch_fused_kernel_matches_plain_on_the_k2c_geometry(case, dtype):
+    """The two-disc footprint, line and polygon slots (a varying vertex
+    count) and dynamic obstacles, from the live state of two fleet cycles."""
+    spec, slots = K2C[case]()
+    args = _warm_state(_card(), dtype, WARM, spec=spec, cycles=2, slots=slots)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
+def test_torch_make_solver_launches_the_kernel_for_the_wall_world():
+    """Line slots are in the kernel's scope: the wall world's warm solve
+    launches it."""
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(
+        dev, torch.float32, WARM, batch=64, spec=family_spec("converter_lines"),
+        slots="converter_lines",
+    )
+    before = k2a.fused_solve_cuda.launches
+    out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert out.duals.mu_obs.shape == (64, 30, 6)
 
 
 @pytest.mark.gpu

@@ -371,7 +371,7 @@ def ad_and_closed_forms(spec, scen, primal, duals):
         spec, al_sqp._make_stage_fns(spec), al_sqp._make_terminal_fns(spec),
         primal, scen, duals, obs_k,
     )
-    cf = k2a.fused_kkt_system(spec, primal, scen, duals, k2a.circle_slots(scen.obstacles))
+    cf = k2a.fused_kkt_system(spec, primal, scen, duals, obs_k)
     return ad, cf
 
 
@@ -398,7 +398,7 @@ def test_torch_quadratic_closed_forms_match_the_ad_path(case, ties):
         off = dataclasses.replace(spec, ball_radius=0.0)
         PN0, pN0 = k2a.terminal_Pp(
             off, primal.xs[:, N], primal.dt, scen.xf, duals.lam_term, duals.mu_obs[:, N - 1],
-            duals.mu_dt, rho, k2a.circle_slots(scen.obstacles), duals.mu_ball,
+            duals.mu_dt, rho, scen.obstacles, duals.mu_ball,
         )
         ball = torch.zeros_like(PN0)
         ball[:, :3, :3] = (rho / 4)[:, None, None] * gp[:, :, None] * gp[:, None, :]
@@ -464,8 +464,8 @@ def test_torch_quadratic_dispatch_admits_the_family(case):
     with pytest.raises(NotImplementedError, match="N=65.*still to port"):
         k2a.fused_solve_cuda(long, st, scen, init, duals)
     ins, outs = k2a.kernel_io(spec, scen, init, duals)
-    assert len(ins) == 16 and len(outs) == 15
-    params = k2a._params(spec, st)
+    assert len(ins) == 24 and len(outs) == 15
+    params = k2a._params(spec, st, scen.obstacles)
     assert params.model == k2a.MODEL_IDS[type(spec.model)]
     assert params.quadratic == (spec.objective == "quadratic_form")
     assert (params.dt_lo, params.dt_hi) == al_sqp.dt_clip(spec)
@@ -477,7 +477,8 @@ def test_torch_quadratic_step_structure_matches_the_plain_tensors(case, ties):
     """The constants of ``step_structure(spec)``, which ``k2a_flops`` leaves
     out of the bound, are those of the plain version's step inputs."""
     spec, scen, primal, duals = iterate(case, 4, ties=ties)
-    kkt = k2a.fused_kkt_system(spec, primal, scen, duals, k2a.circle_slots(scen.obstacles))
+    obs_k = al_sqp._stage_obstacles(spec, scen, primal.dt, N + 1)
+    kkt = k2a.fused_kkt_system(spec, primal, scen, duals, obs_k)
     structure = k2a.step_structure(spec)
     for name, a in zip(KKT_NAMES, kkt):
         if name not in structure:
