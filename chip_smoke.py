@@ -71,14 +71,25 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                warm state (4096 lanes at 4×4, the 2048-slot rescue)
  22. gate    — path B's fused warm solve against the un-fused one; trace
  23. K2c     — the kernel against its plain version at B=1024 (float64 at
-               every prefix, float32) on polygon slots with a varying vertex
-               count, dynamic circle and line slots, all four families with
-               the two-disc footprint and dynamic obstacles, and the
-               kinematic bicycle with the two-disc footprint, each from its
-               own cold solve and two fused fleet cycles. The seven cases of
-               phases 14 and 23 run at once, each in a process of its own
-               (``chip_smoke.py --family-case NAME``)
- 24. summary — the kernels line, the card line, then the result line
+               every prefix, float32; kernel, plain and bound times) on
+               polygon slots with a varying vertex count, dynamic circle and
+               line slots, all four families with the two-disc footprint and
+               dynamic obstacles, the kinematic bicycle with the two-disc
+               footprint, and all four families moving with a line footprint
+               and with a polygon footprint, each from its own cold solve and
+               two fused fleet cycles. The nine cases of phases 14 and 23 run
+               at once, each in a process of its own (``chip_smoke.py
+               --family-case NAME``); then each is timed alone
+ 24. path C  — the polygon-footprint family (family_spec "polygon_footprint":
+               the simple car with a 0.5 × 0.3 m rectangle, 8 circle slots,
+               minimum time) as bench.py's families mode runs it: cold 16×15
+               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue, the cold oracle; 20 fused launches, 480
+               of K1, none in the warm cycles; run after path B
+ 25. kernel  — the fused kernel against its plain version on path C's live
+               warm state (4096 lanes at 3×4, 1024 at 4×4)
+ 26. gate    — path C's fused warm solve against the un-fused one; trace
+ 27. summary — the kernels line, the card line, then the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -411,17 +422,17 @@ def k2a_f64_phase(spec, st, args64, tag):
     rows = []
     for n_al, n_sqp in schedule_prefixes(st):
         sp = dataclasses.replace(st, n_al=n_al, n_sqp=n_sqp)
-        last = (n_al, n_sqp) == (st.n_al, st.n_sqp)
+        last, first = (n_al, n_sqp) == (st.n_al, st.n_sqp), (n_al, n_sqp) == (1, 1)
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
-        outs_q, outs_r, outs_t = agreement.plain_runs(
-            lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw), init
-        )
+        plain = lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw)  # noqa: E731,B023
+        outs_q, outs_r, outs_t = agreement.plain_runs(plain, init)
+        outs_s = agreement.spread_runs(plain, init) if first else ()
         torch.cuda.synchronize()
         info, passed, err, sens = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth,
-            min_converged_frac=0.25 if last else 0.0, every_lane=(n_al, n_sqp) == (1, 1),
-            outs_r=outs_r,
+            min_converged_frac=0.25 if last else 0.0, every_lane=first,
+            outs_r=outs_r, outs_spread=outs_s,
         )
         print(f"{tag} f64 at {n_al}x{n_sqp}: {json.dumps(info)} passed={passed}")
         if not passed:
@@ -460,38 +471,45 @@ def k2a_check(spec, st, args32, tag):
     return info
 
 
+def k2a_times(spec, st, args32, info, tag):
+    """The fused kernel's float32 times on ``args32`` (CUDA events, median
+    of 25 launches; the plain version's of 3 calls) beside its bound (the
+    bytes it moves over the memory rate, its operations, ``k2a_flops`` on
+    this run's slot families and polygon edges, over the float32 peak);
+    prints them and returns the row."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+
+    batch = args32[0].x0.shape[0]
+    ins, outs = k2a.kernel_io(spec, *args32)
+    nbytes = sum(a.numel() * a.element_size() for a in ins + outs)
+    flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas), args32[0].obstacles)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    row = {
+        "max_abs_err": info["max_dxs_on_converged"],
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ms": _cuda_ms(lambda: k2a.fused_solve_cuda(spec, st, *args32), 25),
+        "plain_ms": _cuda_ms(lambda: k2a.fused_solve_plain(spec, st, *args32), 3),
+    }
+    print(
+        f"{tag} f32: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} B, {flops} FLOP)"
+    )
+    return row
+
+
 def k2a_phase(spec, warm, rescue_set, settled, name="K2a", slots=RESCUE_SLOTS):
     """The fused kernel against its plain version on the live warm state:
     the next warm solve's inputs at 4096 lanes under ``warm`` and at
     ``slots`` lanes with the rescue's settings, in float64 and float32;
-    kernel, plain and bound times (the bound counts this run's slot
-    families and polygon edges)."""
-    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
-
+    kernel, plain and bound times (``k2a_times``)."""
     report = {}
     for batch, st in ((BATCH, warm), (slots, rescue_set)):
         args32 = warm_inputs(spec, st, settled, batch)
         tag = f"{name} B={batch} {st.n_al}x{st.n_sqp}"
-        info = k2a_check(spec, st, args32, tag)
-        ins, outs = k2a.kernel_io(spec, *args32)
-        nbytes = sum(a.numel() * a.element_size() for a in ins + outs)
-        flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas),
-                                      args32[0].obstacles)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOP_PER_S * 1e3
-        row = {
-            "max_abs_err": info["max_dxs_on_converged"],
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ms": _cuda_ms(lambda: k2a.fused_solve_cuda(spec, st, *args32), 25),
-            "plain_ms": _cuda_ms(lambda: k2a.fused_solve_plain(spec, st, *args32), 3),
-        }
-        print(
-            f"{tag} f32: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes} B, {flops} FLOP)"
-        )
-        report[batch] = row
+        report[batch] = k2a_times(spec, st, args32, k2a_check(spec, st, args32, tag), tag)
     return report
 
 
@@ -523,10 +541,14 @@ def k2c_cases():
     the JAX package's tests/test_fused_solver.py draws them): polygon slots
     with a varying vertex count, dynamic circle and line slots, all four
     families with the canonical two-disc footprint and dynamic obstacles,
-    and the kinematic bicycle with the two-disc footprint (8 circle slots,
-    ``random_ensemble``)."""
+    the kinematic bicycle with the two-disc footprint (8 circle slots,
+    ``random_ensemble``), and all four families moving with the JAX tests'
+    line footprint and with the polygon-footprint family's rectangle."""
     from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, family_spec
-    from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint
+    from mpc_local_planner_tpu_torch.geometry.footprints import (
+        CircularFootprint,
+        LineFootprint,
+    )
     from mpc_local_planner_tpu_torch.systems.models import KinematicBicycleModelVelocityInput
 
     def car(footprint, dynamic=False, **slots):
@@ -543,20 +565,34 @@ def k2c_cases():
         ("bicycle-two-circles", dataclasses.replace(
             family_spec("canonical_carlike", N=30),
             model=KinematicBicycleModelVelocityInput(0.3, 0.2)), None),
+        ("line-footprint-mixed-dynamic", *car(LineFootprint((-0.1, 0.0), (0.35, 0.0)), True,
+                                              mp=1, mc=2, ml=2, mg=1, V=4)),
+        ("polygon-footprint-mixed-dynamic", *car(family_spec("polygon_footprint").footprint,
+                                                 True, mp=1, mc=2, ml=2, mg=1, V=4)),
     )
 
 
-def family_case(name, batch=RESCUE_SLOTS):
+def family_case(name, save=None, batch=RESCUE_SLOTS):
     """One case of phases 14 and 23: the fused kernel against its plain
-    version on ``family_state``'s warm inputs."""
+    version on ``family_state``'s warm inputs; with ``save``, the inputs and
+    the float32 check's info go to that file for ``family_phase`` to time."""
+    import torch
+
     spec, warm, args32 = family_state(name, batch)
-    k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
+    info = k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
+    if save is not None:
+        torch.save({"args": args32, "info": info}, save)
 
 
-def family_state(name, batch=RESCUE_SLOTS):
-    """One case of ``model_cases`` and ``k2c_cases`` (a spec, and a slot mix
-    for ``benchmarks.mixed_obstacles`` or None for ``random_ensemble``'s
-    circles) at ``batch`` lanes: its own cold solve (un-fused, K1) and two
+def case_spec(name):
+    """(spec, slot mix) of a case of ``model_cases`` or ``k2c_cases``."""
+    return {n: (s, m) for n, s, m in model_cases() + k2c_cases()}[name]
+
+
+def family_state(name, batch=RESCUE_SLOTS, case=None):
+    """One case of ``model_cases`` and ``k2c_cases``, or ``case`` under
+    ``name`` (a spec, and a slot mix for ``benchmarks.mixed_obstacles`` or
+    None for ``random_ensemble``'s circles) at ``batch`` lanes: its own cold solve (un-fused, K1) and two
     fleet cycles (fused, the flagship's warm settings). Returns (spec, the
     warm settings, the fleet cycle's next warm inputs)."""
     import torch
@@ -571,7 +607,7 @@ def family_state(name, batch=RESCUE_SLOTS):
     )
 
     device = torch.device("cuda", 0)
-    spec, slots = {n: (s, m) for n, s, m in model_cases() + k2c_cases()}[name]
+    spec, slots = case or case_spec(name)
     warm = dataclasses.replace(flagship()[2], fused="auto")
     t0 = time.perf_counter()
     cold = SolverSettings.for_spec(spec)
@@ -600,26 +636,43 @@ def family_phase(names):
     once (a case's cold solve is host-bound and leaves the card idle, so the
     cases share the card and the host's cores); prints each case's lines in
     order and fails if any case failed. Every process is waited for, and
-    killed if this one stops early."""
-    procs = [
-        (name, subprocess.Popen([sys.executable, __file__, "--family-case", name],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in names
-    ]
-    failed = []
-    try:
-        for name, proc in procs:
-            out, _ = proc.communicate()
-            print(out, end="", flush=True)
-            if proc.returncode != 0:
-                failed.append(name)
-    finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    if failed:
-        _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
+    killed if this one stops early. Then each case's kernel, plain and bound
+    times (``k2a_times``), one case after the other in this process, so that
+    no other process shares the card while a case is timed; one JSON row
+    per case."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {name: f"{tmp}/{name}.pt" for name in names}
+        procs = [
+            (name, subprocess.Popen(
+                [sys.executable, __file__, "--family-case", name, saved[name]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name in names
+        ]
+        failed = []
+        try:
+            for name, proc in procs:
+                out, _ = proc.communicate()
+                print(out, end="", flush=True)
+                if proc.returncode != 0:
+                    failed.append(name)
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
+        warm = dataclasses.replace(flagship()[2], fused="auto")
+        for name in names:
+            case = torch.load(saved[name], map_location="cuda:0", weights_only=False)
+            args32, batch = case["args"], case["args"][0].x0.shape[0]
+            tag = f"{name} B={batch} {warm.n_al}x{warm.n_sqp}"
+            row = k2a_times(case_spec(name)[0], warm, args32, case["info"], tag)
+            print(json.dumps({"family_case": name, "batch": batch, **row}))
 
 
 def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
@@ -707,9 +760,36 @@ def build_phase():
         builds = list(pool.map(lambda m: m.build(), (riccati_cuda, fused_al_sqp_cuda)))
     for built in builds:
         print(f"build: {built['path']} in {built['seconds']:.2f} s")
-        for line in built["ptxas"].splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
-                print(f"  ptxas: {line.strip()}")
+        for name, usage in ptxas_rows(built["ptxas"]):
+            print(f"  ptxas: {name}: {usage}")
+
+
+def ptxas_rows(report):
+    """(kernel, 'R registers, S B stack, spills st/ld B') per entry function
+    of ptxas' report; the fused kernel's name as its template arguments."""
+    import re
+
+    rows, name, usage = [], None, {}
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            args = re.search(r"k2a_kernelI([fd])Li(\d)ELb([01])ELi(\d+)E", name)
+            if args:
+                t, model, quad, geo = args.groups()
+                name = (f"k2a_kernel<{'float' if t == 'f' else 'double'}, model {model}, "
+                        f"{'quadratic' if quad == '1' else 'minimum time'}, GEO {geo}>")
+            usage = {}
+        for key, pat in (("stack", r"(\d+) bytes stack frame"), ("st", r"(\d+) bytes spill stores"),
+                         ("ld", r"(\d+) bytes spill loads"), ("reg", r"Used (\d+) registers")):
+            found = re.search(pat, line)
+            if found:
+                usage[key] = found.group(1)
+        if name and "reg" in usage:
+            rows.append((name, f"{usage['reg']} registers, {usage.get('stack', '?')} B stack, "
+                               f"spills {usage.get('st', '?')}/{usage.get('ld', '?')} B"))
+            name = None
+    return rows
 
 
 def main():
@@ -844,10 +924,22 @@ def main():
     gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
                    extraB["cycle_ms"])
 
+    # ---- 24-26. path C: the polygon-footprint family (a moving rectangle) -- #
+    specC, coldC, warmC, rescueC = fleet_settings(family_spec("polygon_footprint", N=30))
+    warmC_f = dataclasses.replace(warmC, fused="auto")
+    rescueC_f = dataclasses.replace(rescueC, fused="auto")
+    extraC, settledC, cycleC, fusedC = fused_path(
+        "polygon_footprint_fused", specC, coldC, warmC_f, rescueC_f, device, card, 0.5,
+        family="polygon_footprint",
+    )
+    rows_c = k2a_phase(specC, warmC_f, rescueC_f, settledC, name="pathC")
+    gate_and_trace("polygon_footprint", specC, warmC, warmC_f, settledC, cycleC,
+                   extraC["cycle_ms"])
+
     # ---- 14 and 23. the other models, config #1 and the K2c cases, B=1024 -- #
     family_phase([name for name, _, _ in model_cases() + k2c_cases()])
 
-    # ---- 24. summary ---------------------------------------------------- #
+    # ---- 27. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
 
     def fused_row(name, launches, r):
@@ -885,6 +977,8 @@ def main():
                   "car-like config, path A)", fusedA, rows_a[BATCH]),
         fused_row("K2 fused_al_sqp: simple car, disc, line slots (K2c; the wall world, "
                   "path B, warm 4x4)", fusedB, rows_b[BATCH]),
+        fused_row("K2 fused_al_sqp: simple car, polygon footprint, circle slots (K2c; the "
+                  "polygon-footprint family, path C)", fusedC, rows_c[BATCH]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -892,18 +986,19 @@ def main():
     }}))
 
 
-def family_worker(name):
-    """``chip_smoke.py --family-case NAME``: one case of ``family_phase``."""
+def family_worker(name, save=None):
+    """``chip_smoke.py --family-case NAME [FILE]``: one case of
+    ``family_phase``, its warm inputs saved to FILE."""
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     torch.set_num_threads(1)
-    family_case(name)
+    family_case(name, save)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--family-case"]:
-        family_worker(sys.argv[2])
+        family_worker(*sys.argv[2:4])
     else:
         main()

@@ -2,13 +2,17 @@
 """Three measurements of the fused kernel (``csrc/fused_al_sqp.cu``) on one
 NVIDIA GPU, beside ``chip_smoke.py``:
 
-    python3 fused_probe.py [registers] [timing] [rounding]   (all by default)
+    python3 fused_probe.py [registers] [timing] [rounding[=CASE]]   (all by default)
 
 - registers: builds the kernel's ``<float, simple car, minimum time>`` and
   ``<float, unicycle, quadratic form>`` instantiations with each part of the
   geometry (the ``GEO`` template parameter: a second disc, line slots,
-  polygon slots, moving slots) compiled in alone, and prints ptxas'
-  registers, stack frame and spills for each.
+  polygon slots, moving slots) compiled in alone, the launched ones
+  (``GEO_NONE`` and ``GEO_ALL`` for disc footprints; a polygon footprint
+  with static circle slots, ``GEO_FP_POLYGON``, and with every slot family,
+  ``GEO_FP_POLYGON | GEO_SLOTS``; a line footprint, ``GEO_FP_LINE |
+  GEO_SLOTS``), and prints ptxas' registers, stack frame and spills for
+  each.
 - timing: the flagship's and config #2's warm solves at B=4096 from the
   straight-line seed, through the ``GEO_NONE`` instantiation and through
   ``GEO_ALL`` on the same inputs (the same spec with dynamic obstacles at zero
@@ -19,6 +23,8 @@ NVIDIA GPU, beside ``chip_smoke.py``:
   whose error or sensitivity passes 1e-8, the kernel's error against the
   plain version's move under many sign patterns of one ulp on its KKT inputs
   (``agreement.KktRounding``) and under one ulp on its states.
+  ``rounding=CASE`` runs another case of ``chip_smoke.family_state``, or
+  ``polygon-footprint``: path C's family at B=1024 from its own ensemble.
 
 Prints one JSON line per measurement. Needs a CUDA card.
 """
@@ -34,7 +40,8 @@ import sys
 import chip_smoke
 
 PARTS = {"GEO_NONE": 0, "GEO_DISCS": 1, "GEO_LINES": 2, "GEO_POLYGONS": 4, "GEO_DYNAMIC": 8,
-         "GEO_ALL": 15}
+         "GEO_ALL": 15, "GEO_FP_POLYGON": 32, "GEO_FP_POLYGON | GEO_SLOTS": 46,
+         "GEO_FP_LINE | GEO_SLOTS": 30}
 ROUNDING_PATTERNS = 32
 
 
@@ -54,7 +61,7 @@ def registers():
 
     def build(case):
         model, quad, part = case
-        name = f"fused_probe_{model}_{quad}_{part}"
+        name = f"fused_probe_{model}_{quad}_{PARTS[part]}"
         probe = nvcc_build.BUILD_DIR / f"{name}.cu"
         probe.write_text(body + f"void* fused_probe_kernel = (void*)&k2a_kernel<float, {model}, "
                                 f"{quad}, {part}>;\n")
@@ -110,15 +117,18 @@ def timing():
     print(json.dumps({"timing": out, "card": chip_smoke.card_line()}))
 
 
-def rounding():
-    """The mixed-dynamic case's lanes beyond 1e-8 at 1×1 and 1×2: the
-    kernel's error against the plain version's moves under rounding."""
+def rounding(case="mixed-dynamic"):
+    """A case's lanes beyond 1e-8 at 1×1 and 1×2: the kernel's error against
+    the plain version's moves under rounding."""
     import torch
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.solvers import agreement
 
-    spec, warm, args32 = chip_smoke.family_state("mixed-dynamic")
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
+
+    own = {"polygon-footprint": (family_spec("polygon_footprint", N=30), None)}
+    spec, warm, args32 = chip_smoke.family_state(case, case=own.get(case))
     scen, init, duals = chip_smoke._double(args32)
     for n_al, n_sqp in ((1, 1), (1, 2)):
         sp = dataclasses.replace(warm, n_al=n_al, n_sqp=n_sqp)
@@ -143,7 +153,7 @@ def rounding():
                 "patterns_moving_more_than_err": sum(m >= float(err[b]) for m in moves),
                 "err_over_max_move": float(err[b]) / max(moves[-1], 1e-300),
             })
-        print(json.dumps({"rounding": f"mixed-dynamic B={args32[0].x0.shape[0]} "
+        print(json.dumps({"rounding": f"{case} B={args32[0].x0.shape[0]} "
                                       f"{n_al}x{n_sqp} f64", "patterns": ROUNDING_PATTERNS,
                           "lanes": lanes}))
 
@@ -155,7 +165,9 @@ def main(names):
         chip_smoke._fail("torch.cuda.is_available() is false: this probe needs a CUDA card")
     print(f"device: {chip_smoke.card_line()}")
     for name in names or ("registers", "timing", "rounding"):
-        {"registers": registers, "timing": timing, "rounding": rounding}[name]()
+        name, _, case = name.partition("=")
+        probe = {"registers": registers, "timing": timing, "rounding": rounding}[name]
+        probe(case) if case else probe()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Benchmark problem definitions (port of ``mpc_local_planner_tpu.benchmarks``:
 BASELINE.json configs #1-#3, the scenario ensemble, and the flagship,
-canonical car-like and wall-world families with their ensembles)."""
+canonical car-like, wall-world and polygon-footprint families with their
+ensembles)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from mpc_local_planner_tpu_torch.device import resolve_device
 from mpc_local_planner_tpu_torch.geometry.footprints import (
     CircularFootprint,
     PointFootprint,
+    PolygonFootprint,
     TwoCirclesFootprint,
 )
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
@@ -128,7 +130,6 @@ def random_ensemble(
 # yet, with the ROADMAP item that brings each
 _FAMILIES_TO_PORT = {
     "via_points": "M9, K2d via points",
-    "polygon_footprint": "M9, K2c footprints",
     "nonuniform": "M9, K2f",
 }
 
@@ -138,7 +139,8 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
     ``canonical_carlike`` is the reference's own footprint (two_circles,
     examples/cfg/carlike_minimum_time.yaml), ``converter_lines`` the wall
     worlds of costmap_converter's line output (6 slots, filled with lines by
-    ``family_ensemble``)."""
+    ``family_ensemble``), ``polygon_footprint`` a 0.5 × 0.3 m rectangular
+    body (the reference's ``footprint_model.type: polygon``)."""
     base = config3_carlike_min_time(N=N, obstacle_cap=8)
     if name == "flagship":
         return base
@@ -151,6 +153,13 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
         )
     if name == "converter_lines":
         return dataclasses.replace(base, obstacle_cap=6)
+    if name == "polygon_footprint":
+        return dataclasses.replace(
+            base,
+            footprint=PolygonFootprint(
+                vertices=((0.25, 0.15), (-0.25, 0.15), (-0.25, -0.15), (0.25, -0.15))
+            ),
+        )
     if name in _FAMILIES_TO_PORT:
         raise NotImplementedError(
             f"family {name!r} is not ported yet (ROADMAP {_FAMILIES_TO_PORT[name]})"

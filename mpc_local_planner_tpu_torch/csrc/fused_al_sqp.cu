@@ -6,8 +6,10 @@
 // scope the port admits: the models "unicycle", "simple_car",
 // "front_wheel" and the kinematic bicycle (template parameter MODEL; the
 // Pallas dyn branches), forward differences, a footprint of one or two
-// discs on the body axis, point, circle, line and polygon obstacle slots,
-// static or moving (the Pallas obs_terms for disc-family footprints),
+// discs on the body axis, a body-frame segment or a body-frame polygon of
+// at most 8 vertices, point, circle, line and polygon obstacle slots,
+// static or moving (the Pallas obs_terms with fp_points, fp_segment,
+// fp_polygon and their distance chains),
 // minimum time or the quadratic form (template parameter QUAD; plain or
 // integral, left-sum or trapezoidal, the hybrid time weight), the terminal
 // quadratic cost, the terminal ball, and a uniform dt that is a decision
@@ -46,11 +48,18 @@
 // loops carry no branch on them; the objective's forms (integral,
 // trapezoidal, hybrid), Qf, the ball and a fixed dt are runtime flags that
 // every thread of a launch shares. The geometry (disc count and offsets,
-// slot-family counts, vertex pad, dynamic flag) is runtime too, but the
-// template parameter GEO compiles it away where a launch needs none of it:
+// slot-family counts, vertex pad, dynamic flag, the footprint's body-frame
+// points) is runtime too, but the template parameter GEO compiles away what
+// a launch needs none of and makes the footprint's kind compile-time:
 // GEO_NONE (one disc at the pose, static point and circle slots, the
 // flagship and config #2) keeps the registers of a kernel without the
-// geometry, GEO_ALL reads every part at run time.
+// geometry, GEO_ALL reads every part at run time; a segment or a polygon
+// footprint has instantiations of its own (GEO_FP_LINE, GEO_FP_POLYGON),
+// so its edge loops never land in the disc ones. The polygon's body-frame
+// vertices stay in the launch's parameters (the constant bank, read in
+// place through a __grid_constant__ parameter); each world edge is formed
+// where it is needed from one cos / sin per pose. Five instantiations per
+// (type, model, objective family): 80 in all.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
 // the step (dxs, dus) and the best-feasible snapshot in local memory (which
 // the hardware interleaves across the threads of a warp), the primal and
@@ -93,9 +102,13 @@ constexpr double TWO_PI = 6.283185307179586;
 enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
 
 // the GEO template parameter: the parts of the geometry an instantiation
-// reads at run time; a part left out is compiled away. The entry points
-// launch GEO_NONE or GEO_ALL; the parts between them only measure what
-// each part costs in registers.
+// reads at run time; a part left out is compiled away. The footprint's
+// kind is compile-time too: the disc family (no bit), a body-frame segment
+// (GEO_FP_LINE) or a body-frame polygon (GEO_FP_POLYGON). The entry points
+// launch GEO_NONE or GEO_ALL for disc-family footprints, GEO_FP_LINE |
+// GEO_SLOTS for a segment, and GEO_FP_POLYGON (static point and circle
+// slots) or GEO_FP_POLYGON | GEO_SLOTS for a polygon; the parts between
+// them only measure what each part costs in registers.
 enum GeoParts {
   GEO_NONE = 0,
   GEO_DISCS = 1,     // a second disc, discs off the pose (theta rows)
@@ -103,7 +116,14 @@ enum GeoParts {
   GEO_POLYGONS = 4,  // polygon slots
   GEO_DYNAMIC = 8,   // moving slots
   GEO_ALL = 15,
+  GEO_SLOTS = 14,    // line and polygon slots, moving slots
+  GEO_FP_LINE = 16,     // the footprint is a body-frame segment
+  GEO_FP_POLYGON = 32,  // the footprint is a body-frame polygon
 };
+
+// the footprint kinds of K2aParams::fp_kind (ops/fused_al_sqp_cuda.py)
+enum FootprintKind { FP_DISCS = 0, FP_LINE = 1, FP_POLYGON = 2 };
+constexpr int MAX_FP_V = 8;  // polygon footprint vertices (JAX fused_supported)
 
 }  // namespace
 
@@ -116,10 +136,12 @@ struct K2aParams {
   int integral, trapezoidal, has_qf, variable_dt;
   // obstacle slots: Mc point and circle slots, Ml line slots, Mg polygon
   // slots of V padded vertices (M = Mc + Ml + Mg, in that row order); the
-  // footprint as n_disc (1 or 2) discs on the body x-axis; dynamic: slots
-  // move at their velocities
-  int Mc, Ml, Mg, V, n_disc, dynamic;
-  double wheelbase, bike_a, bike_lr, disc_off[2], disc_r[2], min_dist;
+  // footprint: fp_kind FP_DISCS as n_disc (1 or 2) discs on the body
+  // x-axis, FP_LINE as the body-frame segment fp_v[0] -> fp_v[1] (fp_nv =
+  // 2), FP_POLYGON as the closed body-frame polygon fp_v[0 .. fp_nv - 1];
+  // dynamic: slots move at their velocities
+  int Mc, Ml, Mg, V, n_disc, dynamic, fp_kind, fp_nv;
+  double wheelbase, bike_a, bike_lr, disc_off[2], disc_r[2], fp_v[MAX_FP_V][2], min_dist;
   double lo_u[2], hi_u[2], lo_r[2], hi_r[2];  // rate limits sanitized to +-BIG
   double q[3], r[2], qf[3], hybrid, ball_w[3], ball_r;
   double dt_min, dt_max, dt_lo, dt_hi;
@@ -184,10 +206,20 @@ template <typename T> __device__ __forceinline__ T wrap(T th) {
   return m - T(PI);
 }
 
-// the footprint discs at one pose: centers and their theta derivatives
+// the footprint at one pose. Discs: centers and their theta derivatives;
+// a segment: its ends A = (px[0], py[0]) and B = (px[1], py[1]) and their
+// theta derivatives; a polygon: the pose's position (px[0], py[0]) and
+// cos / sin of its heading, from which each world edge is formed on the fly
 template <typename T>
-struct Discs {
-  T px[2], py[2], dpx[2], dpy[2];
+struct Foot {
+  T px[2], py[2], dpx[2], dpy[2], c, s;
+};
+
+// a footprint segment that moves with the pose: ends A, B and their theta
+// derivatives (the Pallas kernel's (A, B, Ath, Bth))
+template <typename T>
+struct Seg {
+  T ax, ay, bx, by, tax, tay, tbx, tby;
 };
 
 template <typename T, int MODEL, bool QUAD, int GEO>
@@ -199,6 +231,8 @@ struct Lane {
   T lo_u[NU], hi_u[NU], lo_r[NU], hi_r[NU];
   T q[NX], r[NU], qf[NX], hybrid, ball_w[NX], ball_r;
   bool fixed[NX], integral, trapezoidal, has_qf, ball_on, vdt;
+  int fp_nv;                  // polygon footprint vertices
+  const double (*fp_v)[2];    // body-frame footprint points (the launch's parameters)
   const T *xf, *u_prev, *oc, *orad, *ovel, *ln, *lvel, *pg, *pvel;
   const unsigned char *omask, *lmask, *pmask;
   const int* pnv;
@@ -382,14 +416,35 @@ struct Lane {
     Gz[5][0] = Gz[5][1] = T(0);
   }
 
-  // ---- obstacle geometry (the Pallas kernel's obs_terms for disc-family
-  // footprints): each disc's distance is its center's distance to the slot
+  // ---- obstacle geometry (the Pallas kernel's obs_terms): for disc-family
+  // footprints each disc's distance is its center's distance to the slot
   // minus its radius, two discs combine by their minimum with the 0.5 tie
-  // split; the gradients are the AD chains of geometry/distances with JAX's
-  // subgradients (the segment clip 0.5 at an exact 0 or 1, an equal split
-  // among tied polygon edges)
+  // split; a segment or a polygon footprint moves with the pose (the
+  // Pallas fp_segment / fp_polygon and their distance chains); the
+  // gradients are the AD chains of geometry/distances with JAX's
+  // subgradients (the segment clip 0.5 at an exact 0 or 1, the minimum of
+  // two 0.5 at a tie, an equal split among tied polygon edges, zero under a
+  // proper intersection or a containment)
 
-  __device__ __forceinline__ void discs_at(const T x[NX], Discs<T>& D) const {
+  __device__ __forceinline__ void foot_at(const T x[NX], Foot<T>& D) const {
+    if constexpr ((GEO & (GEO_FP_LINE | GEO_FP_POLYGON)) != 0) {
+      const T c = cos(x[2]), s = sin(x[2]);
+      if constexpr ((GEO & GEO_FP_LINE) != 0) {
+        for (int i = 0; i < 2; ++i) {
+          const T vx = T(fp_v[i][0]), vy = T(fp_v[i][1]);
+          D.px[i] = x[0] + (c * vx - s * vy);
+          D.py[i] = x[1] + (s * vx + c * vy);
+          D.dpx[i] = -s * vx - c * vy;
+          D.dpy[i] = c * vx - s * vy;
+        }
+      } else {
+        D.px[0] = x[0];
+        D.py[0] = x[1];
+        D.c = c;
+        D.s = s;
+      }
+      return;
+    }
     if constexpr (!(GEO & GEO_DISCS)) {
       D.px[0] = x[0];
       D.py[0] = x[1];
@@ -443,6 +498,312 @@ struct Lane {
   __device__ __forceinline__ bool moving() const {
     if constexpr ((GEO & GEO_DYNAMIC) != 0) return dynamic;
     return false;
+  }
+
+  // ---- the segment and polygon footprints (the Pallas fp_segment,
+  // fp_polygon and their distance chains): values and pose gradients g =
+  // (d/dx, d/dy, d/dtheta) of the distance
+
+  // jnp.minimum of two (value, pose gradient) candidates, with the 0.5 tie
+  // split (the Pallas min2); g may be g1
+  template <bool GRAD>
+  __device__ __forceinline__ T min2(T d1, const T g1[NX], T d2, const T g2[NX], T g[NX]) const {
+    if (GRAD) {
+      const T w1 = d1 < d2 ? T(1) : (d1 == d2 ? T(0.5) : T(0));
+      const T w2 = d2 < d1 ? T(1) : (d2 == d1 ? T(0.5) : T(0));
+      for (int i = 0; i < NX; ++i) g[i] = w1 * g1[i] + w2 * g2[i];
+    }
+    return vmin(d1, d2);
+  }
+
+  // point_to_segment from the fixed point c to the footprint segment S,
+  // which moves with the pose; with GRAD its pose gradient, the whole AD
+  // chain with the d|ab|^2/dtheta term (the Pallas d_seg_point)
+  template <bool GRAD>
+  __device__ __forceinline__ T seg_point(const Seg<T>& S, T cx, T cy, T g[NX]) const {
+    const T abx = S.bx - S.ax, aby = S.by - S.ay;
+    const T d2 = abx * abx + aby * aby;
+    const T denom = d2 < T(EPS) ? T(EPS) : d2;
+    const T sx = cx - S.ax, sy = cy - S.ay;
+    const T t_raw = (sx * abx + sy * aby) / denom;
+    const T t = t_raw < T(0) ? T(0) : (t_raw > T(1) ? T(1) : t_raw);
+    const T ex = sx - t * abx, ey = sy - t * aby;
+    const T dn = sqrt(ex * ex + ey * ey + T(EPS));
+    if (GRAD) {
+      const T abtx = S.tbx - S.tax, abty = S.tby - S.tay;
+      const T gd = d2 > T(EPS) ? T(1) : (d2 == T(EPS) ? T(0.5) : T(0));
+      const T ddenom_th = gd * T(2) * (abx * abtx + aby * abty);
+      const T ds_th = -(S.tax * abx + S.tay * aby) + (sx * abtx + sy * abty);
+      const T g1 = t_raw > T(0) ? T(1) : (t_raw == T(0) ? T(0.5) : T(0));
+      const T y = t_raw > T(0) ? t_raw : T(0);
+      const T cl = g1 * (y < T(1) ? T(1) : (y == T(1) ? T(0.5) : T(0)));
+      const T dt_x = cl * (-abx) / denom, dt_y = cl * (-aby) / denom;
+      const T dt_th = cl * (ds_th / denom - t_raw * ddenom_th / denom);
+      // e = (c - A) - t ab
+      const T dex_x = T(-1) - abx * dt_x, dey_x = -aby * dt_x;
+      const T dex_y = -abx * dt_y, dey_y = T(-1) - aby * dt_y;
+      const T dex_th = -S.tax - abx * dt_th - t * abtx;
+      const T dey_th = -S.tay - aby * dt_th - t * abty;
+      g[0] = (ex * dex_x + ey * dey_x) / dn;
+      g[1] = (ex * dex_y + ey * dey_y) / dn;
+      g[2] = (ex * dex_th + ey * dey_th) / dn;
+    }
+    return dn;
+  }
+
+  // signed area orientation of the triangle (a, b, c)
+  __device__ __forceinline__ T orient(T ax, T ay, T bx, T by, T cx, T cy) const {
+    return (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
+  }
+
+  // segment_to_segment between the footprint segment S and the fixed
+  // segment [a, b]: the nested minimum of the four point-segment distances,
+  // zero with a zero gradient under a proper intersection. REV: [a, b] is
+  // the first argument (segment_to_polygon with the footprint polygon takes
+  // the obstacle line first), which pairs the minimum's ties otherwise (the
+  // Pallas d_seg_seg and d_seg_seg_rev)
+  template <bool GRAD, bool REV>
+  __device__ __forceinline__ T seg_seg(const Seg<T>& S, T ax, T ay, T bx, T by, T g[NX]) const {
+    T gA[NX], gB[NX], ga[NX], gb[NX], g1[NX], g2[NX];
+    T hx = T(0), hy = T(0);
+    const T dA = point_seg<GRAD>(S.ax, S.ay, ax, ay, bx, by, hx, hy);
+    gA[0] = hx;
+    gA[1] = hy;
+    gA[2] = hx * S.tax + hy * S.tay;
+    const T dB = point_seg<GRAD>(S.bx, S.by, ax, ay, bx, by, hx, hy);
+    gB[0] = hx;
+    gB[1] = hy;
+    gB[2] = hx * S.tbx + hy * S.tby;
+    const T da = seg_point<GRAD>(S, ax, ay, ga);
+    const T db = seg_point<GRAD>(S, bx, by, gb);
+    T d;
+    if constexpr (REV) {
+      const T d1 = min2<GRAD>(da, ga, db, gb, g1);
+      const T d2 = min2<GRAD>(dA, gA, dB, gB, g2);
+      d = min2<GRAD>(d1, g1, d2, g2, g);
+    } else {
+      const T d1 = min2<GRAD>(dA, gA, dB, gB, g1);
+      const T d2 = min2<GRAD>(da, ga, db, gb, g2);
+      d = min2<GRAD>(d1, g1, d2, g2, g);
+    }
+    const T o1 = orient(ax, ay, bx, by, S.ax, S.ay), o2 = orient(ax, ay, bx, by, S.bx, S.by);
+    const T o3 = orient(S.ax, S.ay, S.bx, S.by, ax, ay), o4 = orient(S.ax, S.ay, S.bx, S.by, bx, by);
+    if (o1 * o2 < T(0) && o3 * o4 < T(0)) {
+      d = T(0);
+      if (GRAD) g[0] = g[1] = g[2] = T(0);
+    }
+    return d;
+  }
+
+  // the even-odd rule's crossing of the edge [a, b] by the ray from p
+  // toward +x (point_to_polygon_signed)
+  __device__ __forceinline__ bool crosses(T px, T py, T ax, T ay, T bx, T by) const {
+    const bool cond = (ay > py) != (by > py);
+    const T dy = fabs(by - ay) < T(EPS) ? T(EPS) : by - ay;
+    const T x_int = ax + (py - ay) * (bx - ax) / dy;
+    return cond && px < x_int;
+  }
+
+  // the minimum over polygon edges (jnp.min) with its equal split of the
+  // gradient among tied edges: add() each edge, then min() once
+  struct EdgeMin {
+    T d, g[NX];
+    int n;
+    __device__ __forceinline__ EdgeMin() : d(T(INFINITY)), n(0) { g[0] = g[1] = g[2] = T(0); }
+    template <bool GRAD>
+    __device__ __forceinline__ void add(T de, const T ge[NX]) {
+      if (de < d || de != de) {
+        d = de;
+        n = 1;
+        if (GRAD)
+          for (int i = 0; i < NX; ++i) g[i] = ge[i];
+      } else if (de == d) {
+        ++n;
+        if (GRAD)
+          for (int i = 0; i < NX; ++i) g[i] += ge[i];
+      }
+    }
+    // the minimum, and with GRAD its gradient times keep (1, -1 or 0)
+    template <bool GRAD>
+    __device__ __forceinline__ T min(T keep, T out[NX]) const {
+      if (GRAD) {
+        const T w = keep / (n > 0 ? T(n) : T(1));
+        for (int i = 0; i < NX; ++i) out[i] = w * g[i];
+      }
+      return keep * d;
+    }
+  };
+
+  // world vertex v of the footprint polygon at the pose D, and its theta
+  // derivative
+  __device__ __forceinline__ void fp_vertex(const Foot<T>& D, int v, T& px, T& py, T& tx,
+                                            T& ty) const {
+    const T vx = T(fp_v[v][0]), vy = T(fp_v[v][1]);
+    px = D.px[0] + (D.c * vx - D.s * vy);
+    py = D.py[0] + (D.s * vx + D.c * vy);
+    tx = -D.s * vx - D.c * vy;
+    ty = D.c * vx - D.s * vy;
+  }
+
+  // the next edge of the footprint polygon: S's end becomes its start, its
+  // end vertex e + 1 (0 after the last); each vertex is formed from the
+  // pose's cos and sin where it is needed
+  __device__ __forceinline__ void fp_next_edge(const Foot<T>& D, int e, Seg<T>& S) const {
+    S.ax = S.bx;
+    S.ay = S.by;
+    S.tax = S.tbx;
+    S.tay = S.tby;
+    fp_vertex(D, e + 1 == fp_nv ? 0 : e + 1, S.bx, S.by, S.tbx, S.tby);
+  }
+
+  // slot positions at time t: a point or circle slot's center, a line
+  // slot's ends, a polygon slot's shift
+  __device__ __forceinline__ void circle_at(int j, T t, T& cx, T& cy) const {
+    cx = oc[2 * j];
+    cy = oc[2 * j + 1];
+    if (moving()) {
+      cx = cx + ovel[2 * j] * t;
+      cy = cy + ovel[2 * j + 1] * t;
+    }
+  }
+  __device__ __forceinline__ void line_at(int l, T t, T& ax, T& ay, T& bx, T& by) const {
+    const T* e = ln + 4 * l;
+    T shx = T(0), shy = T(0);
+    if (moving()) {
+      shx = lvel[2 * l] * t;
+      shy = lvel[2 * l + 1] * t;
+    }
+    ax = e[0] + shx;
+    ay = e[1] + shy;
+    bx = e[2] + shx;
+    by = e[3] + shy;
+  }
+  __device__ __forceinline__ void polygon_shift(int g, T t, T& shx, T& shy) const {
+    shx = shy = T(0);
+    if (moving()) {
+      shx = pvel[2 * g] * t;
+      shy = pvel[2 * g + 1] * t;
+    }
+  }
+
+  // the footprint segment to slot j at time t (BIG on a masked slot): a
+  // point or circle slot by point_to_segment from its center less its
+  // radius, a line slot by segment_to_segment, a polygon slot by
+  // segment_to_polygon (zero when the segment's start lies inside); with
+  // GRAD the pose gradient g (the Pallas d_seg_point, d_seg_seg,
+  // d_seg_polygon)
+  template <bool GRAD>
+  __device__ __forceinline__ T fp_line_dist(const Foot<T>& D, int j, T t, T g[NX]) const {
+    const Seg<T> S = {D.px[0], D.py[0], D.px[1], D.py[1], D.dpx[0], D.dpy[0], D.dpx[1], D.dpy[1]};
+    if constexpr ((GEO & GEO_LINES) != 0) {
+      if (j >= Mc && j < Mc + Ml) {
+        const int l = j - Mc;
+        T ax, ay, bx, by;
+        line_at(l, t, ax, ay, bx, by);
+        const T d = seg_seg<GRAD, false>(S, ax, ay, bx, by, g);
+        return lmask[l] ? d : T(BIG);
+      }
+    }
+    if constexpr ((GEO & GEO_POLYGONS) != 0) {
+      if (j >= Mc + Ml) {
+        const int q = j - Mc - Ml;
+        const T* vx = pg + 2 * V * q;
+        int nv = pnv[q];
+        nv = nv < V ? nv : V;
+        T shx, shy;
+        polygon_shift(q, t, shx, shy);
+        EdgeMin acc;
+        int crossings = 0;
+        for (int v = 0; v < nv; ++v) {
+          const int w = v + 1 == nv ? 0 : v + 1;
+          const T ax = vx[2 * v] + shx, ay = vx[2 * v + 1] + shy;
+          const T bx = vx[2 * w] + shx, by = vx[2 * w + 1] + shy;
+          T ge[NX];
+          acc.template add<GRAD>(seg_seg<GRAD, false>(S, ax, ay, bx, by, ge), ge);
+          if (crosses(S.ax, S.ay, ax, ay, bx, by)) ++crossings;
+        }
+        const T d = acc.template min<GRAD>((crossings & 1) ? T(0) : T(1), g);
+        return pmask[q] ? d : T(BIG);
+      }
+    }
+    T cx, cy;
+    circle_at(j, t, cx, cy);
+    const T dn = seg_point<GRAD>(S, cx, cy, g);
+    return omask[j] ? dn - orad[j] : T(BIG);
+  }
+
+  // the footprint polygon to slot j at time t (BIG on a masked slot): a
+  // point or circle slot by the signed distance of its center (negative
+  // inside the footprint, by the even-odd rule) less its radius, a line
+  // slot by segment_to_polygon with the line first (zero when its first
+  // end lies inside), a polygon slot by polygon_to_polygon with the
+  // footprint first: every pair of a footprint edge and an active slot
+  // edge, looped, zero when either polygon holds the other's first vertex;
+  // with GRAD the pose gradient g (the Pallas d_point_fp_polygon,
+  // d_seg_fp_polygon, d_polygon_fp_polygon)
+  template <bool GRAD>
+  __device__ __forceinline__ T fp_polygon_dist(const Foot<T>& D, int j, T t, T g[NX]) const {
+    EdgeMin acc;
+    int crossings = 0;
+    Seg<T> S;
+    fp_vertex(D, 0, S.bx, S.by, S.tbx, S.tby);
+    if constexpr ((GEO & GEO_LINES) != 0) {
+      if (j >= Mc && j < Mc + Ml) {
+        const int l = j - Mc;
+        T ax, ay, bx, by;
+        line_at(l, t, ax, ay, bx, by);
+#pragma unroll 1
+        for (int e = 0; e < fp_nv; ++e) {
+          fp_next_edge(D, e, S);
+          T ge[NX];
+          acc.template add<GRAD>(seg_seg<GRAD, true>(S, ax, ay, bx, by, ge), ge);
+          if (crosses(ax, ay, S.ax, S.ay, S.bx, S.by)) ++crossings;
+        }
+        const T d = acc.template min<GRAD>((crossings & 1) ? T(0) : T(1), g);
+        return lmask[l] ? d : T(BIG);
+      }
+    }
+    if constexpr ((GEO & GEO_POLYGONS) != 0) {
+      if (j >= Mc + Ml) {
+        const int q = j - Mc - Ml;
+        const T* vx = pg + 2 * V * q;
+        int nv = pnv[q];
+        nv = nv < V ? nv : V;
+        T shx, shy;
+        polygon_shift(q, t, shx, shy);
+        const T v0x = vx[0] + shx, v0y = vx[1] + shy;
+        const T f0x = S.bx, f0y = S.by;  // the footprint's vertex 0
+        int in_fp = 0, in_slot = 0;
+#pragma unroll 1
+        for (int e = 0; e < fp_nv; ++e) {
+          fp_next_edge(D, e, S);
+          if (crosses(v0x, v0y, S.ax, S.ay, S.bx, S.by)) ++in_fp;
+#pragma unroll 1
+          for (int v = 0; v < nv; ++v) {
+            const int w = v + 1 == nv ? 0 : v + 1;
+            const T ax = vx[2 * v] + shx, ay = vx[2 * v + 1] + shy;
+            const T bx = vx[2 * w] + shx, by = vx[2 * w + 1] + shy;
+            T ge[NX];
+            acc.template add<GRAD>(seg_seg<GRAD, false>(S, ax, ay, bx, by, ge), ge);
+            if (e == 0 && crosses(f0x, f0y, ax, ay, bx, by)) ++in_slot;
+          }
+        }
+        const bool overlap = (in_slot & 1) || (in_fp & 1);
+        const T d = acc.template min<GRAD>(overlap ? T(0) : T(1), g);
+        return pmask[q] ? d : T(BIG);
+      }
+    }
+    T cx, cy;
+    circle_at(j, t, cx, cy);
+#pragma unroll 1
+    for (int e = 0; e < fp_nv; ++e) {
+      fp_next_edge(D, e, S);
+      T ge[NX];
+      acc.template add<GRAD>(seg_point<GRAD>(S, cx, cy, ge), ge);
+      if (crosses(cx, cy, S.ax, S.ay, S.bx, S.by)) ++crossings;
+    }
+    const T d = acc.template min<GRAD>((crossings & 1) ? T(-1) : T(1), g);
+    return omask[j] ? d - orad[j] : T(BIG);
   }
 
   // the distance from the disc center p to slot j at time t (BIG on a
@@ -530,29 +891,41 @@ struct Lane {
   // obstacle row j at the discs D, time t: g = min_dist - d and with GRAD
   // its pose gradient g3 = (dg/dx, dg/dy, dg/dtheta)
   template <bool GRAD>
-  __device__ __forceinline__ T obs_row(const Discs<T>& D, int j, T t, T g3[NX]) const {
-    T gx = T(0), gy = T(0);
-    T d = slot_dist<GRAD>(j, D.px[0], D.py[0], t, gx, gy) - disc_r[0];
-    T gth = GRAD ? gx * D.dpx[0] + gy * D.dpy[0] : T(0);
-    if ((GEO & GEO_DISCS) != 0 && n_disc == 2) {
-      T hx = T(0), hy = T(0);
-      const T d2 = slot_dist<GRAD>(j, D.px[1], D.py[1], t, hx, hy) - disc_r[1];
-      if (GRAD) {
-        const T hth = hx * D.dpx[1] + hy * D.dpy[1];
-        const T w1 = d < d2 ? T(1) : (d == d2 ? T(0.5) : T(0));
-        const T w2 = d2 < d ? T(1) : (d2 == d ? T(0.5) : T(0));
-        gx = w1 * gx + w2 * hx;
-        gy = w1 * gy + w2 * hy;
-        gth = w1 * gth + w2 * hth;
+  __device__ __forceinline__ T obs_row(const Foot<T>& D, int j, T t, T g3[NX]) const {
+    if constexpr ((GEO & (GEO_FP_LINE | GEO_FP_POLYGON)) != 0) {
+      T g[NX] = {T(0), T(0), T(0)};
+      T d;
+      if constexpr ((GEO & GEO_FP_LINE) != 0)
+        d = fp_line_dist<GRAD>(D, j, t, g);
+      else
+        d = fp_polygon_dist<GRAD>(D, j, t, g);
+      if (GRAD)
+        for (int i = 0; i < NX; ++i) g3[i] = -g[i];
+      return min_dist - d;
+    } else {
+      T gx = T(0), gy = T(0);
+      T d = slot_dist<GRAD>(j, D.px[0], D.py[0], t, gx, gy) - disc_r[0];
+      T gth = GRAD ? gx * D.dpx[0] + gy * D.dpy[0] : T(0);
+      if ((GEO & GEO_DISCS) != 0 && n_disc == 2) {
+        T hx = T(0), hy = T(0);
+        const T d2 = slot_dist<GRAD>(j, D.px[1], D.py[1], t, hx, hy) - disc_r[1];
+        if (GRAD) {
+          const T hth = hx * D.dpx[1] + hy * D.dpy[1];
+          const T w1 = d < d2 ? T(1) : (d == d2 ? T(0.5) : T(0));
+          const T w2 = d2 < d ? T(1) : (d2 == d ? T(0.5) : T(0));
+          gx = w1 * gx + w2 * hx;
+          gy = w1 * gy + w2 * hy;
+          gth = w1 * gth + w2 * hth;
+        }
+        d = vmin(d, d2);
       }
-      d = vmin(d, d2);
+      if (GRAD) {
+        g3[0] = -gx;
+        g3[1] = -gy;
+        g3[2] = -gth;
+      }
+      return min_dist - d;
     }
-    if (GRAD) {
-      g3[0] = -gx;
-      g3[1] = -gy;
-      g3[2] = -gth;
-    }
-    return min_dist - d;
   }
 
   // the obstacle rows' AL gradient and crisp Gauss-Newton block on the pose
@@ -560,8 +933,8 @@ struct Lane {
   // aw = rho [mu + rho g > 0]
   __device__ __forceinline__ void obstacle_block(const T x[NX], const T* mu_row, T t, T h[NA],
                                                  T H[NA][NA]) const {
-    Discs<T> D;
-    discs_at(x, D);
+    Foot<T> D;
+    foot_at(x, D);
     for (int j = 0; j < M; ++j) {
       T g3[NX];
       const T g = obs_row<true>(D, j, t, g3);
@@ -926,8 +1299,8 @@ struct Lane {
       // obstacle row k belongs to pose x_{k+1}, predicted at the
       // candidate's dt
       if (M > 0) {
-        Discs<T> D;
-        discs_at(xk1, D);
+        Foot<T> D;
+        foot_at(xk1, D);
         const T t = pose_time(k + 1, dtv);
         for (int j = 0; j < M; ++j) {
           const T mu = mo[k * M + j];
@@ -973,7 +1346,8 @@ struct Lane {
 };
 
 template <typename T, int MODEL, bool QUAD, int GEO>
-__global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const K2aParams prm) {
+__global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
+                                                      const __grid_constant__ K2aParams prm) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
@@ -985,6 +1359,8 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
   L.Mg = prm.Mg;
   L.V = prm.V;
   L.n_disc = prm.n_disc;
+  L.fp_nv = prm.fp_nv;
+  L.fp_v = prm.fp_v;  // read in place: a __grid_constant__ parameter is not copied
   L.dynamic = prm.dynamic != 0;
   L.rot = false;
   for (int i = 0; i < 2; ++i) {
@@ -1124,8 +1500,8 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
       }
       if (M > 0) {
         // predicted at the current dt
-        Discs<T> D;
-        L.discs_at(xk1, D);
+        Foot<T> D;
+        L.foot_at(xk1, D);
         const T t = L.pose_time(k + 1, L.dt);
         for (int j = 0; j < M; ++j) {
           const T g = L.template obs_row<false>(D, j, t, nullptr);
@@ -1224,9 +1600,15 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a, const 
 template <typename T, int MODEL, bool QUAD>
 void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   const int blocks = (a.B + THREADS - 1) / THREADS;
-  const bool plain_geometry = prm.n_disc == 1 && prm.disc_off[0] == 0.0 && prm.Ml == 0 &&
-                              prm.Mg == 0 && prm.dynamic == 0;
-  if (plain_geometry)
+  const bool plain_slots = prm.Ml == 0 && prm.Mg == 0 && prm.dynamic == 0;
+  if (prm.fp_kind == FP_LINE)
+    k2a_kernel<T, MODEL, QUAD, GEO_FP_LINE | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a, prm);
+  else if (prm.fp_kind == FP_POLYGON && plain_slots)
+    k2a_kernel<T, MODEL, QUAD, GEO_FP_POLYGON><<<blocks, THREADS, 0, stream>>>(a, prm);
+  else if (prm.fp_kind == FP_POLYGON)
+    k2a_kernel<T, MODEL, QUAD, GEO_FP_POLYGON | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a,
+                                                                                         prm);
+  else if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
     k2a_kernel<T, MODEL, QUAD, GEO_NONE><<<blocks, THREADS, 0, stream>>>(a, prm);
   else
     k2a_kernel<T, MODEL, QUAD, GEO_ALL><<<blocks, THREADS, 0, stream>>>(a, prm);
@@ -1246,7 +1628,10 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, int B,
       prm->n_alpha <= 0 || prm->n_alpha > MAX_ALPHAS || prm->n_al <= 0 || prm->n_sqp <= 0 ||
       prm->model < UNICYCLE || prm->model > BICYCLE || prm->Mc < 0 || prm->Ml < 0 ||
       prm->Mg < 0 || prm->Mc + prm->Ml + prm->Mg != prm->M || prm->V > MAX_V ||
-      (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2)
+      (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2 ||
+      prm->fp_kind < FP_DISCS || prm->fp_kind > FP_POLYGON ||
+      (prm->fp_kind == FP_LINE && prm->fp_nv != 2) ||
+      (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 3 || prm->fp_nv > MAX_FP_V)))
     return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
@@ -1307,6 +1692,7 @@ int k2a_max_n() { return MAX_N; }
 int k2a_max_m() { return MAX_M; }
 int k2a_max_alphas() { return MAX_ALPHAS; }
 int k2a_max_v() { return MAX_V; }
+int k2a_max_fp_v() { return MAX_FP_V; }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 
 // in: xs, us, dt, xf, u_prev, point and circle centers, radii, mask,

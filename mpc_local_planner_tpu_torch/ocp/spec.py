@@ -3,12 +3,13 @@
 
 ``OcpSpec`` takes the JAX package's constructor arguments. The port runs the
 unicycle, both Ackermann cars and the kinematic bicycle with forward
-differences, a point, disc or two-disc footprint, point, circle, line and
-polygon obstacle slots, static or dynamic (constant velocity), minimum time
-or the quadratic form (plain or integral, left-sum or trapezoidal, with the
-hybrid time weight), the terminal quadratic cost and the terminal ball, on
-a uniform grid with a fixed or variable dt. It raises
-``NotImplementedError`` naming the ROADMAP item for anything else.
+differences, every footprint of the JAX package (point, disc, line, two
+discs, polygon), point, circle, line and polygon obstacle slots, static or
+dynamic (constant velocity), minimum time or the quadratic form (plain or
+integral, left-sum or trapezoidal, with the hybrid time weight), the
+terminal quadratic cost and the terminal ball, on a uniform grid with a
+fixed or variable dt. It raises ``NotImplementedError`` naming the ROADMAP
+item for anything else.
 """
 
 from __future__ import annotations
@@ -18,11 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mpc_local_planner_tpu_torch.geometry.footprints import (
-    CircularFootprint,
-    PointFootprint,
-    TwoCirclesFootprint,
-)
+from mpc_local_planner_tpu_torch.geometry.footprints import FOOTPRINT_TYPES
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.systems.models import (
     KinematicBicycleModelVelocityInput,
@@ -81,8 +78,8 @@ class OcpSpec:
             raise ValueError("nonuniform_dt requires variable_dt")
         if type(self.model) not in MODELS:
             _not_ported(f"model {type(self.model).__name__}")
-        if type(self.footprint) not in (PointFootprint, CircularFootprint, TwoCirclesFootprint):
-            _not_ported(f"footprint {type(self.footprint).__name__}", "M9, K2c footprints")
+        if type(self.footprint) not in FOOTPRINT_TYPES.values():
+            _not_ported(f"footprint {type(self.footprint).__name__}")
         if self.collocation != "forward_differences":
             _not_ported(f"collocation {self.collocation!r}", "M9, K2b and K2e")
         if self.objective not in ("minimum_time", "quadratic_form"):

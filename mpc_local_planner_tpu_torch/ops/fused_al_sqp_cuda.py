@@ -5,17 +5,18 @@ Replaces the TPU kernel
 ``mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel``
 (launched by ``fused_solve``) on the scope that ``OcpSpec`` admits: the
 unicycle, both Ackermann cars and the kinematic bicycle (template parameter
-of the kernel), forward differences, a point, disc or two-disc footprint,
-point, circle, line and polygon obstacle slots, static or dynamic (runtime
-values of the launch; the kernel compiles them away for a launch with one
-disc at the pose and static point and circle slots), minimum time or the
-quadratic form (template parameter; plain or integral, left-sum or
-trapezoidal, hybrid time weight), the terminal quadratic cost and the
-terminal ball, on a uniform grid with a variable or fixed dt. K2a, the
-first specialization ported (simple car, minimum time, variable dt), is one
-instantiation. Still to port: the midpoint and Crank–Nicolson rules (K2b),
-the line and polygon footprints (K2c), via points (K2d), shooting (K2e) and
-the non-uniform grid (K2f). The
+of the kernel), forward differences, a point, disc, two-disc, line or
+polygon footprint (at most 8 vertices), point, circle, line and polygon
+obstacle slots, static or dynamic (runtime values of the launch; the kernel
+compiles them away for a launch with one disc at the pose and static point
+and circle slots, and has instantiations of its own for a segment or a
+polygon footprint), minimum time or the quadratic form (template parameter;
+plain or integral, left-sum or trapezoidal, hybrid time weight), the
+terminal quadratic cost and the terminal ball, on a uniform grid with a
+variable or fixed dt. K2a, the first specialization ported (simple car,
+minimum time, variable dt), is one instantiation. Still to port: the
+midpoint and Crank–Nicolson rules (K2b), via points (K2d), shooting (K2e)
+and the non-uniform grid (K2f). The
 source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
 n_al × n_sqp schedule to its end — closed-form derivatives streamed into
 the Riccati sweep, the rollout, the NaN quarantine, the candidate line
@@ -52,9 +53,12 @@ import torch
 from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, se2_boxminus
 from mpc_local_planner_tpu_torch.core.tree import tree_map
 from mpc_local_planner_tpu_torch.geometry.distances import _EPS, _polygon_edges
+from mpc_local_planner_tpu_torch.device import const
 from mpc_local_planner_tpu_torch.geometry.footprints import (
     CircularFootprint,
+    LineFootprint,
     PointFootprint,
+    PolygonFootprint,
     TwoCirclesFootprint,
     disc_footprint,
 )
@@ -81,8 +85,9 @@ from mpc_local_planner_tpu_torch.systems.models import (
 
 SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
 # compile-time maxima of the kernel (csrc/fused_al_sqp.cu): stages, obstacle
-# slots, line-search candidates, padded polygon vertices
-MAX_N, MAX_M, MAX_ALPHAS, MAX_V = 64, 16, 16, 16
+# slots, line-search candidates, padded polygon vertices, polygon footprint
+# vertices
+MAX_N, MAX_M, MAX_ALPHAS, MAX_V, MAX_FP_V = 64, 16, 16, 16, 8
 
 _lib = None
 
@@ -99,13 +104,23 @@ MODEL_IDS = {
 }
 
 
+# the kernel's footprint kinds (csrc/fused_al_sqp.cu FootprintKind)
+FOOTPRINT_KINDS = {
+    PointFootprint: 0, CircularFootprint: 0, TwoCirclesFootprint: 0,
+    LineFootprint: 1, PolygonFootprint: 2,
+}
+
+
 def _spec_scope_error(spec):
     """Why the kernel cannot run ``spec`` (None when it can), with the
     ROADMAP item that ports it."""
     if type(spec.model) not in MODELS:
         return f"model {type(spec.model).__name__}"
-    if type(spec.footprint) not in (PointFootprint, CircularFootprint, TwoCirclesFootprint):
-        return f"footprint {type(spec.footprint).__name__} (K2c footprints)"
+    fp = spec.footprint
+    if type(fp) not in FOOTPRINT_KINDS:
+        return f"footprint {type(fp).__name__}"
+    if isinstance(fp, PolygonFootprint) and len(fp.vertices) > MAX_FP_V:
+        return f"a polygon footprint of {len(fp.vertices)} vertices (at most {MAX_FP_V})"
     if spec.collocation != "forward_differences":
         return f"collocation {spec.collocation!r} (K2b, K2e)"
     if spec.objective not in ("minimum_time", "quadratic_form") or spec.via_cap:
@@ -265,14 +280,194 @@ def _polygon_rows(px, py, polys, nv):
     return sgn * dmin, sgn * gx, sgn * gy
 
 
-def obstacle_rows(spec, x, obs):
-    """Obstacle rows at poses x (..., 3): g = min_dist − d (..., M), d the
-    footprint's distance to each slot of ``obs`` (an ObstacleSet whose
-    leaves broadcast against x's leading dims; BIG on a masked slot), in the
-    order [points and circles, lines, polygons], and the pose gradient of g
-    (..., M, 3). Each disc's distance is its center's minus its radius; two
-    discs combine by their minimum with the 0.5 tie split (Pallas
-    ``obs_terms``). A family with no slot adds no row and no work."""
+def _seg_point(S, cx, cy):
+    """point_to_segment from the fixed point c to the footprint segment S =
+    (ax, ay, bx, by, aθx, aθy, bθx, bθy), which moves with the pose, and its
+    pose gradient (..., 3): the whole AD chain with the ∂|ab|²/∂θ term
+    (Pallas ``d_seg_point``)."""
+    ax, ay, bx, by, tax, tay, tbx, tby = S
+    abx, aby = bx - ax, by - ay
+    d2 = abx * abx + aby * aby
+    denom = torch.clamp(d2, min=_EPS)
+    sx, sy = cx - ax, cy - ay
+    t_raw = (sx * abx + sy * aby) / denom
+    t = torch.clamp(t_raw, 0.0, 1.0)
+    ex, ey = sx - t * abx, sy - t * aby
+    dn = torch.sqrt(ex * ex + ey * ey + _EPS)
+    abtx, abty = tbx - tax, tby - tay
+    gd = torch.where(d2 > _EPS, 1.0, torch.where(d2 == _EPS, 0.5, 0.0))
+    ddenom_th = gd * 2.0 * (abx * abtx + aby * abty)
+    ds_th = -(tax * abx + tay * aby) + (sx * abtx + sy * abty)
+    cl = _clip_gate(t_raw)
+    dt_x, dt_y = cl * (-abx) / denom, cl * (-aby) / denom
+    dt_th = cl * (ds_th / denom - t_raw * ddenom_th / denom)
+    # e = (c − A) − t·ab
+    gx = (ex * (-1.0 - abx * dt_x) + ey * (-aby * dt_x)) / dn
+    gy = (ex * (-abx * dt_y) + ey * (-1.0 - aby * dt_y)) / dn
+    gth = (ex * (-tax - abx * dt_th - t * abtx) + ey * (-tay - aby * dt_th - t * abty)) / dn
+    return dn, torch.stack([gx, gy, gth], dim=-1)
+
+
+def _moving_point_seg(px, py, tx, ty, ax, ay, bx, by):
+    """point_to_segment from a footprint point p (θ derivative (tx, ty)) to
+    the fixed segment [a, b], and its pose gradient (..., 3)."""
+    dn, gx, gy = _point_seg(px, py, ax, ay, bx, by)
+    return dn, torch.stack([gx, gy, gx * tx + gy * ty], dim=-1)
+
+
+def _min2(c1, c2):
+    """torch.minimum of two (value, pose gradient) candidates with the 0.5
+    tie split (Pallas ``min2``)."""
+    (d1, g1), (d2, g2) = c1, c2
+    w1, w2 = _sel_lt(d1, d2), _sel_lt(d2, d1)
+    return torch.minimum(d1, d2), w1[..., None] * g1 + w2[..., None] * g2
+
+
+def _orient(ax, ay, bx, by, cx, cy):
+    return (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+
+
+def _seg_seg(S, ax, ay, bx, by, rev=False):
+    """segment_to_segment between the footprint segment S and the fixed
+    segment [a, b]: the nested minimum of the four point-segment distances,
+    zero (with a zero gradient) under a proper intersection. ``rev``: [a, b]
+    is the first argument (Pallas ``d_seg_seg_rev``: the obstacle line of
+    ``segment_to_polygon`` with the footprint polygon), which pairs the
+    minimum's ties otherwise."""
+    fa, fb = S[0:2], S[2:4]
+    c_a = _moving_point_seg(*fa, *S[4:6], ax, ay, bx, by)
+    c_b = _moving_point_seg(*fb, *S[6:8], ax, ay, bx, by)
+    c_p, c_q = _seg_point(S, ax, ay), _seg_point(S, bx, by)
+    pairs = ((c_p, c_q), (c_a, c_b)) if rev else ((c_a, c_b), (c_p, c_q))
+    d, g = _min2(_min2(*pairs[0]), _min2(*pairs[1]))
+    inter = (_orient(ax, ay, bx, by, *fa) * _orient(ax, ay, bx, by, *fb) < 0) & (
+        _orient(*fa, *fb, ax, ay) * _orient(*fa, *fb, bx, by) < 0)
+    return torch.where(inter, 0.0, d), torch.where(inter[..., None], 0.0, g)
+
+
+def _edges_min(d, g, act):
+    """jnp.min over the last axis where ``act`` (all where None), with the
+    gradient split equally among tied edges (Pallas ``_edges_min``)."""
+    if act is not None:
+        d = torch.where(act, d, torch.inf)
+    dmin = torch.amin(d, dim=-1)
+    w = d == dmin[..., None]
+    if act is not None:
+        w = w & act
+    w = w.to(g.dtype)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
+    return dmin, torch.sum(w[..., None] * g, dim=-2)
+
+
+def _inside(px, py, ax, ay, bx, by, act):
+    """The even-odd rule over the last axis of the edges [a, b] (where
+    ``act``; all where None): whether p lies inside."""
+    cond = (ay > py) != (by > py)
+    dy = torch.where(torch.abs(by - ay) < _EPS, _EPS, by - ay)
+    crossing = cond & (px < ax + (py - ay) * (bx - ax) / dy)
+    if act is not None:
+        crossing = crossing & act
+    return torch.remainder(torch.sum(crossing.int(), dim=-1), 2) == 1
+
+
+def _slot_edges(obs):
+    """The polygon slots' edges: ax, ay, bx, by (..., Mg, V) and their
+    active mask (``distances._polygon_edges``)."""
+    a, b, act = _polygon_edges(obs.polygons, obs.polygon_nv)
+    return a[..., 0], a[..., 1], b[..., 0], b[..., 1], act
+
+
+def _footprint_points(body, x):
+    """Body-frame points ``body`` (V, 2) at poses x (..., 3): world x, y and
+    their θ derivatives, each (..., V) (Pallas ``fp_segment`` /
+    ``fp_polygon``, in ``footprints``' order of operations)."""
+    c, s = torch.cos(x[..., 2, None]), torch.sin(x[..., 2, None])
+    vx, vy = body[:, 0], body[:, 1]
+    return (x[..., 0, None] + (c * vx - s * vy), x[..., 1, None] + (s * vx + c * vy),
+            -s * vx - c * vy, c * vx - s * vy)
+
+
+def _rows(cols):
+    """The slot families' (d, grad, mask) in row order as (d, grad), d BIG
+    on a masked slot."""
+    d = torch.cat([torch.where(m, dc, BIG_DISTANCE) for dc, _, m in cols], dim=-1)
+    return d, torch.cat([g for _, g, _ in cols], dim=-2)
+
+
+def _line_footprint_rows(fp, x, obs):
+    """The footprint segment's distance to every slot and its pose gradient
+    (Pallas ``d_seg_point``, ``d_seg_seg``, ``d_seg_polygon``): a point or
+    circle slot by point_to_segment less its radius, a line slot by
+    segment_to_segment, a polygon slot by segment_to_polygon (zero when the
+    segment's start lies inside)."""
+    px, py, tx, ty = _footprint_points(const((fp.line_start, fp.line_end), x), x)
+    S = (px[..., 0], py[..., 0], px[..., 1], py[..., 1], tx[..., 0], ty[..., 0],
+         tx[..., 1], ty[..., 1])
+    centers, radii, cmask, _ = circle_slots(obs)
+    S1 = tuple(v[..., None] for v in S)
+    d, g = _seg_point(S1, centers[..., 0], centers[..., 1])
+    cols = [(d - radii, g, cmask)]
+    lines = obs.lines
+    if lines.shape[-3]:
+        cols.append(_seg_seg(S1, lines[..., 0, 0], lines[..., 0, 1], lines[..., 1, 0],
+                             lines[..., 1, 1]) + (obs.line_mask,))
+    if obs.polygons.shape[-3]:
+        ax, ay, bx, by, act = _slot_edges(obs)
+        S2 = tuple(v[..., None, None] for v in S)
+        d, g = _edges_min(*_seg_seg(S2, ax, ay, bx, by), act)
+        inside = _inside(S2[0], S2[1], ax, ay, bx, by, act)
+        cols.append((torch.where(inside, 0.0, d), torch.where(inside[..., None], 0.0, g),
+                     obs.polygon_mask))
+    return _rows(cols)
+
+
+def _polygon_footprint_rows(fp, x, obs):
+    """The footprint polygon's distance to every slot and its pose gradient
+    (Pallas ``d_point_fp_polygon``, ``d_seg_fp_polygon``,
+    ``d_polygon_fp_polygon``): a point or circle slot by the signed distance
+    of its center (negative inside the footprint, by the even-odd rule) less
+    its radius; a line slot by segment_to_polygon with the line first (zero
+    when its first end lies inside); a polygon slot by polygon_to_polygon
+    with the footprint first, over every pair of a footprint edge and an
+    active slot edge (zero when either holds the other's first vertex)."""
+    px, py, tx, ty = _footprint_points(const(fp.vertices, x), x)
+    nxt = lambda v: torch.roll(v, -1, dims=-1)  # noqa: E731
+    E = (px, py, nxt(px), nxt(py), tx, ty, nxt(tx), nxt(ty))  # edges (..., Vf)
+    E1 = tuple(v[..., None, :] for v in E)                   # (..., 1, Vf)
+    centers, radii, cmask, _ = circle_slots(obs)
+    cx, cy = centers[..., 0, None], centers[..., 1, None]
+    d, g = _edges_min(*_seg_point(E1, cx, cy), None)
+    sgn = torch.where(_inside(cx, cy, *E1[:4], None), -1.0, 1.0)
+    cols = [(sgn * d - radii, sgn[..., None] * g, cmask)]
+    lines = obs.lines
+    if lines.shape[-3]:
+        ax, ay = lines[..., 0, 0, None], lines[..., 0, 1, None]
+        bx, by = lines[..., 1, 0, None], lines[..., 1, 1, None]
+        d, g = _edges_min(*_seg_seg(E1, ax, ay, bx, by, rev=True), None)
+        inside = _inside(ax, ay, *E1[:4], None)
+        cols.append((torch.where(inside, 0.0, d), torch.where(inside[..., None], 0.0, g),
+                     obs.line_mask))
+    if obs.polygons.shape[-3]:
+        ax, ay, bx, by, act = _slot_edges(obs)
+        E2 = tuple(v[..., None, :, None] for v in E)  # (..., 1, Vf, 1)
+        d, g = _seg_seg(E2, *(v[..., None, :] for v in (ax, ay, bx, by)))  # (..., Mg, Vf, V)
+        flat = d.shape[:-2] + (-1,)
+        act2 = act[..., None, :].expand(d.shape)
+        d, g = _edges_min(d.reshape(flat), g.reshape(flat + (3,)), act2.reshape(flat))
+        slot_in_fp = _inside(obs.polygons[..., 0, 0, None], obs.polygons[..., 0, 1, None],
+                             *E1[:4], None)
+        fp_in_slot = _inside(px[..., 0, None, None], py[..., 0, None, None], ax, ay, bx, by,
+                             act)
+        overlap = slot_in_fp | fp_in_slot
+        cols.append((torch.where(overlap, 0.0, d), torch.where(overlap[..., None], 0.0, g),
+                     obs.polygon_mask))
+    return _rows(cols)
+
+
+def _disc_rows(spec, x, obs):
+    """The discs' distance to every slot and its pose gradient: each disc's
+    distance is its center's minus its radius; two discs combine by their
+    minimum with the 0.5 tie split (Pallas ``obs_terms``)."""
     centers, radii, cmask, _ = circle_slots(obs)
     lines = obs.lines
     d_all, g_all = [], []
@@ -298,6 +493,23 @@ def obstacle_rows(spec, x, obs):
         w1, w2 = _sel_lt(d_all[0], d_all[1]), _sel_lt(d_all[1], d_all[0])
         d = torch.minimum(d_all[0], d_all[1])
         grad = w1[..., None] * g_all[0] + w2[..., None] * g_all[1]
+    return d, grad
+
+
+def obstacle_rows(spec, x, obs):
+    """Obstacle rows at poses x (..., 3): g = min_dist − d (..., M), d the
+    footprint's distance to each slot of ``obs`` (an ObstacleSet whose
+    leaves broadcast against x's leading dims; BIG on a masked slot), in the
+    order [points and circles, lines, polygons], and the pose gradient of g
+    (..., M, 3), in closed form with JAX's subgradients. A family with no
+    slot adds no row and no work."""
+    fp = spec.footprint
+    if isinstance(fp, LineFootprint):
+        d, grad = _line_footprint_rows(fp, x, obs)
+    elif isinstance(fp, PolygonFootprint):
+        d, grad = _polygon_footprint_rows(fp, x, obs)
+    else:
+        d, grad = _disc_rows(spec, x, obs)
     return spec.min_obstacle_dist - d, -grad
 
 
@@ -538,8 +750,8 @@ def _check_scope(spec, settings, scenario):
     if reason is not None:
         raise NotImplementedError(
             f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
-            "midpoint and Crank-Nicolson rules (K2b), the line and polygon footprints "
-            "(K2c), via points (K2d), shooting (K2e), the non-uniform grid (K2f)"
+            "midpoint and Crank-Nicolson rules (K2b), via points (K2d), shooting (K2e), "
+            "the non-uniform grid (K2f)"
         )
 
 
@@ -578,9 +790,11 @@ class _Params(ctypes.Structure):
         ("has_qf", ctypes.c_int), ("variable_dt", ctypes.c_int),
         ("Mc", ctypes.c_int), ("Ml", ctypes.c_int), ("Mg", ctypes.c_int), ("V", ctypes.c_int),
         ("n_disc", ctypes.c_int), ("dynamic", ctypes.c_int),
+        ("fp_kind", ctypes.c_int), ("fp_nv", ctypes.c_int),
         ("wheelbase", ctypes.c_double), ("bike_a", ctypes.c_double),
         ("bike_lr", ctypes.c_double), ("disc_off", ctypes.c_double * 2),
-        ("disc_r", ctypes.c_double * 2), ("min_dist", ctypes.c_double),
+        ("disc_r", ctypes.c_double * 2), ("fp_v", ctypes.c_double * (2 * MAX_FP_V)),
+        ("min_dist", ctypes.c_double),
         ("lo_u", ctypes.c_double * 2), ("hi_u", ctypes.c_double * 2),
         ("lo_r", ctypes.c_double * 2), ("hi_r", ctypes.c_double * 2),
         ("q", ctypes.c_double * 3), ("r", ctypes.c_double * 2),
@@ -608,8 +822,13 @@ def _params(spec, settings, obstacles) -> _Params:
     model = spec.model
     bicycle = type(model) is KinematicBicycleModelVelocityInput
     dt_lo, dt_hi = dt_clip(spec)
-    discs = disc_footprint(spec.footprint)
+    fp = spec.footprint
+    kind = FOOTPRINT_KINDS[type(fp)]
+    discs = disc_footprint(fp) if kind == 0 else ((0.0, 0.0),)
     pad = list(discs) + [(0.0, 0.0)] * (2 - len(discs))
+    points = {1: lambda: (fp.line_start, fp.line_end), 2: lambda: fp.vertices}.get(
+        kind, lambda: ())()
+    fp_v = [c for v in points for c in v]
     o = obstacles
     return _Params(
         N=spec.N, M=spec.obstacle_cap, n_al=settings.n_al, n_sqp=settings.n_sqp,
@@ -619,11 +838,12 @@ def _params(spec, settings, obstacles) -> _Params:
         has_qf=int(spec.qf_diag is not None), variable_dt=int(spec.variable_dt),
         Mc=o.points.shape[-2] + o.circles.shape[-2], Ml=o.lines.shape[-3],
         Mg=o.polygons.shape[-3], V=o.polygons.shape[-2], n_disc=len(discs),
-        dynamic=int(spec.enable_dynamic_obstacles),
+        dynamic=int(spec.enable_dynamic_obstacles), fp_kind=kind, fp_nv=len(points),
         wheelbase=getattr(model, "wheelbase", 0.0),
         bike_a=_bicycle_a(model) if bicycle else 0.0,
         bike_lr=model.lr if bicycle else 0.0,
         disc_off=d2(*(o for o, _ in pad)), disc_r=d2(*(r for _, r in pad)),
+        fp_v=(ctypes.c_double * (2 * MAX_FP_V))(*fp_v),
         min_dist=spec.min_obstacle_dist,
         lo_u=d2(*lo_u), hi_u=d2(*hi_u), lo_r=d2(*lo_r), hi_r=d2(*hi_r),
         q=d3(*spec.q_diag), r=d2(*spec.r_diag), qf=d3(*(spec.qf_diag or (0.0,) * 3)),
@@ -655,14 +875,15 @@ def bind(path):
     for fn in (lib.k2a_fused_solve_f32, lib.k2a_fused_solve_f64):
         fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    names = ("k2a_max_n", "k2a_max_m", "k2a_max_alphas", "k2a_max_v", "k2a_params_size")
+    names = ("k2a_max_n", "k2a_max_m", "k2a_max_alphas", "k2a_max_v", "k2a_max_fp_v",
+             "k2a_params_size")
     for name in names:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.k2a_error_string.argtypes = [ctypes.c_int]
     lib.k2a_error_string.restype = ctypes.c_char_p
     limits = tuple(getattr(lib, name)() for name in names)
-    if limits != (MAX_N, MAX_M, MAX_ALPHAS, MAX_V, ctypes.sizeof(_Params)):
+    if limits != (MAX_N, MAX_M, MAX_ALPHAS, MAX_V, MAX_FP_V, ctypes.sizeof(_Params)):
         raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
     return lib
 
@@ -782,7 +1003,7 @@ fused_solve_cuda.launches = 0
 # augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju,
 # the dt column m = f only on a variable dt); Hzz, Hzu, Huu, hz and hu are
 # ``stage_grad_hess``'s blocks (obstacles on x, y and, where a footprint disc
-# sits off the pose, θ; the quadratic form on x, u and, integral, dt; rate
+# sits off the pose or the footprint is a segment or a polygon, θ; the quadratic form on x, u and, integral, dt; rate
 # rows on u_prev, dt and u; box rows on u).
 # tests/test_torch_fused.py and tests/test_torch_quadratic.py hold them
 # against the plain version's tensors.
@@ -794,7 +1015,9 @@ def step_structure(spec) -> dict:
     quad = spec.objective == "quadratic_form"
     integ = "v" if quad and spec.integral_form else "0"
     obs = "v" if spec.obstacle_cap else "0"
-    rot = spec.obstacle_cap and any(off != 0.0 for off, _ in disc_footprint(spec.footprint))
+    rot = spec.obstacle_cap and (
+        FOOTPRINT_KINDS[type(spec.footprint)] != 0
+        or any(off != 0.0 for off, _ in disc_footprint(spec.footprint)))
     o_th = "v" if rot else "0"
     xy = "v" if spec.obstacle_cap or quad else "0"
     th = "v" if quad or rot else "0"
@@ -909,9 +1132,8 @@ def _geometry_flops(spec, obstacles):
     2 + 2 per vertex (polygon); per pose the prediction time 1 and, with a
     disc off the pose, cos, sin and 6 per such disc. The AL terms are 16
     per slot on the (x, y) block, 27 on the 3×3 pose block. Polygon edges
-    are this run's mean active count over the lanes of ``obstacles``."""
-    discs = disc_footprint(spec.footprint)
-    nd, n_off = len(discs), sum(off != 0.0 for off, _ in discs)
+    are this run's mean active count over the lanes of ``obstacles``. A
+    segment or polygon footprint: ``_footprint_flops``."""
     if obstacles is None:
         mc, ml, mg, edges = spec.obstacle_cap, 0, 0, 0.0
     else:
@@ -920,15 +1142,77 @@ def _geometry_flops(spec, obstacles):
         ml, mg = o.lines.shape[-3], o.polygons.shape[-3]
         edges = float(o.polygon_nv.double().sum(dim=-1).mean()) if mg else 0.0
     m = mc + ml + mg
-    value = (9 * mc + 21 * ml + 2 * mg) * nd + 26 * edges * nd + m
-    if spec.enable_dynamic_obstacles:
-        value += 4 * mc + 6 * ml + 2 * mg + 2 * edges + 1
+    dynamic = (4 * mc + 6 * ml + 2 * mg + 2 * edges + 1) * spec.enable_dynamic_obstacles
+    if FOOTPRINT_KINDS[type(spec.footprint)] != 0:
+        value, grad = _footprint_flops(spec.footprint, mc, ml, mg, edges)
+        return value + m + dynamic, value + m + dynamic + grad, 27
+    discs = disc_footprint(spec.footprint)
+    nd, n_off = len(discs), sum(off != 0.0 for off, _ in discs)
+    value = (9 * mc + 21 * ml + 2 * mg) * nd + 26 * edges * nd + m + dynamic
     if n_off and m:
         value += 2 + 6 * n_off
     grad = (4 * mc + 11 * ml + 4 * mg) * nd + 13 * edges * nd + 3 * m * n_off
     grad += 9 * m * (nd == 2)
     al = 27 if n_off else 16
     return value, value + grad, al
+
+
+# Operations of the segment and polygon footprints' chains in
+# csrc/fused_al_sqp.cu, as the function needs them (value, pose gradient):
+# whatever one pose shares among its slots and edges is counted once.
+# Per pose: cos and sin; each world vertex of the footprint (8; its θ
+# derivative 2 more in the gradient); each footprint edge's constants
+# (b − a and |b − a|², 5; their θ terms 9). Per point and segment whose
+# constants are known: the distance (15; its gradient 12 where the segment
+# is fixed and 3 more for a footprint vertex's θ chain, 41 where the
+# segment moves with the pose, with the ∂|ab|²/∂θ term), the point's
+# orientation to the segment and its even-odd crossing (3 each, from the
+# distance's differences). A minimum's gradient counts every candidate's
+# (the tie split needs them), as the disc footprints' count does; min2's
+# split is 9 and an edge minimum's 4.
+_TRIG, _WORLD_VERTEX, _SEG_CONST = 2, (8, 2), (5, 9)
+_DIST, _DIST_GRAD_FIXED, _DIST_GRAD_MOVING, _THETA_CHAIN = 15, 12, 41, 3
+_ORIENT = _CROSS = 3
+_MIN2, _EDGE_MIN = 9, 4
+
+
+def _footprint_flops(fp, mc, ml, mg, edges):
+    """(value, pose gradient) operations of a segment or polygon footprint's
+    rows at one pose, before g = min_dist − d and the dynamic shifts, for
+    mc point and circle slots, ml line slots and mg polygon slots with
+    ``edges`` active edges in all. The footprint: cos, sin, its world
+    points and edges once per pose. A circle slot: its center's distance to
+    each footprint edge, with a crossing for the polygon's sign, and the
+    sign and radius. A line slot (segment_to_segment per footprint edge):
+    its constants, each footprint point's distance and orientation to it,
+    each of its ends' distance and orientation to each footprint edge, the
+    intersection test per edge (2) and, for the polygon, its first end's
+    crossing per edge. A polygon slot: each edge's constants, per pair of
+    a footprint edge and a slot edge the two distances a pair adds (a
+    footprint point to the slot edge, a slot vertex to the footprint edge,
+    each shared with the next pair) with their orientations and the
+    intersection test, and the two containment tests' crossings."""
+    d, o = _DIST, _ORIENT
+    if isinstance(fp, LineFootprint):
+        nf, ne = 2, 1
+    else:
+        nf = ne = len(fp.vertices)
+    value = _TRIG + nf * _WORLD_VERTEX[0] + ne * _SEG_CONST[0]
+    grad = nf * _WORLD_VERTEX[1] + ne * _SEG_CONST[1]
+    seg_seg_grad = 2 * (_DIST_GRAD_FIXED + _THETA_CHAIN) + 2 * _DIST_GRAD_MOVING + 3 * _MIN2
+    if isinstance(fp, LineFootprint):
+        value += mc * (d + 1) + ml * (_SEG_CONST[0] + 4 * (d + o) + 2)
+        value += edges * (_SEG_CONST[0] + 3 * (d + o) + 2 + _CROSS) + mg
+        grad += mc * _DIST_GRAD_MOVING + ml * seg_seg_grad
+        grad += edges * (2 * (_DIST_GRAD_FIXED + _THETA_CHAIN) + _DIST_GRAD_MOVING + 3 * _MIN2)
+        return value, grad + mg * _EDGE_MIN
+    value += mc * (ne * (d + _CROSS) + 2)
+    value += ml * (_SEG_CONST[0] + 3 * ne * (d + o) + ne * (2 + _CROSS) + 1)
+    value += edges * (_SEG_CONST[0] + ne * (2 * (d + o) + 2) + _CROSS) + mg * (ne * _CROSS + 1)
+    pair_grad = _DIST_GRAD_FIXED + _THETA_CHAIN + _DIST_GRAD_MOVING + 3 * _MIN2
+    grad += mc * (ne * _DIST_GRAD_MOVING + _EDGE_MIN)
+    grad += ml * (ne * (pair_grad + _DIST_GRAD_MOVING) + _EDGE_MIN) + edges * ne * pair_grad
+    return value, grad + mg * _EDGE_MIN
 
 
 def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:

@@ -475,6 +475,29 @@ def test_torch_f64_agreement_holds_an_ill_conditioned_lane_at_the_first_prefix(e
         assert passed is held, info
 
 
+@pytest.mark.parametrize("every_lane", [True, False])
+def test_torch_f64_agreement_holds_a_chaotic_lane_to_its_measured_spread(every_lane):
+    """A lane that one ulp moves by 2e-2 (path C's lane 58 after one SQP
+    iteration, an ill-conditioned Riccati step times ρ in ``lam_def``) is
+    held at the first prefix to SPREAD_FACTOR (2) times its largest move
+    under the KKT-rounding patterns, ``spread_runs`` included (here 5e-2),
+    not to EVERY_LANE_CAP, and left out at a long prefix; without the
+    spread runs, to twice its one-ulp sensitivity."""
+    out_p, outs_q, outs_r, outs_t, growth = _plain_f64_results()
+    outs_r = [_moved(outs_r[0], 3, 2e-2)] + list(outs_r[1:])
+    outs_s = [_moved(outs_r[1], 3, 5e-2)]
+    assert (agreement.SPREAD_FACTOR, agreement.SPREAD_PATTERNS) == (2.0, 32)
+    for rel, spread, held in ((1.9e-2, outs_s, True), (9e-2, outs_s, True),
+                              (1.2e-1, outs_s, not every_lane), (3.5e-2, (), True),
+                              (5e-2, (), not every_lane)):
+        info, passed, _, _ = agreement.f64_agreement(
+            _moved(out_p, 3, rel), out_p, outs_q, outs_t, growth, 0.0, every_lane=every_lane,
+            outs_r=outs_r, outs_spread=spread,
+        )
+        assert info["lanes_chaotic"] == 1
+        assert passed is held, info
+
+
 @pytest.mark.slow
 def test_torch_k2a_plain_matches_the_pallas_kernel_in_interpret_mode():
     """``fused_solve_plain`` against the TPU kernel itself (JAX ``fused_solve``

@@ -261,9 +261,10 @@ def test_torch_footprint_distances_match_jax(kind, dynamic, dtype_name):
 
 def test_torch_footprint_factory_and_scope():
     assert isinstance(tfp.make_footprint("two_circles", **CANONICAL), tfp.TwoCirclesFootprint)
-    for kind in ("line", "polygon"):
-        with pytest.raises(NotImplementedError, match="ROADMAP M9, K2c footprints"):
-            tfp.make_footprint(kind)
+    line = tfp.make_footprint("line", line_start=(-0.1, 0.0), line_end=(0.35, 0.0))
+    assert isinstance(line, tfp.LineFootprint) and line.line_end == (0.35, 0.0)
+    rect = tfp.make_footprint("polygon", vertices=[[0.25, 0.15], [-0.25, 0.15], [-0.25, -0.15]])
+    assert isinstance(rect, tfp.PolygonFootprint) and rect.vertices[1] == (-0.25, 0.15)
     with pytest.raises(ValueError, match="unknown footprint"):
         tfp.make_footprint("hexagon")
     spec = dataclasses.replace(
@@ -272,7 +273,8 @@ def test_torch_footprint_factory_and_scope():
     )
     assert k2a.fused_supported(spec)
     assert tfp.disc_footprint(spec.footprint) == ((0.15, 0.2), (-0.15, 0.2))
-    with pytest.raises(NotImplementedError, match="ROADMAP M9, K2c footprints"):
+    with pytest.raises(NotImplementedError, match="footprint object is not ported yet "
+                                                  r"\(ROADMAP M9\)"):
         dataclasses.replace(spec, footprint=object())
 
 
@@ -494,8 +496,7 @@ def test_torch_family_spec_matches_jax(name):
     assert type(t.footprint).__name__ == type(j.footprint).__name__
 
 
-@pytest.mark.parametrize("name, item", [("via_points", "K2d"), ("polygon_footprint", "K2c"),
-                                        ("nonuniform", "K2f")])
+@pytest.mark.parametrize("name, item", [("via_points", "K2d"), ("nonuniform", "K2f")])
 def test_torch_family_spec_names_what_waits(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP M9, {item}"):
         tb.family_spec(name, N=N)

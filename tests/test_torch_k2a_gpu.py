@@ -5,7 +5,9 @@ config #2 (unicycle, quadratic form, Qf, terminal ball, fixed dt), config #1
 car and the kinematic bicycle, and the geometry of K2c: the reference's
 car-like config (two discs), the wall world (line slots), polygon slots
 with a varying vertex count, dynamic line slots, all four slot families with
-two discs and dynamic obstacles, and the bicycle with two discs.
+two discs and dynamic obstacles, the bicycle with two discs, the
+polygon-footprint family, and all four slot families moving with a line
+footprint and with a polygon footprint.
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -49,6 +51,7 @@ from mpc_local_planner_tpu_torch.benchmarks import (
 )
 from mpc_local_planner_tpu_torch.geometry.footprints import (
     CircularFootprint,
+    LineFootprint,
     PointFootprint,
     TwoCirclesFootprint,
 )
@@ -102,6 +105,15 @@ K2C = {
     "bicycle-two-circles": lambda: (dataclasses.replace(
         family_spec("canonical_carlike"), model=KinematicBicycleModelVelocityInput(0.3, 0.2)
     ), "canonical_carlike"),
+    # the line and polygon footprints: the polygon-footprint family (path C)
+    # and each footprint against all four slot families, moving
+    "polygon_footprint": lambda: (family_spec("polygon_footprint"), "polygon_footprint"),
+    "line-footprint-mixed-dynamic": lambda: _k2c_spec(
+        LineFootprint((-0.1, 0.0), (0.35, 0.0)), True, mp=1, mc=2, ml=2, mg=1, V=4
+    ),
+    "polygon-footprint-mixed-dynamic": lambda: _k2c_spec(
+        family_spec("polygon_footprint").footprint, True, mp=1, mc=2, ml=2, mg=1, V=4
+    ),
 }
 
 
@@ -161,14 +173,14 @@ def _check_f64(spec, st, scen, init, duals):
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
         assert k2a.fused_solve_cuda.launches == before + 1
         out_p = k2a.fused_solve_plain(spec, sp, scen, init, duals)
-        outs_q, outs_r, outs_t = agreement.plain_runs(
-            lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw), init  # noqa: B023
-        )
+        plain = lambda i, **kw: k2a.fused_solve_plain(spec, sp, scen, i, duals, **kw)  # noqa: E731,B023
+        outs_q, outs_r, outs_t = agreement.plain_runs(plain, init)
+        outs_s = agreement.spread_runs(plain, init) if short else ()
         torch.cuda.synchronize()
         assert out_k.primal.xs.dtype == torch.float64
         info, passed, _, _ = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else 0.25,
-            every_lane=short, outs_r=outs_r,
+            every_lane=short, outs_r=outs_r, outs_spread=outs_s,
         )
         assert passed, json.dumps(info)
 
@@ -235,6 +247,21 @@ def test_torch_make_solver_launches_the_kernel_for_the_wall_world():
     out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
     assert k2a.fused_solve_cuda.launches == before + 1
     assert out.duals.mu_obs.shape == (64, 30, 6)
+
+
+@pytest.mark.gpu
+def test_torch_make_solver_launches_the_kernel_for_the_polygon_footprint():
+    """The polygon footprint is in the kernel's scope: path C's warm solve
+    launches it."""
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(
+        dev, torch.float32, WARM, batch=64, spec=family_spec("polygon_footprint"),
+        slots="polygon_footprint",
+    )
+    before = k2a.fused_solve_cuda.launches
+    out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert out.duals.mu_obs.shape == (64, 30, 8)
 
 
 @pytest.mark.gpu

@@ -1,10 +1,12 @@
-"""The fleet cycles of the two K2c paths on the CPU, against the JAX cycle
-(float64): the reference's car-like config
+"""The fleet cycles of the three K2c paths on the CPU, against the JAX
+cycle (float64): the reference's car-like config
 (``family_spec("canonical_carlike")``: the two-disc footprint, 8 circle
-slots) and the wall world (``family_spec("converter_lines")``: 6 line
-slots from the wall sampler), each with ``stuck_restart=2`` and the rescue
-chained twice per cycle, as bench.py's families mode drives the wall world;
-the car-like cycle also with ``rho0_fail``.
+slots), the wall world (``family_spec("converter_lines")``: 6 line slots
+from the wall sampler) and the polygon-footprint family
+(``family_spec("polygon_footprint")``: a 0.5 × 0.3 m rectangle, 8 circle
+slots), each with ``stuck_restart=2`` and the rescue chained twice per
+cycle, as bench.py's families mode drives the wall world; the car-like and
+polygon cycles also with ``rho0_fail``.
 
 Six lanes at N=8 start from one result state handed to both packages
 through numpy (goals pulled in to 30% of their distance): the port's 2×3
@@ -55,7 +57,8 @@ ATOL, RTOL = 1e-9, 1e-12
 # agree to rounding (4e-13 there), so ρ times their rounding is 1e-8.
 RHO_ULP = 1e-13
 # family: (ensemble key, rho0_fail)
-PATHS = {"canonical_carlike": (7, 300.0), "converter_lines": (7, 0.0)}
+PATHS = {"canonical_carlike": (7, 300.0), "converter_lines": (7, 0.0),
+         "polygon_footprint": (7, 300.0)}
 
 
 def _assert_trees_close(a, b, path=""):
