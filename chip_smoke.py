@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   2. build   — nvcc builds kernels K1 (csrc/riccati_sweep.cu) and K2a
                (csrc/fused_al_sqp.cu) into _build/, in parallel
   3. kernel  — K1 against its plain PyTorch version on the Riccati inputs of
-               one real flagship SQP iteration (B=4096 and 1024, N=30), in
-               float64 and float32; kernel, plain and bound times
+               one real flagship SQP iteration (B=4096 and 1024, N=30, and
+               B=4096 at N=96, past the cap K1 once had), in float64 and
+               float32; kernel, plain and bound times
   4. main    — the flagship warm fleet cycle on the un-fused path
                (fused="off"), as bench.py::main drives it: config3 (N=30, 8
                circle slots), 4096 lanes, cold 16×15 solve, 2 settle + 8
@@ -76,10 +77,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                line slots, all four families with the two-disc footprint and
                dynamic obstacles, the kinematic bicycle with the two-disc
                footprint, and all four families moving with a line footprint
-               and with a polygon footprint, each from its own cold solve and
-               two fused fleet cycles. The nine cases of phases 14 and 23 run
-               at once, each in a process of its own (``chip_smoke.py
-               --family-case NAME``); then each is timed alone
+               and with a polygon footprint; and (K2d, the caps lifted)
+               ordered via points with an orientation weight and masked
+               slots, path A's spec with 30 obstacle slots (the example
+               configs' capacity, 8 obstacles in them) and the flagship at
+               N=80; each from its own cold solve and two fused fleet cycles.
+               The twelve cases of phases 14 and 23 run at once, each in a
+               process of its own (``chip_smoke.py --family-case NAME``);
+               then each is timed alone
  24. path C  — the polygon-footprint family (family_spec "polygon_footprint":
                the simple car with a 0.5 × 0.3 m rectangle, 8 circle slots,
                minimum time) as bench.py's families mode runs it: cold 16×15
@@ -89,7 +94,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  25. kernel  — the fused kernel against its plain version on path C's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  26. gate    — path C's fused warm solve against the un-fused one; trace
- 27. summary — the kernels line, the card line, then the result line
+ 27. path D  — the via-points family (family_spec "via_points": the flagship
+               with 4 corridor via points, position weight 2, unordered,
+               8 circle slots) as bench.py's families mode runs it: cold
+               16×15 (un-fused, K1), 2 settle + 8 timed warm cycles (3×4)
+               with the 1024-slot 4×4 rescue, the cold oracle; 20 fused
+               launches, 480 of K1, none in the warm cycles; run after path C
+ 28. kernel  — the fused kernel against its plain version on path D's live
+               warm state (4096 lanes at 3×4, 1024 at 4×4)
+ 29. gate    — path D's fused warm solve against the un-fused one; trace
+ 30. summary — the kernels line, the card line, then the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -154,6 +168,9 @@ def flagship(N=30, obstacle_cap=8):
     from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time
 
     return fleet_settings(config3_carlike_min_time(N=N, obstacle_cap=obstacle_cap))
+
+
+K1_LONG_N = 96  # phase 3's horizon past K1's old cap of 64
 
 
 def fleet_settings(spec):
@@ -482,7 +499,8 @@ def k2a_times(spec, st, args32, info, tag):
     batch = args32[0].x0.shape[0]
     ins, outs = k2a.kernel_io(spec, *args32)
     nbytes = sum(a.numel() * a.element_size() for a in ins + outs)
-    flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas), args32[0].obstacles)
+    flops = batch * k2a.k2a_flops(spec, st.n_al, st.n_sqp, len(st.alphas), args32[0].obstacles,
+                                  args32[0].via_mask)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOP_PER_S * 1e3
     row = {
@@ -584,20 +602,43 @@ def family_case(name, save=None, batch=RESCUE_SLOTS):
         torch.save({"args": args32, "info": info}, save)
 
 
+def k2d_cases():
+    """The B=1024 cases of via points and of the caps lifted (K2d, F1, F3):
+    the JAX package's fused-kernel via ensemble (``tests/test_fused_solver.py``:
+    3 slots uniform in [0.2, 2]³, about 30% masked) ordered with an
+    orientation weight, path A's spec with 30 obstacle slots, as every
+    ``examples/cfg/*.yaml`` sets ``obstacle_capacity: 30`` (its 8 obstacles
+    in them, the rest masked), and the flagship at N=80."""
+    from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, family_spec
+
+    via = dataclasses.replace(
+        config3_carlike_min_time(N=30, obstacle_cap=8), objective="minimum_time_via_points",
+        via_cap=3, via_position_weight=2.0, via_orientation_weight=0.5, via_points_ordered=True)
+    return (
+        ("via-ordered-orientation", via, "random_via"),
+        ("carlike-30-slots", dataclasses.replace(family_spec("canonical_carlike", N=30),
+                                                 obstacle_cap=30), "8_obstacles"),
+        ("flagship-N80", config3_carlike_min_time(N=80, obstacle_cap=8), None),
+    )
+
+
 def case_spec(name):
-    """(spec, slot mix) of a case of ``model_cases`` or ``k2c_cases``."""
-    return {n: (s, m) for n, s, m in model_cases() + k2c_cases()}[name]
+    """(spec, slot mix) of a case of ``model_cases``, ``k2c_cases`` or
+    ``k2d_cases``."""
+    return {n: (s, m) for n, s, m in model_cases() + k2c_cases() + k2d_cases()}[name]
 
 
 def family_state(name, batch=RESCUE_SLOTS, case=None):
-    """One case of ``model_cases`` and ``k2c_cases``, or ``case`` under
-    ``name`` (a spec, and a slot mix for ``benchmarks.mixed_obstacles`` or
-    None for ``random_ensemble``'s circles) at ``batch`` lanes: its own cold solve (un-fused, K1) and two
-    fleet cycles (fused, the flagship's warm settings). Returns (spec, the
-    warm settings, the fleet cycle's next warm inputs)."""
+    """One case of ``model_cases``, ``k2c_cases`` and ``k2d_cases``, or
+    ``case`` under ``name`` (a spec, and a slot mix for
+    ``benchmarks.mixed_obstacles``, None for ``random_ensemble``'s circles,
+    or a kind of ``benchmarks.case_ensemble``) at ``batch`` lanes: its own
+    cold solve (un-fused, K1) and two fleet cycles (fused, the flagship's
+    warm settings). Returns (spec, the warm settings, the fleet cycle's next
+    warm inputs)."""
     import torch
 
-    from mpc_local_planner_tpu_torch.benchmarks import mixed_obstacles
+    from mpc_local_planner_tpu_torch.benchmarks import case_ensemble, mixed_obstacles
     from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
     from mpc_local_planner_tpu_torch.solvers.al_sqp import (
         SolverSettings,
@@ -613,6 +654,8 @@ def family_state(name, batch=RESCUE_SLOTS, case=None):
     cold = SolverSettings.for_spec(spec)
     if slots is None:
         scen = ensemble(spec, batch, device)
+    elif isinstance(slots, str):
+        scen = case_ensemble(slots, spec, batch, torch.Generator().manual_seed(0), device=device)
     else:
         scen = ensemble(dataclasses.replace(spec, obstacle_cap=0), batch, device)
         gen = torch.Generator().manual_seed(1)
@@ -774,11 +817,12 @@ def ptxas_rows(report):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            args = re.search(r"k2a_kernelI([fd])Li(\d)ELb([01])ELi(\d+)E", name)
+            args = re.search(r"k2a_kernelI([fd])Li(\d)ELi(\d)ELi(\d+)E", name)
             if args:
-                t, model, quad, geo = args.groups()
+                t, model, obj, geo = args.groups()
+                objective = {"0": "minimum time", "1": "quadratic", "2": "via points"}[obj]
                 name = (f"k2a_kernel<{'float' if t == 'f' else 'double'}, model {model}, "
-                        f"{'quadratic' if quad == '1' else 'minimum time'}, GEO {geo}>")
+                        f"{objective}, GEO {geo}>")
             usage = {}
         for key, pat in (("stack", r"(\d+) bytes stack frame"), ("st", r"(\d+) bytes spill stores"),
                          ("ld", r"(\d+) bytes spill loads"), ("reg", r"Used (\d+) registers")):
@@ -813,6 +857,8 @@ def main():
     # ---- 3. K1 against its plain version --------------------------------- #
     spec, cold, warm, rescue_set = flagship()
     k1 = kernel_phase(spec, warm, device)
+    kernel_phase(flagship(N=K1_LONG_N)[0], warm, device, batches=(BATCH,),
+                 tag=f"K1 N={K1_LONG_N}")
 
     # ---- 4. main path, un-fused ------------------------------------------ #
     riccati_cuda.lqr_solve_cuda.launches = 0
@@ -936,10 +982,21 @@ def main():
     gate_and_trace("polygon_footprint", specC, warmC, warmC_f, settledC, cycleC,
                    extraC["cycle_ms"])
 
-    # ---- 14 and 23. the other models, config #1 and the K2c cases, B=1024 -- #
-    family_phase([name for name, _, _ in model_cases() + k2c_cases()])
+    # ---- 27-29. path D: the via-points family (K2d) ------------------------ #
+    specD, coldD, warmD, rescueD = fleet_settings(family_spec("via_points", N=30))
+    warmD_f = dataclasses.replace(warmD, fused="auto")
+    rescueD_f = dataclasses.replace(rescueD, fused="auto")
+    extraD, settledD, cycleD, fusedD = fused_path(
+        "via_points_fused", specD, coldD, warmD_f, rescueD_f, device, card, 0.5,
+        family="via_points",
+    )
+    rows_d = k2a_phase(specD, warmD_f, rescueD_f, settledD, name="pathD")
+    gate_and_trace("via_points", specD, warmD, warmD_f, settledD, cycleD, extraD["cycle_ms"])
 
-    # ---- 27. summary ---------------------------------------------------- #
+    # ---- 14 and 23. the other models, config #1, the K2c and K2d cases ----- #
+    family_phase([name for name, _, _ in model_cases() + k2c_cases() + k2d_cases()])
+
+    # ---- 30. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
 
     def fused_row(name, launches, r):
@@ -979,6 +1036,8 @@ def main():
                   "path B, warm 4x4)", fusedB, rows_b[BATCH]),
         fused_row("K2 fused_al_sqp: simple car, polygon footprint, circle slots (K2c; the "
                   "polygon-footprint family, path C)", fusedC, rows_c[BATCH]),
+        fused_row("K2 fused_al_sqp: simple car, minimum time with via points (K2d; the "
+                  "via-points family, path D)", fusedD, rows_d[BATCH]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Three measurements of the fused kernel (``csrc/fused_al_sqp.cu``) on one
-NVIDIA GPU, beside ``chip_smoke.py``:
+"""Measurements of the fused kernel (``csrc/fused_al_sqp.cu``) and of K1 on
+one NVIDIA GPU, beside ``chip_smoke.py``:
 
-    python3 fused_probe.py [registers] [timing] [rounding[=CASE]]   (all by default)
+    python3 fused_probe.py [registers] [timing] [rounding[=CASE]] [times]
+    (the first three by default)
 
-- registers: builds the kernel's ``<float, simple car, minimum time>`` and
-  ``<float, unicycle, quadratic form>`` instantiations with each part of the
+- registers: builds the kernel's ``<float, simple car, OBJ_MIN_TIME>`` and
+  ``<float, unicycle, OBJ_QUADRATIC>`` instantiations with each part of the
   geometry (the ``GEO`` template parameter: a second disc, line slots,
   polygon slots, moving slots) compiled in alone, the launched ones
   (``GEO_NONE`` and ``GEO_ALL`` for disc footprints; a polygon footprint
@@ -25,6 +26,15 @@ NVIDIA GPU, beside ``chip_smoke.py``:
   (``agreement.KktRounding``) and under one ulp on its states.
   ``rounding=CASE`` runs another case of ``chip_smoke.family_state``, or
   ``polygon-footprint``: path C's family at B=1024 from its own ensemble.
+- times: K1 on a flagship SQP iteration's Riccati inputs, and the fused
+  kernel's launches of the flagship's, config #2's and paths A's and B's
+  fleet cycles (the warm solves at B=4096 and the rescues at 1024 and
+  2048) from the straight-line seed (CUDA events, median of 25 launches),
+  for the tree in the working directory: its ``chip_smoke`` and package
+  come first on the path. To compare two commits on one card, unpack the
+  parent with ``git archive`` into an ignored directory and run there and
+  here in turns (parent, change, change, parent):
+  ``(cd DIR && python3 ../fused_probe.py times)``.
 
 Prints one JSON line per measurement. Needs a CUDA card.
 """
@@ -33,11 +43,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import sys
 
-import chip_smoke
+sys.path.insert(0, os.getcwd())  # the tree to measure: this one, or a parent's copy
+import chip_smoke  # noqa: E402
 
 PARTS = {"GEO_NONE": 0, "GEO_DISCS": 1, "GEO_LINES": 2, "GEO_POLYGONS": 4, "GEO_DYNAMIC": 8,
          "GEO_ALL": 15, "GEO_FP_POLYGON": 32, "GEO_FP_POLYGON | GEO_SLOTS": 46,
@@ -68,7 +80,7 @@ def registers():
         lib = nvcc_build.BUILD_DIR / f"lib{name}.so"
         lib.unlink(missing_ok=True)
         ptxas = nvcc_build.build_library(probe, lib)["ptxas"]
-        row = {"model": model, "quadratic": quad == "true", "geo": part}
+        row = {"model": model, "objective": quad, "geo": part}
         for key, pat in (("registers", r"Used (\d+) registers"),
                          ("stack_bytes", r"(\d+) bytes stack frame"),
                          ("spill_stores", r"(\d+) bytes spill stores"),
@@ -77,7 +89,8 @@ def registers():
             row[key] = int(found.group(1)) if found else None
         return row
 
-    cases = [(model, quad, part) for model, quad in (("SIMPLE_CAR", "false"), ("UNICYCLE", "true"))
+    cases = [(model, obj, part) for model, obj in (("SIMPLE_CAR", "OBJ_MIN_TIME"),
+                                                   ("UNICYCLE", "OBJ_QUADRATIC"))
              for part in PARTS]
     with ThreadPoolExecutor(max_workers=8) as pool:
         rows = list(pool.map(build, cases))
@@ -158,6 +171,48 @@ def rounding(case="mixed-dynamic"):
                           "lanes": lanes}))
 
 
+def times():
+    """K1 and the fused kernel's launches of the fleet cycles from the seed,
+    in the working directory's tree (its ``chip_smoke`` and package): the
+    warm 3×4 solves of the flagship, config #2 and path A at B=4096, path
+    A's 4×4 rescue with 8 candidates at 1024, path B's warm 4×4 at 4096 and
+    its rescue (4×4, 8 candidates) at 2048."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers import al_sqp
+
+    for kernel in (riccati_cuda, k2a):
+        kernel.build()
+    device = torch.device("cuda", 0)
+    spec, _, warm, rescue = chip_smoke.flagship()
+    scen = chip_smoke.ensemble(spec, chip_smoke.BATCH, device)
+    args = chip_smoke.riccati_inputs(spec, warm, scen)
+    out = {"tree": os.getcwd(), "k1_ms": chip_smoke._cuda_ms(
+        lambda: riccati_cuda.lqr_solve_cuda(*args, nx=3, free_tau=True), 25)}
+    lines_warm = dataclasses.replace(warm, n_al=4)
+    cases = (
+        ("k2a", spec, None, warm, chip_smoke.BATCH),
+        ("config2", chip_smoke.config2(), None, warm, chip_smoke.BATCH),
+        ("pathA", family_spec("canonical_carlike"), "canonical_carlike", warm, chip_smoke.BATCH),
+        ("pathA_rescue", family_spec("canonical_carlike"), "canonical_carlike", rescue,
+         chip_smoke.RESCUE_SLOTS),
+        ("pathB", family_spec("converter_lines"), "converter_lines", lines_warm,
+         chip_smoke.BATCH),
+        ("pathB_rescue", family_spec("converter_lines"), "converter_lines",
+         dataclasses.replace(lines_warm, alphas=rescue.alphas), chip_smoke.LINES_RESCUE_SLOTS),
+    )
+    for tag, sp, family, st, batch in cases:
+        st = dataclasses.replace(st, fused="auto")
+        scen = chip_smoke.ensemble(sp, batch, device, family=family)
+        init, duals = al_sqp.default_init(sp, st, scen)
+        out[f"{tag}_ms"] = chip_smoke._cuda_ms(
+            lambda: k2a.fused_solve_cuda(sp, st, scen, init, duals), 25)  # noqa: B023
+    print(json.dumps({"times": out, "card": chip_smoke.card_line()}))
+
+
 def main(names):
     import torch
 
@@ -166,7 +221,8 @@ def main(names):
     print(f"device: {chip_smoke.card_line()}")
     for name in names or ("registers", "timing", "rounding"):
         name, _, case = name.partition("=")
-        probe = {"registers": registers, "timing": timing, "rounding": rounding}[name]
+        probe = {"registers": registers, "timing": timing, "rounding": rounding,
+                 "times": times}[name]
         probe(case) if case else probe()
 
 

@@ -1,7 +1,7 @@
 """Benchmark problem definitions (port of ``mpc_local_planner_tpu.benchmarks``:
 BASELINE.json configs #1-#3, the scenario ensemble, and the flagship,
-canonical car-like, wall-world and polygon-footprint families with their
-ensembles)."""
+canonical car-like, wall-world, via-points and polygon-footprint families
+with their ensembles)."""
 
 from __future__ import annotations
 
@@ -129,7 +129,6 @@ def random_ensemble(
 # the families of the JAX package's family_spec that the port does not run
 # yet, with the ROADMAP item that brings each
 _FAMILIES_TO_PORT = {
-    "via_points": "M9, K2d via points",
     "nonuniform": "M9, K2f",
 }
 
@@ -139,7 +138,9 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
     ``canonical_carlike`` is the reference's own footprint (two_circles,
     examples/cfg/carlike_minimum_time.yaml), ``converter_lines`` the wall
     worlds of costmap_converter's line output (6 slots, filled with lines by
-    ``family_ensemble``), ``polygon_footprint`` a 0.5 × 0.3 m rectangular
+    ``family_ensemble``), ``via_points`` the minimum-time objective with 4
+    via points (position weight 2, unordered, filled with corridor points
+    by ``family_ensemble``), ``polygon_footprint`` a 0.5 × 0.3 m rectangular
     body (the reference's ``footprint_model.type: polygon``)."""
     base = config3_carlike_min_time(N=N, obstacle_cap=8)
     if name == "flagship":
@@ -153,6 +154,10 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
         )
     if name == "converter_lines":
         return dataclasses.replace(base, obstacle_cap=6)
+    if name == "via_points":
+        return dataclasses.replace(
+            base, objective="minimum_time_via_points", via_cap=4, via_position_weight=2.0,
+        )
     if name == "polygon_footprint":
         return dataclasses.replace(
             base,
@@ -169,13 +174,17 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
 
 def family_ensemble(name: str, spec: OcpSpec, batch: int, generator: torch.Generator,
                     dtype=torch.float32, device=None) -> Scenario:
-    """Scenario ensemble for a family: ``random_ensemble``'s, and for
+    """Scenario ensemble for a family: ``random_ensemble``'s; for
     ``converter_lines`` wall segments in place of the circle slots (0.8 m
     walls across the corridor between start and goal, tilted up to 0.5 rad,
-    kept clear of both endpoints like the circle sampler). Drawn from
+    kept clear of both endpoints like the circle sampler); for
+    ``via_points`` corridor via points (the reference extracts via points
+    from the global plan every ``global_plan_viapoint_sep`` metres): points
+    at 0.2 to 0.8 of the way, evenly spaced in list order, offset up to
+    ±0.3 m across it, heading along it, all active. Drawn from
     ``generator`` after ``random_ensemble``'s numbers."""
     scen = random_ensemble(spec, batch, generator, dtype=dtype, device=device)
-    if name != "converter_lines":
+    if name not in ("converter_lines", "via_points"):
         return scen
     dev = scen.x0.device
 
@@ -183,12 +192,23 @@ def family_ensemble(name: str, spec: OcpSpec, batch: int, generator: torch.Gener
         u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
         return (lo + (hi - lo) * u).to(dev)
 
-    M = spec.obstacle_cap
     d = scen.xf[:, :2] - scen.x0[:, :2]
     ang = torch.atan2(d[:, 1], d[:, 0])
     dist = torch.linalg.norm(d, dim=-1)
     heading = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
     normal = torch.stack([-torch.sin(ang), torch.cos(ang)], dim=-1)
+    if name == "via_points":
+        if not spec.via_cap:
+            return scen
+        V = spec.via_cap
+        frac = torch.linspace(0.2, 0.8, V, dtype=dtype, device=dev)[None, :]
+        lateral = uniform((batch, V), -0.3, 0.3)
+        pts = (frac[..., None] * dist[:, None, None] * heading[:, None, :]
+               + lateral[..., None] * normal[:, None, :])
+        via = torch.cat([pts, ang[:, None, None].expand(batch, V, 1)], dim=-1)
+        return dataclasses.replace(
+            scen, via_points=via, via_mask=torch.ones((batch, V), dtype=torch.bool, device=dev))
+    M = spec.obstacle_cap
     frac = uniform((batch, M), 0.25, 0.75)
     lateral = uniform((batch, M), -1.0, 1.0)
     wall_ang = uniform((batch, M), -0.5, 0.5)
@@ -212,6 +232,28 @@ def family_ensemble(name: str, spec: OcpSpec, batch: int, generator: torch.Gener
         line_mask=torch.abs(lateral) > 0.45,
     )
     return dataclasses.replace(scen, obstacles=obstacles)
+
+
+def case_ensemble(kind: str, spec: OcpSpec, batch: int, generator: torch.Generator,
+                  dtype=torch.float32, device=None) -> Scenario:
+    """``random_ensemble``'s scenarios for a kernel check beyond the
+    families: ``"random_via"`` adds random via points as the JAX package's
+    fused-kernel tests draw them (``tests/test_fused_solver.py``: poses
+    uniform in [0.2, 2.0]³, each slot active with probability 0.7),
+    ``"8_obstacles"`` puts 8 obstacles in the spec's slots and masks the
+    rest. Drawn from ``generator``, the via points after
+    ``random_ensemble``'s numbers."""
+    if kind == "8_obstacles":
+        return random_ensemble(spec, batch, generator, dtype=dtype, device=device, n_obstacles=8)
+    if kind != "random_via":
+        raise ValueError(f"unknown case ensemble {kind!r}")
+    scen = random_ensemble(spec, batch, generator, dtype=dtype, device=device)
+    dev = scen.x0.device
+    u = torch.rand((batch, spec.via_cap, 3), generator=generator, dtype=dtype,
+                   device=generator.device)
+    m = torch.rand((batch, spec.via_cap), generator=generator, dtype=dtype,
+                   device=generator.device)
+    return dataclasses.replace(scen, via_points=(0.2 + 1.8 * u).to(dev), via_mask=(m > 0.3).to(dev))
 
 
 def mixed_obstacles(batch: int, generator: torch.Generator, mp: int = 0, mc: int = 0,

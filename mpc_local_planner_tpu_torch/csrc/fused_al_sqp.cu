@@ -10,18 +10,22 @@
 // at most 8 vertices, point, circle, line and polygon obstacle slots,
 // static or moving (the Pallas obs_terms with fp_points, fp_segment,
 // fp_polygon and their distance chains),
-// minimum time or the quadratic form (template parameter QUAD; plain or
+// minimum time, minimum time with via points or the quadratic form
+// (template parameter OBJ; via points ordered or not, with an orientation
+// weight, the Pallas via_sweep and via_rows; the quadratic form plain or
 // integral, left-sum or trapezoidal, the hybrid time weight), the terminal
 // quadratic cost, the terminal ball, and a uniform dt that is a decision
 // variable or fixed at dt_ref. K2a (simple car, minimum time, variable dt,
 // no ball, one disc at the pose, static circle slots) is the instantiation
-// <T, SIMPLE_CAR, false, GEO_NONE>. Per scenario it computes:
-//   per SQP iteration: the closed-form forward-difference linearization, the
+// <T, SIMPLE_CAR, OBJ_MIN_TIME, GEO_NONE>. Per scenario it computes:
+//   per SQP iteration: the via points' stage assignment at the current
+//     states (via points only), the closed-form forward-difference linearization, the
 //     terminal P/p, the stage AL gradients and Hessians streamed into the
 //     backward Riccati sweep (2x2 Quu inverse, K/kff tape), the free dtau
 //     stage (variable dt only), the forward rollout, the NaN quarantine, the
 //     dt trust cap, the candidate line search on the AL merit (alpha = 0
-//     candidate last, first of equal merits wins) and the reg update;
+//     candidate last, first of equal merits wins; each candidate's via
+//     cost from its own assignment) and the reg update;
 //   per AL phase: the dual update with conditional rho growth and the
 //     best-feasible snapshot;
 //   at the end: the final selection and the objective.
@@ -55,14 +59,16 @@
 // flagship and config #2) keeps the registers of a kernel without the
 // geometry, GEO_ALL reads every part at run time; a segment or a polygon
 // footprint has instantiations of its own (GEO_FP_LINE, GEO_FP_POLYGON),
-// so its edge loops never land in the disc ones. The polygon's body-frame
+// so its edge loops never land in the disc ones. Via points are a third
+// value of the objective parameter OBJ, so they never land in the other
+// instantiations. The polygon's body-frame
 // vertices stay in the launch's parameters (the constant bank, read in
 // place through a __grid_constant__ parameter); each world edge is formed
 // where it is needed from one cos / sin per pose. Five instantiations per
-// (type, model, objective family): 80 in all.
+// (type, model, objective family): 120 in all.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
-// the step (dxs, dus) and the best-feasible snapshot in local memory (which
-// the hardware interleaves across the threads of a warp), the primal and
+// the step (dxs, dus) and the best-feasible snapshot in the workspace, the
+// via points' stage indices (at most 8) in a per-thread array, the primal and
 // the duals updated in place in the output tensors after a first copy from
 // the inputs. Inputs and outputs keep the wrapper's (B, N, ...) layout, so
 // neighbouring threads read about 6 KB apart and the loads are not
@@ -73,8 +79,15 @@
 // a template over float and double, so that the card can check the
 // algorithm in f64, free of f32 noise.
 //
-// N, M and the number of line-search candidates are runtime arguments up to
-// MAX_N, MAX_M and MAX_ALPHAS; the entry points refuse larger values.
+// N, M and the number of line-search candidates are runtime arguments with
+// no cap, as in the TPU kernel: the step (dxs, dus), the K/kff gain tape
+// and the best-feasible snapshot live in a workspace that the wrapper
+// allocates, workspace_per_lane(N) values per lane, tiled by warp as the
+// hardware interleaves local memory: value i of lane b at
+// ws[((b / 32) * workspace_per_lane(N) + i) * 32 + b % 32], so that a warp's
+// loads and stores coalesce and each thread reaches its values at constant
+// offsets from one pointer; the candidates are a device input of n_alpha
+// values in the working type.
 //
 // Plain C interface for ctypes: each entry point launches on the given
 // stream and returns cudaGetLastError() (0 on success).
@@ -88,11 +101,11 @@ namespace {
 constexpr int NX = 3;
 constexpr int NU = 2;
 constexpr int NA = 6;  // z = [dx (3), du_prev (2), dtau]
-constexpr int MAX_N = 64;
-constexpr int MAX_M = 16;
-constexpr int MAX_ALPHAS = 16;
 constexpr int MAX_V = 16;  // padded polygon vertices (JAX fused_obstacles_supported)
+constexpr int MAX_VIA = 8;  // via points (JAX fused_supported)
+constexpr int TAPE = NU * NA + NU;  // one stage of the gain tape: K (2x6), kff (2)
 constexpr int THREADS = 32;
+constexpr int WARP = 32;  // the workspace's tile: one warp's lanes
 constexpr double BIG = 1.0e6;   // geometry.obstacles.BIG_DISTANCE
 constexpr double EPS = 1.0e-12; // geometry.distances._EPS (safe norm)
 constexpr double PI = 3.141592653589793;
@@ -100,6 +113,15 @@ constexpr double TWO_PI = 6.283185307179586;
 
 // the MODEL template parameter (ops/fused_al_sqp_cuda.py MODEL_IDS)
 enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
+
+// the OBJ template parameter: the objective family
+enum Objective { OBJ_MIN_TIME = 0, OBJ_QUADRATIC = 1, OBJ_VIA = 2 };
+
+// values of the workspace per lane: the step dxs ((N+1) x 3) and dus
+// (N x 2), the gain tape (N x TAPE), the snapshot bxs and bus
+__host__ __device__ constexpr int workspace_per_lane(int N) {
+  return 2 * ((N + 1) * NX + N * NU) + N * TAPE;
+}
 
 // the GEO template parameter: the parts of the geometry an instantiation
 // reads at run time; a part left out is compiled away. The footprint's
@@ -132,7 +154,7 @@ constexpr int MAX_FP_V = 8;  // polygon footprint vertices (JAX fused_supported)
 struct K2aParams {
   int N, M, n_al, n_sqp, n_alpha;
   int xf_fixed[3];
-  int model, quadratic;  // the template parameters of the instantiation
+  int model, quadratic;  // the template parameters of the instantiation (with mv)
   int integral, trapezoidal, has_qf, variable_dt;
   // obstacle slots: Mc point and circle slots, Ml line slots, Mg polygon
   // slots of V padded vertices (M = Mc + Ml + Mg, in that row order); the
@@ -145,7 +167,10 @@ struct K2aParams {
   double lo_u[2], hi_u[2], lo_r[2], hi_r[2];  // rate limits sanitized to +-BIG
   double q[3], r[2], qf[3], hybrid, ball_w[3], ball_r;
   double dt_min, dt_max, dt_lo, dt_hi;
-  double alphas[MAX_ALPHAS];
+  // via points (minimum_time_via_points): mv slots (0 for the other
+  // objectives), ordered or not, position and orientation weights
+  int mv, via_ordered;
+  double via_pw, via_ow;
   double dt_trust_frac, rho_growth, rho_max;
   double reg0, reg_shrink, reg_grow, reg_min, reg_max;
   double viol_decrease_req, tol_eq, tol_ineq;
@@ -165,6 +190,10 @@ struct K2aArgs {
   const int* pnv;                   // (B,Mg) active vertex counts
   const unsigned char* pmask;       // (B,Mg) bool
   const T *ld_i, *lt_i, *mo_i, *mr_i, *mb_i, *md_i, *mball_i, *rho_i;
+  const T* vp;                      // via points (B,mv,3)
+  const unsigned char* vmask;       // (B,mv) bool
+  const T* alphas;                  // the line-search candidates (n_alpha)
+  T* ws;                            // the workspace (B / 32, workspace_per_lane(N), 32)
   // outputs: the working state, updated in place
   T *xs, *us, *dt, *ld, *lt, *mo, *mr, *mb, *md, *mball, *rho;
   T *cost, *eq, *ineq;
@@ -187,6 +216,16 @@ template <typename T> __device__ __forceinline__ T vmin(T a, T b) {
   return (a < b || a != a) ? a : b;
 }
 template <typename T> __device__ __forceinline__ T hinge(T t) { return vmax(T(0), t); }
+
+// a product rounded on its own (never contracted into a fused multiply-add),
+// as PyTorch forms a sum of squares
+template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
+template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
+  return __fmul_rn(a, b);
+}
+template <> __device__ __forceinline__ double mul_rn<double>(double a, double b) {
+  return __dmul_rn(a, b);
+}
 template <typename T> __device__ __forceinline__ T clip(T v, T lo, T hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -222,8 +261,10 @@ struct Seg {
   T ax, ay, bx, by, tax, tay, tbx, tby;
 };
 
-template <typename T, int MODEL, bool QUAD, int GEO>
+template <typename T, int MODEL, int OBJ, int GEO>
 struct Lane {
+  static constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
+  static constexpr bool VIA = OBJ == OBJ_VIA;
   int N, M, Mc, Ml, Mg, V, n_disc;
   bool dynamic, rot;  // rot: a disc sits off the pose (theta-dependent rows)
   T disc_off[2], disc_r[2];
@@ -237,11 +278,33 @@ struct Lane {
   const unsigned char *omask, *lmask, *pmask;
   const int* pnv;
   T *xs, *us, *ld, *lt, *mo, *mr, *mb, *md, *mball;
-  T dt, rho;
-  // the step, the gain tape and the best-feasible snapshot (local memory)
-  T dxs[MAX_N + 1][NX], dus[MAX_N][NU], dtau;
-  T Kt[MAX_N][NU][NA], kft[MAX_N][NU];
-  T bxs[MAX_N + 1][NX], bus[MAX_N][NU];
+  T dt, rho, dtau;
+  // via points: mv slots at vp with mask vm, the stage each claims (vks)
+  int mv;
+  bool via_ordered;
+  T via_pw, via_ow;
+  const T* vp;
+  const unsigned char* vm;
+  mutable int vks[MAX_VIA];
+  // the workspace: this lane's value i at ws[i * WARP]; the step, the gain
+  // tape and the best-feasible snapshot (workspace_per_lane)
+  T* ws;
+
+  __device__ __forceinline__ T& wsv(int i) const { return ws[i * WARP]; }
+  __device__ __forceinline__ T& dxs(int k, int i) const { return wsv(k * NX + i); }
+  __device__ __forceinline__ T& dus(int k, int i) const { return wsv((N + 1) * NX + k * NU + i); }
+  __device__ __forceinline__ T& Kt(int k, int i, int j) const {
+    return wsv((N + 1) * NX + N * NU + k * TAPE + i * NA + j);
+  }
+  __device__ __forceinline__ T& kft(int k, int i) const {
+    return wsv((N + 1) * NX + N * NU + k * TAPE + NU * NA + i);
+  }
+  __device__ __forceinline__ T& bxs(int k, int i) const {
+    return wsv((N + 1) * NX + N * NU + N * TAPE + k * NX + i);
+  }
+  __device__ __forceinline__ T& bus(int k, int i) const {
+    return wsv(2 * (N + 1) * NX + N * NU + N * TAPE + k * NU + i);
+  }
 
   __device__ __forceinline__ void x_at(int k, T x[NX]) const {
     for (int i = 0; i < NX; ++i) x[i] = xs[k * NX + i];
@@ -1024,6 +1087,7 @@ struct Lane {
       if (hybrid > T(0)) hz[5] += hybrid;
     } else {
       hz[5] = T(1);  // minimum time: the stage cost dt has a unit gradient
+      if constexpr (VIA) via_rows(xk, k, hz, Hzz);
     }
 
     // obstacles at x_k with multiplier row k-1 (inactive at k = 0), predicted
@@ -1089,6 +1153,7 @@ struct Lane {
         p[i] += T(2) * qf[i] * gd[i];
       }
     }
+    if constexpr (VIA) via_rows(xN, N, p, P);
     obstacle_block(xN, mo + (N - 1) * M, pose_time(N, dt0), p, P);
     if (QUAD && integral && trapezoidal) {
       // the 1/2 dt lx(x_N) tail, exact, with its dtau cross terms
@@ -1215,9 +1280,9 @@ struct Lane {
       }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        kft[k][i] = kf[i];
+        kft(k, i) = kf[i];
 #pragma unroll
-        for (int j = 0; j < NA; ++j) Kt[k][i][j] = Km[i][j];
+        for (int j = 0; j < NA; ++j) Kt(k, i, j) = Km[i][j];
       }
     }
 
@@ -1231,7 +1296,7 @@ struct Lane {
     T z[NA];
     for (int i = 0; i < NA; ++i) z[i] = T(0);
     z[NA - 1] = dtau;
-    for (int i = 0; i < NX; ++i) dxs[0][i] = T(0);
+    for (int i = 0; i < NX; ++i) dxs(0, i) = T(0);
     for (int k = 0; k < N; ++k) {
       T Fz[NA][NA], Gz[NA][NU], rz[NA];
       transition(k, Fz, Gz, rz);
@@ -1240,8 +1305,8 @@ struct Lane {
       for (int i = 0; i < NU; ++i) {
         T acc = T(0);
 #pragma unroll
-        for (int j = 0; j < NA; ++j) acc += Kt[k][i][j] * z[j];
-        u[i] = acc + kft[k][i];
+        for (int j = 0; j < NA; ++j) acc += Kt(k, i, j) * z[j];
+        u[i] = acc + kft(k, i);
       }
       T zn[NA];
 #pragma unroll
@@ -1254,23 +1319,92 @@ struct Lane {
         for (int l = 0; l < NU; ++l) accu += Gz[i][l] * u[l];
         zn[i] = acc + accu + rz[i];
       }
-      for (int i = 0; i < NU; ++i) dus[k][i] = u[i];
-      for (int i = 0; i < NX; ++i) dxs[k + 1][i] = zn[i];
+      for (int i = 0; i < NU; ++i) dus(k, i) = u[i];
+      for (int i = 0; i < NX; ++i) dxs(k + 1, i) = zn[i];
       for (int i = 0; i < NA; ++i) z[i] = zn[i];
     }
 
     // NaN quarantine: a non-finite step becomes a zero step, whole
     bool ok = isfinite(dtau);
     for (int k = 0; k < N; ++k) {
-      for (int i = 0; i < NX; ++i) ok = ok && isfinite(dxs[k + 1][i]);
-      for (int i = 0; i < NU; ++i) ok = ok && isfinite(dus[k][i]);
+      for (int i = 0; i < NX; ++i) ok = ok && isfinite(dxs(k + 1, i));
+      for (int i = 0; i < NU; ++i) ok = ok && isfinite(dus(k, i));
     }
     if (!ok) {
       dtau = T(0);
       for (int k = 0; k <= N; ++k)
-        for (int i = 0; i < NX; ++i) dxs[k][i] = T(0);
+        for (int i = 0; i < NX; ++i) dxs(k, i) = T(0);
       for (int k = 0; k < N; ++k)
-        for (int i = 0; i < NU; ++i) dus[k][i] = T(0);
+        for (int i = 0; i < NU; ++i) dus(k, i) = T(0);
+    }
+  }
+
+  // ---- via points (the Pallas via_sweep and via_rows)
+
+  // Per via slot, the first minimum over the N+1 states of the squared
+  // position distance (torch.argmin's: a NaN is the least, and wins once),
+  // over the candidate xs + al dxs (CAND) or the current states; ordered,
+  // from the cursor on, which an active slot moves to its stage and a masked
+  // slot leaves. COST: returns the summed attraction of the active slots,
+  // pw d2 + ow wrap(theta - theta_v)^2 (the orientation term where ow > 0);
+  // else stores each slot's stage in vks.
+  template <bool COST, bool CAND>
+  __device__ T via_sweep(T al) const {
+    T acc = T(0);
+    int cursor = 0;
+    for (int j = 0; j < mv; ++j) {
+      const T vx = vp[3 * j], vy = vp[3 * j + 1];
+      const int k0 = via_ordered ? cursor : 0;
+      T bd = T(INFINITY);
+      int bk = k0;
+      for (int k = k0; k <= N; ++k) {
+        T px = xs[k * NX], py = xs[k * NX + 1];
+        if (CAND) {
+          px += al * dxs(k, 0);
+          py += al * dxs(k, 1);
+        }
+        const T ex = px - vx, ey = py - vy;
+        const T d2 = mul_rn(ex, ex) + mul_rn(ey, ey);
+        if (d2 < bd || (d2 != d2 && bd == bd)) {
+          bd = d2;
+          bk = k;
+        }
+      }
+      const bool on = vm[j] != 0;
+      if (via_ordered && on) cursor = bk;
+      if (!COST) {
+        vks[j] = bk;
+      } else if (on) {
+        T c = via_pw * bd;
+        if (via_ow > T(0)) {
+          T th = xs[bk * NX + 2];
+          if (CAND) th = wrap(th + al * dxs(bk, 2));
+          const T e = wrap(th - vp[3 * j + 2]);
+          c += via_ow * e * e;
+        }
+        acc += c;
+      }
+    }
+    return acc;
+  }
+
+  // the exact gradient and diagonal Hessian rows of the via attraction at
+  // state k (at x), added in place: each active slot that claims stage k
+  // adds 2 pw (x - v) and 2 pw on x and y, and where ow > 0, 2 ow
+  // wrap(theta - theta_v) and 2 ow on theta
+  __device__ __forceinline__ void via_rows(const T x[NX], int k, T h[NA], T H[NA][NA]) const {
+    for (int j = 0; j < mv; ++j) {
+      if (vks[j] != k || !vm[j]) continue;
+      const T cp = T(2) * via_pw;
+      h[0] += cp * (x[0] - vp[3 * j]);
+      h[1] += cp * (x[1] - vp[3 * j + 1]);
+      H[0][0] += cp;
+      H[1][1] += cp;
+      if (via_ow > T(0)) {
+        const T co = T(2) * via_ow;
+        h[2] += co * wrap(x[2] - vp[3 * j + 2]);
+        H[2][2] += co;
+      }
     }
   }
 
@@ -1281,16 +1415,16 @@ struct Lane {
     T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = QUAD ? T(0) : T(N) * dtv;
     T xk[NX], uk[NU], up[NU];
     auto cand_x = [&](int k, T x[NX]) {
-      x[0] = xs[k * NX + 0] + al * dxs[k][0];
-      x[1] = xs[k * NX + 1] + al * dxs[k][1];
-      x[2] = wrap(xs[k * NX + 2] + al * dxs[k][2]);
+      x[0] = xs[k * NX + 0] + al * dxs(k, 0);
+      x[1] = xs[k * NX + 1] + al * dxs(k, 1);
+      x[2] = wrap(xs[k * NX + 2] + al * dxs(k, 2));
     };
     cand_x(0, xk);
     for (int i = 0; i < NU; ++i) up[i] = u_prev[i];
     for (int k = 0; k < N; ++k) {
       T xk1[NX], c[NX];
       cand_x(k + 1, xk1);
-      for (int i = 0; i < NU; ++i) uk[i] = us[k * NU + i] + al * dus[k][i];
+      for (int i = 0; i < NU; ++i) uk[i] = us[k * NU + i] + al * dus(k, i);
       defect_value(xk, uk, xk1, dtv, c);
       for (int i = 0; i < NX; ++i) {
         eq_lin += ld[k * NX + i] * c[i];
@@ -1329,6 +1463,8 @@ struct Lane {
       }
     }
     cost += terminal_cost(xk, dtv);
+    // the via attraction, from the candidate's own assignment (funcs.cost)
+    if constexpr (VIA) cost += via_sweep<true, true>(al);
     // dt box (variable dt only), and the terminal ball's row (a disabled
     // ball keeps the constant row g = -BIG, as the port's merit does)
     if (vdt) {
@@ -1345,13 +1481,31 @@ struct Lane {
   }
 };
 
-template <typename T, int MODEL, bool QUAD, int GEO>
-__global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
-                                                      const __grid_constant__ K2aParams prm) {
+// The blocks per SM that ptxas budgets registers for (__launch_bounds__):
+// 16, 128 registers, for the float minimum-time launches of the car models
+// and the bicycle with one disc at the pose and static point and circle
+// slots (K2a and its models: as many as with the per-thread tapes, with no
+// spill); 12, 168 registers, for the other float ones (with the workspace
+// the quadratic form's and the unicycle's GEO_NONE spill at 128, and the
+// geometry's spill under ptxas' own choice, none at 168); double is left to
+// ptxas. One warp per SM runs at the batches of the fleet cycle, so the
+// count costs no occupancy there.
+template <typename T, int MODEL, int OBJ, int GEO>
+struct MinBlocks {
+  static constexpr int value =
+      sizeof(T) == 8 ? 1
+                     : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE ? 16 : 12);
+};
+
+template <typename T, int MODEL, int OBJ, int GEO>
+__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value))
+    k2a_kernel(const K2aArgs<T> a, const __grid_constant__ K2aParams prm) {
+  constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
+  constexpr bool VIA = OBJ == OBJ_VIA;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
-  Lane<T, MODEL, QUAD, GEO> L;
+  Lane<T, MODEL, OBJ, GEO> L;
   L.N = N;
   L.M = M;
   L.Mc = prm.Mc;
@@ -1419,6 +1573,15 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
   L.mb = a.mb + bb * N * 4;
   L.md = a.md + bb * 2;
   L.mball = a.mball + bb;
+  L.ws = a.ws + (bb / WARP) * workspace_per_lane(N) * WARP + bb % WARP;
+  if constexpr (VIA) {
+    L.mv = prm.mv;
+    L.via_ordered = prm.via_ordered != 0;
+    L.via_pw = T(prm.via_pw);
+    L.via_ow = T(prm.via_ow);
+    L.vp = a.vp + bb * prm.mv * 3;
+    L.vm = a.vmask + bb * prm.mv;
+  }
 
   // ---- state init: the inputs become the working state ---------------- //
   for (int i = 0; i < (N + 1) * NX; ++i) L.xs[i] = a.xs_i[bb * (N + 1) * NX + i];
@@ -1445,6 +1608,9 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
   for (int phase = 0; phase < prm.n_al; ++phase) {
     T reg = reg0;  // reg restarts each phase: the dual update reshapes the merit
     for (int it = 0; it < prm.n_sqp; ++it) {
+      // the via points' stage assignment at the current states: stage data
+      // of this iteration's derivatives (al_sqp._via_weights)
+      if constexpr (VIA) L.template via_sweep<false, false>(T(0));
       L.kkt_step(reg);
 
       // ---- line search: dt trust cap, candidates in order, alpha = 0 last
@@ -1455,7 +1621,7 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
       T best_m = inf, best_a = T(0);
       bool accepted = false;
       for (int c = 0; c < prm.n_alpha; ++c) {
-        const T al = T(prm.alphas[c]) * cap;
+        const T al = a.alphas[c] * cap;
         T m = L.merit(al);
         if (!isfinite(m)) m = inf;
         if (m < best_m) {
@@ -1473,12 +1639,12 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
 
       // ---- apply the winning candidate; reg shrinks or grows
       for (int k = 0; k <= N; ++k) {
-        L.xs[k * NX + 0] += best_a * L.dxs[k][0];
-        L.xs[k * NX + 1] += best_a * L.dxs[k][1];
-        L.xs[k * NX + 2] = wrap(L.xs[k * NX + 2] + best_a * L.dxs[k][2]);
+        L.xs[k * NX + 0] += best_a * L.dxs(k, 0);
+        L.xs[k * NX + 1] += best_a * L.dxs(k, 1);
+        L.xs[k * NX + 2] = wrap(L.xs[k * NX + 2] + best_a * L.dxs(k, 2));
       }
       for (int k = 0; k < N; ++k)
-        for (int i = 0; i < NU; ++i) L.us[k * NU + i] += best_a * L.dus[k][i];
+        for (int i = 0; i < NU; ++i) L.us[k * NU + i] += best_a * L.dus(k, i);
       L.dt = clip(L.dt + best_a * L.dtau, L.dt_lo, L.dt_hi);
       reg = accepted ? vmax(reg * T(prm.reg_shrink), T(prm.reg_min))
                      : vmin(vmax(reg, reg0) * T(prm.reg_grow), T(prm.reg_max));
@@ -1556,9 +1722,9 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
     // ---- best-feasible snapshot ---------------------------------------- //
     if (eq_m < tol_eq && in_m < tol_ineq) {
       for (int k = 0; k <= N; ++k)
-        for (int i = 0; i < NX; ++i) L.bxs[k][i] = L.xs[k * NX + i];
+        for (int i = 0; i < NX; ++i) L.bxs(k, i) = L.xs[k * NX + i];
       for (int k = 0; k < N; ++k)
-        for (int i = 0; i < NU; ++i) L.bus[k][i] = L.us[k * NU + i];
+        for (int i = 0; i < NU; ++i) L.bus(k, i) = L.us[k * NU + i];
       best_dt = L.dt;
       best_eq = eq_m;
       best_in = in_m;
@@ -1571,9 +1737,9 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
   const bool use_best = found && !final_ok;
   if (use_best) {
     for (int k = 0; k <= N; ++k)
-      for (int i = 0; i < NX; ++i) L.xs[k * NX + i] = L.bxs[k][i];
+      for (int i = 0; i < NX; ++i) L.xs[k * NX + i] = L.bxs(k, i);
     for (int k = 0; k < N; ++k)
-      for (int i = 0; i < NU; ++i) L.us[k * NU + i] = L.bus[k][i];
+      for (int i = 0; i < NU; ++i) L.us[k * NU + i] = L.bus(k, i);
   }
   const T dt_fin = use_best ? best_dt : L.dt;
   T cost = T(0);
@@ -1586,6 +1752,7 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
     }
   } else {
     cost = T(N) * dt_fin;
+    if constexpr (VIA) cost += L.template via_sweep<true, false>(T(0));  // the selected states
   }
   T xN_fin[NX];
   L.x_at(N, xN_fin);
@@ -1597,35 +1764,38 @@ __global__ void __launch_bounds__(THREADS) k2a_kernel(const K2aArgs<T> a,
   a.conv[b] = (final_ok || found) ? 1 : 0;
 }
 
-template <typename T, int MODEL, bool QUAD>
+template <typename T, int MODEL, int OBJ>
 void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   const int blocks = (a.B + THREADS - 1) / THREADS;
   const bool plain_slots = prm.Ml == 0 && prm.Mg == 0 && prm.dynamic == 0;
   if (prm.fp_kind == FP_LINE)
-    k2a_kernel<T, MODEL, QUAD, GEO_FP_LINE | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a, prm);
   else if (prm.fp_kind == FP_POLYGON && plain_slots)
-    k2a_kernel<T, MODEL, QUAD, GEO_FP_POLYGON><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON><<<blocks, THREADS, 0, stream>>>(a, prm);
   else if (prm.fp_kind == FP_POLYGON)
-    k2a_kernel<T, MODEL, QUAD, GEO_FP_POLYGON | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a,
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a,
                                                                                          prm);
   else if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
-    k2a_kernel<T, MODEL, QUAD, GEO_NONE><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_NONE><<<blocks, THREADS, 0, stream>>>(a, prm);
   else
-    k2a_kernel<T, MODEL, QUAD, GEO_ALL><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_ALL><<<blocks, THREADS, 0, stream>>>(a, prm);
 }
 
 template <typename T, int MODEL>
 void launch_model(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   if (prm.quadratic)
-    launch_as<T, MODEL, true>(a, prm, stream);
+    launch_as<T, MODEL, OBJ_QUADRATIC>(a, prm, stream);
+  else if (prm.mv > 0)
+    launch_as<T, MODEL, OBJ_VIA>(a, prm, stream);
   else
-    launch_as<T, MODEL, false>(a, prm, stream);
+    launch_as<T, MODEL, OBJ_MIN_TIME>(a, prm, stream);
 }
 
 template <typename T>
-int launch(const K2aParams* prm, const void* const* in, void* const* out, int B, void* stream) {
-  if (B <= 0 || prm->N <= 0 || prm->N > MAX_N || prm->M < 0 || prm->M > MAX_M ||
-      prm->n_alpha <= 0 || prm->n_alpha > MAX_ALPHAS || prm->n_al <= 0 || prm->n_sqp <= 0 ||
+int launch(const K2aParams* prm, const void* const* in, void* const* out, void* ws, int B,
+           void* stream) {
+  if (B <= 0 || prm->N <= 0 || prm->M < 0 || prm->n_alpha <= 0 || prm->n_al <= 0 ||
+      prm->n_sqp <= 0 || prm->mv < 0 || prm->mv > MAX_VIA || (prm->quadratic && prm->mv > 0) ||
       prm->model < UNICYCLE || prm->model > BICYCLE || prm->Mc < 0 || prm->Ml < 0 ||
       prm->Mg < 0 || prm->Mc + prm->Ml + prm->Mg != prm->M || prm->V > MAX_V ||
       (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2 ||
@@ -1658,6 +1828,10 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, int B,
   a.md_i = static_cast<const T*>(in[21]);
   a.mball_i = static_cast<const T*>(in[22]);
   a.rho_i = static_cast<const T*>(in[23]);
+  a.vp = static_cast<const T*>(in[24]);
+  a.vmask = static_cast<const unsigned char*>(in[25]);
+  a.alphas = static_cast<const T*>(in[26]);
+  a.ws = static_cast<T*>(ws);
   a.xs = static_cast<T*>(out[0]);
   a.us = static_cast<T*>(out[1]);
   a.dt = static_cast<T*>(out[2]);
@@ -1688,27 +1862,29 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, int B,
 
 extern "C" {
 
-int k2a_max_n() { return MAX_N; }
-int k2a_max_m() { return MAX_M; }
-int k2a_max_alphas() { return MAX_ALPHAS; }
 int k2a_max_v() { return MAX_V; }
 int k2a_max_fp_v() { return MAX_FP_V; }
+int k2a_max_via() { return MAX_VIA; }
+int k2a_workspace_per_lane(int N) { return workspace_per_lane(N); }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 
 // in: xs, us, dt, xf, u_prev, point and circle centers, radii, mask,
 //     velocities, line endpoints, velocities, mask, polygon vertices, vertex
 //     counts (int32), velocities, mask, lam_def, lam_term, mu_obs, mu_rate,
-//     mu_box, mu_dt, mu_ball, rho (24 pointers)
+//     mu_box, mu_dt, mu_ball, rho, via points, via mask, the line-search
+//     candidates (27 pointers)
 // out: xs, us, dt, lam_def, lam_term, mu_obs, mu_rate, mu_box, mu_dt,
 //      mu_ball, rho, cost, eq_norm, ineq_viol, converged (15 pointers)
-int k2a_fused_solve_f32(const K2aParams* prm, const void* const* in, void* const* out, int B,
-                        void* stream) {
-  return launch<float>(prm, in, out, B, stream);
+// ws: the workspace, ceil(B / 32) * workspace_per_lane(N) * 32 values of the
+//     working type
+int k2a_fused_solve_f32(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
+                        int B, void* stream) {
+  return launch<float>(prm, in, out, ws, B, stream);
 }
 
-int k2a_fused_solve_f64(const K2aParams* prm, const void* const* in, void* const* out, int B,
-                        void* stream) {
-  return launch<double>(prm, in, out, B, stream);
+int k2a_fused_solve_f64(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
+                        int B, void* stream) {
+  return launch<double>(prm, in, out, ws, B, stream);
 }
 
 const char* k2a_error_string(int code) {

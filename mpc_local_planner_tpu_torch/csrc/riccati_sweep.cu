@@ -17,8 +17,13 @@
 // 3.35 TB/s. The arithmetic (~10 kFLOP per scenario) is negligible.
 //
 // Design: one thread per scenario, the simplest layout that is right. P and
-// p live in registers, the K/kff tape (N*14 values) in local memory, which
-// the hardware interleaves across threads. Inputs keep the B,N,... layout
+// p live in registers, the K/kff tape (N*14 values) in a workspace that the
+// wrapper allocates, tiled by warp as the hardware interleaves local
+// memory: [B/32][N][14][32], stage-major within a warp's tile with the lane
+// index fastest, so that a warp's loads and stores of the tape coalesce and
+// each thread reaches its entries at constant offsets from one pointer; N
+// has no cap, as in the TPU kernel (whose VMEM tape is sized by N). Inputs
+// keep the B,N,... layout
 // of the wrapper's tensors, so neighbouring threads read 13.8 KB apart and
 // the loads are not coalesced: the kernel is far from its bound, and a
 // stage-major or warp-cooperative layout is the next design. The kernel is
@@ -36,8 +41,9 @@ namespace {
 constexpr int NA = 6;
 constexpr int NU = 2;
 constexpr int NX = 3;
-constexpr int MAX_N = 64;
+constexpr int TAPE = NU * NA + NU;  // one stage of the tape: K (2x6), kff (2)
 constexpr int THREADS = 128;
+constexpr int WARP = 32;  // the tape's tile: one warp's lanes
 
 template <typename T> __device__ __forceinline__ T tiny();
 template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
@@ -50,7 +56,7 @@ __global__ void __launch_bounds__(THREADS) riccati_sweep_kernel(
     const T* __restrict__ hz, const T* __restrict__ hu, const T* __restrict__ PN,
     const T* __restrict__ pN, const T* __restrict__ reg,
     T* __restrict__ dxs, T* __restrict__ dus, T* __restrict__ dtau_o,
-    T* __restrict__ dv_o, int B, int N, int free_tau) {
+    T* __restrict__ dv_o, T* __restrict__ tape, int B, int N, int free_tau) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t bN = static_cast<size_t>(b) * N;
@@ -71,8 +77,10 @@ __global__ void __launch_bounds__(THREADS) riccati_sweep_kernel(
     for (int j = 0; j < NA; ++j) P[i][j] = PN[static_cast<size_t>(b) * NA * NA + i * NA + j];
   }
   const T regv = reg[b];
-  T K_tape[MAX_N][NU][NA];
-  T kff_tape[MAX_N][NU];
+  // this lane's tape: entry e of stage k at tape_b[(k * TAPE + e) * WARP]
+  T* tape_b = tape + static_cast<size_t>(b / WARP) * N * TAPE * WARP + b % WARP;
+  auto K_at = [&](int k, int i, int j) -> T& { return tape_b[(k * TAPE + i * NA + j) * WARP]; };
+  auto kff_at = [&](int k, int i) -> T& { return tape_b[(k * TAPE + NU * NA + i) * WARP]; };
   T dv = T(0);
 
   // ---- backward sweep ------------------------------------------------ //
@@ -170,9 +178,9 @@ __global__ void __launch_bounds__(THREADS) riccati_sweep_kernel(
     }
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
-      kff_tape[k][i] = kf[i];
+      kff_at(k, i) = kf[i];
 #pragma unroll
-      for (int j = 0; j < NA; ++j) K_tape[k][i][j] = Km[i][j];
+      for (int j = 0; j < NA; ++j) K_at(k, i, j) = Km[i][j];
     }
     dv -= T(0.5) * (qu[0] * kf[0] + qu[1] * kf[1]);
   }
@@ -204,8 +212,8 @@ __global__ void __launch_bounds__(THREADS) riccati_sweep_kernel(
     for (int i = 0; i < NU; ++i) {
       T acc = T(0);
 #pragma unroll
-      for (int j = 0; j < NA; ++j) acc += K_tape[k][i][j] * z[j];
-      u[i] = acc + kff_tape[k][i];
+      for (int j = 0; j < NA; ++j) acc += K_at(k, i, j) * z[j];
+      u[i] = acc + kff_at(k, i);
     }
     T zn[NA];
 #pragma unroll
@@ -230,12 +238,12 @@ __global__ void __launch_bounds__(THREADS) riccati_sweep_kernel(
 template <typename T>
 int launch(const T* Fz, const T* Gz, const T* rz, const T* Hzz, const T* Hzu,
            const T* Huu, const T* hz, const T* hu, const T* PN, const T* pN,
-           const T* reg, T* dxs, T* dus, T* dtau, T* dv, int B, int N,
+           const T* reg, T* dxs, T* dus, T* dtau, T* dv, T* tape, int B, int N,
            int free_tau, void* stream) {
-  if (B <= 0 || N <= 0 || N > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + THREADS - 1) / THREADS;
   riccati_sweep_kernel<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN, reg, dxs, dus, dtau, dv, B, N,
+      Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN, reg, dxs, dus, dtau, dv, tape, B, N,
       free_tau);
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,26 +252,27 @@ int launch(const T* Fz, const T* Gz, const T* rz, const T* Hzz, const T* Hzu,
 
 extern "C" {
 
-int riccati_sweep_max_n() { return MAX_N; }
+// values of the workspace (the gain tape) per lane and stage
+int riccati_sweep_tape_per_stage() { return TAPE; }
 
 int riccati_sweep_f32(const float* Fz, const float* Gz, const float* rz,
                       const float* Hzz, const float* Hzu, const float* Huu,
                       const float* hz, const float* hu, const float* PN,
                       const float* pN, const float* reg, float* dxs, float* dus,
-                      float* dtau, float* dv, int B, int N, int free_tau,
+                      float* dtau, float* dv, float* tape, int B, int N, int free_tau,
                       void* stream) {
   return launch<float>(Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN, reg, dxs, dus,
-                       dtau, dv, B, N, free_tau, stream);
+                       dtau, dv, tape, B, N, free_tau, stream);
 }
 
 int riccati_sweep_f64(const double* Fz, const double* Gz, const double* rz,
                       const double* Hzz, const double* Hzu, const double* Huu,
                       const double* hz, const double* hu, const double* PN,
                       const double* pN, const double* reg, double* dxs,
-                      double* dus, double* dtau, double* dv, int B, int N,
-                      int free_tau, void* stream) {
+                      double* dus, double* dtau, double* dv, double* tape, int B,
+                      int N, int free_tau, void* stream) {
   return launch<double>(Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN, reg, dxs, dus,
-                        dtau, dv, B, N, free_tau, stream);
+                        dtau, dv, tape, B, N, free_tau, stream);
 }
 
 const char* riccati_sweep_error_string(int code) {

@@ -37,13 +37,17 @@ def pin_matmul_precision() -> None:
 
 @functools.lru_cache(maxsize=512)
 def _const_cached(values, dtype, device):
-    return torch.tensor(values, dtype=dtype, device=device)
+    # made outside any torch.func transform: a tensor made under grad is
+    # wrapped at that transform's level, and the cached one would escape it
+    with torch._C._DisableFuncTorch():
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def const(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """A small constant tensor on ``like``'s device (cached: a host-to-device
     copy from pageable memory synchronizes the stream, so the solve loop must
-    not make one per call)."""
+    not make one per call), a plain tensor even when first asked for under
+    a ``torch.func`` transform."""
     if isinstance(values, torch.Tensor):
         values = values.tolist()
     return _const_cached(

@@ -5,10 +5,11 @@
 unicycle, both Ackermann cars and the kinematic bicycle with forward
 differences, every footprint of the JAX package (point, disc, line, two
 discs, polygon), point, circle, line and polygon obstacle slots, static or
-dynamic (constant velocity), minimum time or the quadratic form (plain or
-integral, left-sum or trapezoidal, with the hybrid time weight), the
-terminal quadratic cost and the terminal ball, on a uniform grid with a
-fixed or variable dt. It raises ``NotImplementedError`` naming the ROADMAP
+dynamic (constant velocity), minimum time, minimum time with via points
+(ordered or unordered, with an optional orientation weight) or the
+quadratic form (plain or integral, left-sum or trapezoidal, with the hybrid
+time weight), the terminal quadratic cost and the terminal ball, on a
+uniform grid with a fixed or variable dt. It raises ``NotImplementedError`` naming the ROADMAP
 item for anything else.
 """
 
@@ -35,6 +36,9 @@ MODELS = (
     SimpleCarFrontWheelDrivingModel,
     KinematicBicycleModelVelocityInput,
 )
+
+
+OBJECTIVES = ("quadratic_form", "minimum_time", "minimum_time_via_points")
 
 
 def _not_ported(what: str, item: str = "M9"):
@@ -82,16 +86,14 @@ class OcpSpec:
             _not_ported(f"footprint {type(self.footprint).__name__}")
         if self.collocation != "forward_differences":
             _not_ported(f"collocation {self.collocation!r}", "M9, K2b and K2e")
-        if self.objective not in ("minimum_time", "quadratic_form"):
-            _not_ported(f"objective {self.objective!r}", "M9, K2d")
+        if self.objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {self.objective!r}")
         if self.cost_integration not in ("left_sum", "trapezoidal"):
             raise ValueError(f"unknown cost_integration {self.cost_integration!r}")
         if self.hybrid_time_weight < 0.0:
             raise ValueError("hybrid_time_weight must be >= 0")
         if self.nonuniform_dt:
             _not_ported("the non-uniform per-stage dt grid", "M9, K2f")
-        if self.via_cap:
-            _not_ported("via points", "M9, K2d")
 
     @property
     def nx(self) -> int:

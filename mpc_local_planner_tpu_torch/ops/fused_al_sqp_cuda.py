@@ -10,18 +10,23 @@ polygon footprint (at most 8 vertices), point, circle, line and polygon
 obstacle slots, static or dynamic (runtime values of the launch; the kernel
 compiles them away for a launch with one disc at the pose and static point
 and circle slots, and has instantiations of its own for a segment or a
-polygon footprint), minimum time or the quadratic form (template parameter;
-plain or integral, left-sum or trapezoidal, hybrid time weight), the
-terminal quadratic cost and the terminal ball, on a uniform grid with a
-variable or fixed dt. K2a, the first specialization ported (simple car,
-minimum time, variable dt), is one instantiation. Still to port: the
-midpoint and Crank–Nicolson rules (K2b), via points (K2d), shooting (K2e)
-and the non-uniform grid (K2f). The
+polygon footprint), minimum time, minimum time with at most 8 via points
+(ordered or not, with an orientation weight) or the quadratic form
+(template parameter; plain or integral, left-sum or trapezoidal, hybrid
+time weight), the terminal quadratic cost and the terminal ball, on a
+uniform grid of any length with a variable or fixed dt, any number of
+obstacle slots and of line-search candidates. K2a, the first
+specialization ported (simple car, minimum time, variable dt), is one
+instantiation. Still to port: the midpoint and Crank–Nicolson rules (K2b),
+shooting (K2e) and the non-uniform grid (K2f). The
 source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
 n_al × n_sqp schedule to its end — closed-form derivatives streamed into
 the Riccati sweep, the rollout, the NaN quarantine, the candidate line
 search, the dual updates, the best-feasible snapshot and the final
-selection — for float and double, in the port's (B, N, ...) layout.
+selection — for float and double, in the port's (B, N, ...) layout. The
+step, the gain tape and the snapshot live in a workspace the wrapper
+allocates, tiled by warp with the lane index fastest; the candidates are a
+device input.
 
 What bounds it on an H100 is arithmetic: the flagship solve needs about
 0.79 MFLOP per scenario at the warm 3×4 budget (``k2a_flops``, the Riccati
@@ -50,7 +55,7 @@ import dataclasses
 
 import torch
 
-from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, se2_boxminus
+from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, angle_diff, se2_boxminus
 from mpc_local_planner_tpu_torch.core.tree import tree_map
 from mpc_local_planner_tpu_torch.geometry.distances import _EPS, _polygon_edges
 from mpc_local_planner_tpu_torch.device import const
@@ -72,7 +77,9 @@ from mpc_local_planner_tpu_torch.solvers.al_sqp import (
     SolveResult,
     _hinge,
     _stage_obstacles,
+    _via_weights,
     dt_clip,
+    has_via,
     solve,
 )
 from mpc_local_planner_tpu_torch.solvers.riccati import build_augmented_transition
@@ -84,10 +91,11 @@ from mpc_local_planner_tpu_torch.systems.models import (
 )
 
 SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
-# compile-time maxima of the kernel (csrc/fused_al_sqp.cu): stages, obstacle
-# slots, line-search candidates, padded polygon vertices, polygon footprint
-# vertices
-MAX_N, MAX_M, MAX_ALPHAS, MAX_V, MAX_FP_V = 64, 16, 16, 16, 8
+# compile-time maxima of the kernel (csrc/fused_al_sqp.cu): padded polygon
+# vertices, polygon footprint vertices and via points (JAX
+# ``fused_obstacles_supported`` and ``fused_supported``)
+MAX_V, MAX_FP_V, MAX_VIA = 16, 8, 8
+WARP = 32  # the workspace's tile (csrc/fused_al_sqp.cu)
 
 _lib = None
 
@@ -123,12 +131,10 @@ def _spec_scope_error(spec):
         return f"a polygon footprint of {len(fp.vertices)} vertices (at most {MAX_FP_V})"
     if spec.collocation != "forward_differences":
         return f"collocation {spec.collocation!r} (K2b, K2e)"
-    if spec.objective not in ("minimum_time", "quadratic_form") or spec.via_cap:
-        return f"objective {spec.objective!r} with via points (K2d)"
+    if spec.via_cap > MAX_VIA:
+        return f"via_cap={spec.via_cap} (at most {MAX_VIA})"
     if spec.nonuniform_dt:
         return "the non-uniform per-stage dt grid (K2f)"
-    if spec.N > MAX_N or spec.obstacle_cap > MAX_M:
-        return f"N={spec.N}, M={spec.obstacle_cap} (at most {MAX_N} and {MAX_M})"
     return None
 
 
@@ -583,6 +589,23 @@ def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu):
         hz[..., 5] += spec.hybrid_time_weight
 
 
+def via_rows(spec, x, via_pts, via_w, h, H):
+    """The via attraction's exact gradient and (diagonal, PSD) Hessian on the
+    pose x (..., 3), added in place: 2·pw·Σ_j w_j (x − v_j) and 2·pw·Σ_j w_j
+    on x and y, and where the orientation weight ow > 0, 2·ow·Σ_j w_j
+    wrap(θ − θ_j) and 2·ow·Σ_j w_j on θ (the wrap's derivative is 1).
+    ``via_pts`` (..., Mv, 3) and the assignment weights ``via_w`` (..., Mv)
+    broadcast against x's leading dims (Pallas ``via_rows``)."""
+    pw, ow = spec.via_position_weight, spec.via_orientation_weight
+    for i in range(2):
+        h[..., i] += torch.sum(2.0 * pw * via_w * (x[..., i, None] - via_pts[..., i]), dim=-1)
+        H[..., i, i] += torch.sum(2.0 * pw * via_w, dim=-1)
+    if ow > 0.0:
+        dth = angle_diff(x[..., 2, None], via_pts[..., 2])
+        h[..., 2] += torch.sum(2.0 * ow * via_w * dth, dim=-1)
+        H[..., 2, 2] += torch.sum(2.0 * ow * via_w, dim=-1)
+
+
 def _obstacle_block(g, grad, t, on, rho, h, H):
     """The obstacle rows' part of an AL gradient and Gauss-Newton Hessian,
     added in place on the pose: a = max(0, t)·on, crisp weight ρ·on·[t > 0],
@@ -599,14 +622,15 @@ def _obstacle_block(g, grad, t, on, rho, h, H):
 
 
 def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
-                    xref=None, iw=None):
+                    xref=None, iw=None, via=None):
     """Exact AL gradient (hz (..., 6), hu (..., 2)) and hybrid Gauss-Newton
     Hessian blocks (Hzz, Hzu, Huu) of the stage merit over z = [x, u_prev,
     dt] and v = u. ``mu_obs`` (..., M) is the stage's multiplier row, ``on``
     zeroes the obstacle block at k = 0, ``obs`` the stage's obstacle set
     (dynamic obstacles predicted to its time); the quadratic form reads
-    ``xref`` (..., 3) and the integration weight ``iw``; all leading dims are
-    batch dims."""
+    ``xref`` (..., 3) and the integration weight ``iw``; the via attraction
+    ``via`` = (via points, assignment weights), as ``via_rows`` takes them;
+    all leading dims are batch dims."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     hz = torch.zeros(lead + (6,), **opts)
     hu = torch.zeros(lead + (2,), **opts)
@@ -617,6 +641,8 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
         _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu)
     else:
         hz[..., 5] = 1.0  # minimum time: the stage cost dt
+        if via is not None:
+            via_rows(spec, xk, *via, hz, Hzz)
 
     # obstacles at x_k: crisp Gauss-Newton weight ρ·[μ + ρg > 0] on the pose
     g, grad = obstacle_rows(spec, xk, obs)
@@ -651,13 +677,14 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
     return hz, hu, Hzz, Hzu, Huu
 
 
-def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=None):
+def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=None, via=None):
     """PN (..., 6, 6) and pN (..., 6) of the terminal merit: the masked
-    terminal equality, Qf, the obstacle Gauss-Newton block on the pose at
-    x_N (multiplier row N−1, ``obs`` predicted to its time), the ½·dt·lx(x_N)
-    tail of the trapezoidal quadratic form, the terminal ball (exact PSD
-    Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the 0.5 tie subgradient) and the dt
-    box on a variable dt."""
+    terminal equality, Qf, the via attraction of x_N (``via`` as
+    ``stage_grad_hess`` takes it), the obstacle Gauss-Newton block on the
+    pose at x_N (multiplier row N−1, ``obs`` predicted to its time), the
+    ½·dt·lx(x_N) tail of the trapezoidal quadratic form, the terminal ball
+    (exact PSD Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the 0.5 tie subgradient)
+    and the dt box on a variable dt."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     P = torch.zeros(lead + (6, 6), **opts)
     p = torch.zeros(lead + (6,), **opts)
@@ -670,6 +697,8 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=Non
         for i, qf in enumerate(spec.qf_diag):
             P[..., i, i] += 2.0 * qf
             p[..., i] += 2.0 * qf * gd[..., i]
+    if via is not None:
+        via_rows(spec, xN, *via, p, P)
     g, grad = obstacle_rows(spec, xN, obs)
     r = rho[..., None]
     _obstacle_block(g, grad, mu_obs + r * g, 1.0, r, p, P)
@@ -728,14 +757,20 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k):
     iw = torch.ones((N,), dtype=dt.dtype, device=dt.device)
     if trapezoidal(spec):
         iw[0] = 0.5
+    via_s = via_t = None
+    if has_via(spec):
+        # the stage assignment at the current iterate (Pallas via_sweep)
+        w = _via_weights(spec, xs, scenario)  # (B, N+1, Mv)
+        via_s = (scenario.via_points[:, None], w[:, :N])
+        via_t = (scenario.via_points, w[:, N])
     hz, hu, Hzz, Hzu, Huu = stage_grad_hess(
         spec, xs[:, :-1], us, up, dt_b, mu_obs, on, duals.mu_rate, duals.mu_box,
         duals.rho[:, None].expand(B, N), tree_map(lambda a: a[:, :N], obs_k),
-        scenario.xf[:, None], iw,
+        scenario.xf[:, None], iw, via_s,
     )
     PN, pN = terminal_Pp(
         spec, xs[:, N], dt, scenario.xf, duals.lam_term, duals.mu_obs[:, N - 1],
-        duals.mu_dt, duals.rho, tree_map(lambda a: a[:, N], obs_k), duals.mu_ball,
+        duals.mu_dt, duals.rho, tree_map(lambda a: a[:, N], obs_k), duals.mu_ball, via_t,
     )
     return tuple(a.contiguous() for a in (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN))
 
@@ -745,13 +780,11 @@ def _check_scope(spec, settings, scenario):
     if reason is None and not fused_obstacles_supported(scenario):
         reason = f"polygons of {scenario.obstacles.polygons.shape[-2]} padded vertices " \
                  f"(at most {MAX_V})"
-    if reason is None and len(settings.alphas) > MAX_ALPHAS:
-        reason = f"{len(settings.alphas)} line-search candidates (at most {MAX_ALPHAS})"
     if reason is not None:
         raise NotImplementedError(
             f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
-            "midpoint and Crank-Nicolson rules (K2b), via points (K2d), shooting (K2e), "
-            "the non-uniform grid (K2f)"
+            "midpoint and Crank-Nicolson rules (K2b), shooting (K2e), the non-uniform "
+            "grid (K2f)"
         )
 
 
@@ -802,7 +835,8 @@ class _Params(ctypes.Structure):
         ("ball_w", ctypes.c_double * 3), ("ball_r", ctypes.c_double),
         ("dt_min", ctypes.c_double), ("dt_max", ctypes.c_double),
         ("dt_lo", ctypes.c_double), ("dt_hi", ctypes.c_double),
-        ("alphas", ctypes.c_double * MAX_ALPHAS),
+        ("mv", ctypes.c_int), ("via_ordered", ctypes.c_int),
+        ("via_pw", ctypes.c_double), ("via_ow", ctypes.c_double),
         ("dt_trust_frac", ctypes.c_double), ("rho_growth", ctypes.c_double),
         ("rho_max", ctypes.c_double),
         ("reg0", ctypes.c_double), ("reg_shrink", ctypes.c_double),
@@ -817,7 +851,6 @@ def _params(spec, settings, obstacles) -> _Params:
     """The kernel's ``K2aParams`` for a launch on ``obstacles``."""
     lo_u, hi_u = (b.tolist() for b in spec.control_box())
     lo_r, hi_r = _rate_bounds(spec)
-    alphas = [float(a) for a in settings.alphas]
     d2, d3 = ctypes.c_double * 2, ctypes.c_double * 3
     model = spec.model
     bicycle = type(model) is KinematicBicycleModelVelocityInput
@@ -832,7 +865,7 @@ def _params(spec, settings, obstacles) -> _Params:
     o = obstacles
     return _Params(
         N=spec.N, M=spec.obstacle_cap, n_al=settings.n_al, n_sqp=settings.n_sqp,
-        n_alpha=len(alphas), xf_fixed=(ctypes.c_int * 3)(*(int(b) for b in spec.xf_fixed)),
+        n_alpha=len(settings.alphas), xf_fixed=(ctypes.c_int * 3)(*(int(b) for b in spec.xf_fixed)),
         model=MODEL_IDS[type(model)], quadratic=int(spec.objective == "quadratic_form"),
         integral=int(spec.integral_form), trapezoidal=int(trapezoidal(spec)),
         has_qf=int(spec.qf_diag is not None), variable_dt=int(spec.variable_dt),
@@ -850,7 +883,8 @@ def _params(spec, settings, obstacles) -> _Params:
         hybrid=spec.hybrid_time_weight, ball_w=d3(*spec.ball_weights),
         ball_r=spec.ball_radius,
         dt_min=spec.dt_min, dt_max=spec.dt_max, dt_lo=dt_lo, dt_hi=dt_hi,
-        alphas=(ctypes.c_double * MAX_ALPHAS)(*alphas),
+        mv=spec.via_cap if has_via(spec) else 0, via_ordered=int(spec.via_points_ordered),
+        via_pw=spec.via_position_weight, via_ow=spec.via_orientation_weight,
         dt_trust_frac=settings.dt_trust_frac, rho_growth=settings.rho_growth,
         rho_max=settings.rho_max, reg0=settings.reg0, reg_shrink=settings.reg_shrink,
         reg_grow=settings.reg_grow, reg_min=settings.reg_min, reg_max=settings.reg_max,
@@ -873,17 +907,19 @@ def bind(path):
     lib = ctypes.CDLL(str(path))
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     for fn in (lib.k2a_fused_solve_f32, lib.k2a_fused_solve_f64):
-        fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    names = ("k2a_max_n", "k2a_max_m", "k2a_max_alphas", "k2a_max_v", "k2a_max_fp_v",
-             "k2a_params_size")
+    names = ("k2a_max_v", "k2a_max_fp_v", "k2a_max_via", "k2a_params_size")
     for name in names:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    lib.k2a_workspace_per_lane.argtypes = [ctypes.c_int]
+    lib.k2a_workspace_per_lane.restype = ctypes.c_int
     lib.k2a_error_string.argtypes = [ctypes.c_int]
     lib.k2a_error_string.restype = ctypes.c_char_p
     limits = tuple(getattr(lib, name)() for name in names)
-    if limits != (MAX_N, MAX_M, MAX_ALPHAS, MAX_V, MAX_FP_V, ctypes.sizeof(_Params)):
+    if limits != (MAX_V, MAX_FP_V, MAX_VIA, ctypes.sizeof(_Params)):
         raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
     return lib
 
@@ -900,19 +936,19 @@ _IN_NAMES = (
     "xs", "us", "dt", "xf", "u_prev", "centers", "radii", "circle_mask", "circle_vels",
     "lines", "line_vels", "line_mask", "polygons", "polygon_nv", "polygon_vels",
     "polygon_mask", "lam_def", "lam_term", "mu_obs", "mu_rate", "mu_box", "mu_dt",
-    "mu_ball", "rho",
+    "mu_ball", "rho", "via_points", "via_mask",
 )
 _NOT_FLOAT = {"circle_mask": torch.bool, "line_mask": torch.bool, "polygon_nv": torch.int32,
-              "polygon_mask": torch.bool}
+              "polygon_mask": torch.bool, "via_mask": torch.bool}
 
 
 def kernel_io(spec, scenario, init: Primal, duals: DualState):
-    """The kernel's 24 inputs (checked: one device, float32 or float64, the
+    """The kernel's 26 inputs (checked: one device, float32 or float64, the
     masks bool and the vertex counts int32, contiguous, the expected shapes,
     slot families adding up to the spec's M) and its 15 freshly allocated
     outputs. The obstacle inputs are the point and circle slots as one
     family (``circle_slots``), then the line and the polygon slots, each
-    with its velocities."""
+    with its velocities; the via points and their mask come last."""
     xs = init.xs
     dev, dtype = xs.device, xs.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -929,12 +965,15 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
         xs, init.us, init.dt, scenario.xf, scenario.u_prev, centers, radii, cmask, cvels,
         o.lines, o.line_vels, o.line_mask, o.polygons, o.polygon_nv, o.polygon_vels,
         o.polygon_mask, duals.lam_def, duals.lam_term, duals.mu_obs, duals.mu_rate,
-        duals.mu_box, duals.mu_dt, duals.mu_ball, duals.rho,
+        duals.mu_box, duals.mu_dt, duals.mu_ball, duals.rho, scenario.via_points,
+        scenario.via_mask,
     )
+    Mv = spec.via_cap
     shapes = (
         (B, N + 1, 3), (B, N, 2), (B,), (B, 3), (B, 2), (B, Mc, 2), (B, Mc), (B, Mc),
         (B, Mc, 2), (B, Ml, 2, 2), (B, Ml, 2), (B, Ml), (B, Mg, V, 2), (B, Mg), (B, Mg, 2),
         (B, Mg), (B, N, 3), (B, 3), (B, N, M), (B, N, 4), (B, N, 4), (B, 2), (B, 1), (B,),
+        (B, Mv, 3), (B, Mv),
     )
     for name, a, shape in zip(_IN_NAMES, ins, shapes):
         want = _NOT_FLOAT.get(name, dtype)
@@ -947,19 +986,27 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
         if not a.is_contiguous():
             raise ValueError(f"fused kernel: {name} is not contiguous")
     # xs, us, dt, the 8 dual fields, cost, eq_norm, ineq_viol; converged
-    out_shapes = shapes[:3] + shapes[16:] + ((B,),) * 3
+    out_shapes = shapes[:3] + shapes[16:24] + ((B,),) * 3
     outs = tuple(torch.empty(s, dtype=dtype, device=dev) for s in out_shapes)
     return ins, outs + (torch.empty((B,), dtype=torch.bool, device=dev),)
 
 
 def launch(lib, spec, settings, ins, outs, stream, obstacles) -> None:
-    """Run the kernel on ``ins`` into ``outs`` on ``stream``; raises on a
-    refused launch."""
+    """Run the kernel on ``ins`` into ``outs`` on ``stream``, with the
+    line-search candidates as a device input in the working type and a
+    fresh workspace for the step, the gain tape and the best-feasible
+    snapshot (``k2a_workspace_per_lane(N)`` values per lane, tiled by warp
+    with the lane index fastest); raises on a refused launch."""
     params = _params(spec, settings, obstacles)
-    in_ptrs = (ctypes.c_void_p * len(ins))(*(a.data_ptr() for a in ins))
+    xs = ins[0]
+    B = xs.shape[0]
+    alphas = const(tuple(float(a) for a in settings.alphas), xs)  # cached on the device
+    ws = torch.empty((-(-B // WARP), lib.k2a_workspace_per_lane(spec.N), WARP), dtype=xs.dtype,
+                     device=xs.device)
+    in_ptrs = (ctypes.c_void_p * (len(ins) + 1))(*(a.data_ptr() for a in ins + (alphas,)))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(a.data_ptr() for a in outs))
-    fn = lib.k2a_fused_solve_f32 if ins[0].dtype == torch.float32 else lib.k2a_fused_solve_f64
-    rc = fn(ctypes.byref(params), in_ptrs, out_ptrs, ins[0].shape[0], stream)
+    fn = lib.k2a_fused_solve_f32 if xs.dtype == torch.float32 else lib.k2a_fused_solve_f64
+    rc = fn(ctypes.byref(params), in_ptrs, out_ptrs, ws.data_ptr(), B, stream)
     if rc != 0:
         raise RuntimeError(f"fused kernel launch failed: {lib.k2a_error_string(rc).decode()} ({rc})")
 
@@ -1003,8 +1050,10 @@ fused_solve_cuda.launches = 0
 # augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju,
 # the dt column m = f only on a variable dt); Hzz, Hzu, Huu, hz and hu are
 # ``stage_grad_hess``'s blocks (obstacles on x, y and, where a footprint disc
-# sits off the pose or the footprint is a segment or a polygon, θ; the quadratic form on x, u and, integral, dt; rate
-# rows on u_prev, dt and u; box rows on u).
+# sits off the pose or the footprint is a segment or a polygon, θ; the
+# quadratic form on x, u and, integral, dt; the via attraction on the x and
+# y diagonal and, with an orientation weight, θ's; rate rows on u_prev, dt
+# and u; box rows on u).
 # tests/test_torch_fused.py and tests/test_torch_quadratic.py hold them
 # against the plain version's tensors.
 def step_structure(spec) -> dict:
@@ -1019,8 +1068,9 @@ def step_structure(spec) -> dict:
         FOOTPRINT_KINDS[type(spec.footprint)] != 0
         or any(off != 0.0 for off, _ in disc_footprint(spec.footprint)))
     o_th = "v" if rot else "0"
-    xy = "v" if spec.obstacle_cap or quad else "0"
-    th = "v" if quad or rot else "0"
+    via = has_via(spec)
+    xy = "v" if spec.obstacle_cap or quad or via else "0"
+    th = "v" if quad or rot or (via and spec.via_orientation_weight > 0.0) else "0"
     return {
         "Fz": (f"1 0 v 0 0 {m}", f"0 1 v 0 0 {m}", f"0 0 1 0 0 {m}", "0 0 0 0 0 0",
                "0 0 0 0 0 0", "0 0 0 0 0 1"),
@@ -1119,6 +1169,32 @@ _MODEL_FLOPS = {  # model: (f, dyn, G)
 }
 _GOAL_DX = 6     # x ⊖ xf: three differences and the θ wrap
 _QUAD_FORM = 8   # Σ q_i d_i² (and 5 for Σ r_j u_j²)
+# The via points, counted from csrc/fused_al_sqp.cu (``via_sweep``,
+# ``via_rows``): per slot and stage of a sweep the squared distance (two
+# differences and the sum of squares, 5); per active slot of a cost the
+# weighted distance and its sum (2) and, with an orientation weight, the
+# weighted wrapped error (7); per active slot of the derivatives the x and y
+# rows and their diagonal (8) and θ's (7). A candidate's poses are the
+# merit's (``merit_stage`` counts them), and the assignment at the top of an
+# iteration is the α = 0 candidate's: each is counted once.
+_VIA_D2, _VIA_COST, _VIA_COST_TH = 5, 2, 7
+_VIA_ROWS, _VIA_ROWS_TH = 8, 7
+
+
+def _via_flops(spec, n_alpha, via_mask):
+    """(per SQP iteration, at the end) operations of the via points: the
+    assignment and cost at the current states and at each candidate, the
+    rows, the final cost. Active slots are this run's mean over the lanes of
+    ``via_mask`` (every slot without it)."""
+    if not has_via(spec):
+        return 0.0, 0.0
+    mv, stages = spec.via_cap, spec.N + 1
+    active = float(via_mask.double().sum(dim=-1).mean()) if via_mask is not None else mv
+    th = spec.via_orientation_weight > 0.0
+    sweep = mv * stages * _VIA_D2
+    cost = active * (_VIA_COST + _VIA_COST_TH * th)
+    per_iter = active * (_VIA_ROWS + _VIA_ROWS_TH * th) + (n_alpha + 1) * (sweep + cost)
+    return per_iter, sweep + cost
 
 
 def _geometry_flops(spec, obstacles):
@@ -1215,7 +1291,7 @@ def _footprint_flops(fp, mc, ml, mg, edges):
     return value, grad + mg * _EDGE_MIN
 
 
-def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:
+def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mask=None) -> int:
     """Floating-point operations one scenario's solve of ``spec`` needs: its
     closed forms counted from csrc/fused_al_sqp.cu, the Riccati step and the
     rollout on their structure (``step_flops`` of ``step_structure``; the
@@ -1224,7 +1300,8 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:
     functions 1 each; comparisons, negations and copies 0. The schedule is
     fixed, so every lane does the same work but for its polygon edges.
     ``obstacles`` (the run's ObstacleSet) gives the slot families; without
-    it every slot is a circle slot."""
+    it every slot is a circle slot. ``via_mask`` (the run's) gives the
+    active via points (``_via_flops``)."""
     N, M = spec.N, spec.obstacle_cap
     f_ops, dyn_ops, g_ops = _MODEL_FLOPS[type(spec.model)]
     quad = spec.objective == "quadratic_form"
@@ -1258,9 +1335,10 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:
     merit_end = 40 - (0 if vdt else dt_rows_merit) - quad
     merit_end += 9 * (spec.qf_diag is not None) + 11 * trapezoidal(spec) + ball_g * ball
     free_tau_and_cap = 3 + 4 if vdt else 0
+    via_iter, via_final = _via_flops(spec, n_alpha, via_mask)
     per_iter = (
         terminal + N * (transition + stage + riccati) + free_tau_and_cap + N * rollout
-        + (n_alpha + 1) * (N * merit_stage + merit_end) + 13 * N + 6
+        + (n_alpha + 1) * (N * merit_stage + merit_end) + 13 * N + 6 + via_iter
     )
     # dual update: the stage rows (80), the obstacle rows and their updates
     # (6 per slot), the terminal rows and ρ (20)
@@ -1270,5 +1348,5 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None) -> int:
     final = 2
     if quad:
         final = N * (22 if spec.integral_form else 20) + 11 * trapezoidal(spec)
-    final += 9 * (spec.qf_diag is not None)
+    final += 9 * (spec.qf_diag is not None) + via_final
     return round(n_al * n_sqp * per_iter + n_al * per_phase + final)

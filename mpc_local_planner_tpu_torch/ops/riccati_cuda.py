@@ -4,7 +4,9 @@ Replaces the TPU kernel ``mpc_local_planner_tpu/ops/riccati_pallas.py ::
 _riccati_kernel`` (launched by ``lqr_solve_pallas``). The source is
 ``csrc/riccati_sweep.cu``: one thread per scenario runs the backward sweep,
 the 2×2 Quu inverse, the gain tape, the free-δτ stage and the forward
-rollout, for float and double.
+rollout, for float and double, at any N: the gain tape (14 values per
+stage) lives in a workspace the wrapper allocates, (B/32, N, 14, 32): tiled
+by warp, lane index fastest.
 
 What bounds it on an H100 is memory: per scenario it reads 114 values per
 stage plus PN, pN and reg, and writes the step — 59.3 MB for a float batch of
@@ -33,6 +35,8 @@ from mpc_local_planner_tpu_torch.solvers.riccati import LqrStep, lqr_solve
 
 SOURCE = nvcc_build.CSRC / "riccati_sweep.cu"
 NA, NU, NX = 6, 2, 3
+TAPE = NU * NA + NU  # the gain tape per stage: K (2×6), kff (2)
+WARP = 32  # the tape's tile (csrc/riccati_sweep.cu)
 
 _lib = None
 
@@ -53,10 +57,12 @@ def _load():
         lib = ctypes.CDLL(str(library_path()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.riccati_sweep_f32, lib.riccati_sweep_f64):
-            fn.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
+            fn.argtypes = [ptr] * 16 + [i32, i32, i32, ptr]
             fn.restype = i32
-        lib.riccati_sweep_max_n.argtypes = []
-        lib.riccati_sweep_max_n.restype = i32
+        lib.riccati_sweep_tape_per_stage.argtypes = []
+        lib.riccati_sweep_tape_per_stage.restype = i32
+        if lib.riccati_sweep_tape_per_stage() != TAPE:
+            raise RuntimeError(f"K1 library {library_path()} does not match its wrapper")
         lib.riccati_sweep_error_string.argtypes = [i32]
         lib.riccati_sweep_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -105,19 +111,18 @@ def lqr_solve_cuda(
         raise ValueError("K1 needs a non-empty batch")
     _check(args, _expected_shapes(B, N))
     lib = _load()
-    if N > lib.riccati_sweep_max_n():
-        raise ValueError(f"K1 takes N <= {lib.riccati_sweep_max_n()}, got {N}")
     opts = dict(dtype=Fz.dtype, device=Fz.device)
     dxs = torch.empty((B, N + 1, NX), **opts)
     dus = torch.empty((B, N, NU), **opts)
     dtau = torch.empty((B,), **opts)
     dv = torch.empty((B,), **opts)
+    tape = torch.empty((-(-B // WARP), N, TAPE, WARP), **opts)  # the workspace
     fn = lib.riccati_sweep_f32 if Fz.dtype == torch.float32 else lib.riccati_sweep_f64
     with torch.cuda.device(Fz.device):
         stream = torch.cuda.current_stream(Fz.device).cuda_stream
         rc = fn(
             *(a.data_ptr() for a in args),
-            dxs.data_ptr(), dus.data_ptr(), dtau.data_ptr(), dv.data_ptr(),
+            dxs.data_ptr(), dus.data_ptr(), dtau.data_ptr(), dv.data_ptr(), tape.data_ptr(),
             B, N, int(free_tau), stream,
         )
     if rc != 0:

@@ -29,13 +29,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
-from mpc_local_planner_tpu_torch.core.so2 import se2_boxminus, se2_boxplus
+from mpc_local_planner_tpu_torch.core.so2 import angle_diff, se2_boxminus, se2_boxplus
 from mpc_local_planner_tpu_torch.core.tree import tree_map, where_tree
 from mpc_local_planner_tpu_torch.device import const, pin_matmul_precision, resolve_device
 from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE, ObstacleSet
 from mpc_local_planner_tpu_torch.ocp import constraints as C
 from mpc_local_planner_tpu_torch.ocp.collocation import stage_defect
-from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal
+from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal, via_stage_assignment
 from mpc_local_planner_tpu_torch.ocp.grid import Primal, initial_primal
 from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions, make_ocp_functions
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec
@@ -216,6 +216,8 @@ class StageData(NamedTuple):
     obs: ObstacleSet       # this stage's obstacle set
     xref: Optional[torch.Tensor] = None  # (3,) the quadratic form's reference
     iw: Optional[torch.Tensor] = None    # (1,) integration weight of the stage
+    via_pts: Optional[torch.Tensor] = None  # (Mv, 3) via poses
+    via_w: Optional[torch.Tensor] = None    # (Mv,) each via point's weight on this stage
 
 
 class TermData(NamedTuple):
@@ -225,6 +227,27 @@ class TermData(NamedTuple):
     mu_ball: torch.Tensor
     mu_dt: torch.Tensor
     obs: ObstacleSet
+    via_pts: object = ()  # (Mv, 3) via poses; () without via points
+    via_w: object = ()    # (Mv,) each via point's weight on x_N; () without
+
+
+def has_via(spec) -> bool:
+    """The objective carries the via-point attraction."""
+    return spec.via_cap > 0 and spec.objective == "minimum_time_via_points"
+
+
+def _via_term(spec, x, via_pts, via_w):
+    """The via attraction of one state x (3,): Σ_j w_j (pw ‖x_xy − v_j‖² +
+    ow · wrap(θ − θ_j)²), the orientation term where ow > 0. ``via_w`` is
+    the one-hot stage assignment times the mask (``_via_weights``), stage
+    data that is not differentiated. Returns a (1,) tensor (see
+    ``_make_stage_fns`` on 0-d tensors under forward mode)."""
+    dp = x[None, 0:2] - via_pts[:, 0:2]
+    t = spec.via_position_weight * torch.sum(dp * dp, dim=-1)
+    if spec.via_orientation_weight > 0.0:
+        dth = angle_diff(x[None, 2], via_pts[:, 2])
+        t = t + spec.via_orientation_weight * dth * dth
+    return torch.sum(via_w * t, dim=-1, keepdim=True)
 
 
 def _obstacle_g(spec, x, obs):
@@ -254,7 +277,10 @@ def _make_stage_fns(spec: OcpSpec):
 
     def objective(w, data: StageData):
         if spec.objective != "quadratic_form":
-            return split(w)[3]  # minimum time: Σ_k dt = N·dt
+            c = split(w)[3]  # minimum time: Σ_k dt = N·dt
+            if has_via(spec):
+                c = torch.sum(_via_term(spec, w[0:3], data.via_pts, data.via_w) + c)
+            return c
         x, u, dt = w[0:3], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu :]
         dx = se2_boxminus(x, data.xref)
         x_term = torch.sum(dx * dx * const(spec.q_diag, w), dim=-1, keepdim=True)
@@ -314,13 +340,14 @@ def _make_stage_fns(spec: OcpSpec):
 
 def _make_terminal_fns(spec: OcpSpec):
     """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)]; the
-    terminal objective is Qf and the ½·dt·lx(x_N) tail of the trapezoidal
-    quadratic form, and is left out of the merit where the spec has
-    neither."""
+    terminal objective is Qf, the ½·dt·lx(x_N) tail of the trapezoidal
+    quadratic form and the via attraction of x_N, and is left out of the
+    merit where the spec has none of them."""
     nu = spec.nu
     M = spec.obstacle_cap
     tail = trapezoidal(spec)
-    has_objective = spec.qf_diag is not None or tail
+    via = has_via(spec)
+    has_objective = spec.qf_diag is not None or tail or via
 
     def objective(w, data: TermData):
         x, dt = w[0:3], w[3 + nu : 4 + nu]
@@ -331,6 +358,8 @@ def _make_terminal_fns(spec: OcpSpec):
         if tail:
             q = const(spec.q_diag, w)
             terms.append(const((0.5,), w) * dt * torch.sum(dx * dx * q, dim=-1, keepdim=True))
+        if via:
+            terms.append(_via_term(spec, x, data.via_pts, data.via_w))
         return torch.sum(torch.cat(terms))
 
     def with_objective(c, w, data: TermData):
@@ -393,6 +422,17 @@ def _stage_obstacles(spec, scenario, dt, n):
     else:
         t = torch.zeros(dt.shape + (n,), dtype=dt.dtype, device=dt.device)
     return scenario.obstacles.predict_stages(t)
+
+
+def _via_weights(spec, xs, scenario):
+    """One-hot stage assignment of the via points times their mask: (B,
+    N+1, Mv). Piecewise constant in xs: recomputed at each SQP iteration
+    from the current states, not differentiated (parity:
+    MinTimeViaPointsCost's discrete stage association)."""
+    k = via_stage_assignment(spec, xs, scenario.via_points, scenario.via_mask)  # (B, Mv)
+    stages = torch.arange(spec.N + 1, device=xs.device)
+    onehot = (k[..., None, :] == stages[:, None]).to(xs.dtype)  # (B, N+1, Mv)
+    return onehot * scenario.via_mask[..., None, :].to(xs.dtype)
 
 
 def _flat2(a):
@@ -476,7 +516,10 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     mu_obs_stage = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
     obs_on = torch.ones((B, N), dtype=dtype, device=xs.device)
     obs_on[:, 0] = 0.0
-    xref = iw = None  # the quadratic form's stage data
+    xref = iw = via_pts = via_w = None  # the objective's stage data
+    if has_via(spec):
+        via_w = _via_weights(spec, xs, scenario)  # (B, N+1, Mv)
+        via_pts = _flat2(scenario.via_points[:, None].expand(B, N, -1, -1))
     if spec.objective == "quadratic_form":
         xref = _flat2(scenario.xf[:, None].expand(B, N, 3))
         if spec.integral_form:
@@ -491,6 +534,8 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
         obs=obs_stages,
         xref=xref,
         iw=iw,
+        via_pts=via_pts,
+        via_w=None if via_w is None else _flat2(via_w[:, :N]),
     )
     u_ext = torch.cat([scenario.u_prev[:, None], us], dim=1)  # (B, N+1, nu)
     ws = _flat2(torch.cat([xk, u_ext[:, :-1], us, dt_b[..., None]], dim=-1))
@@ -521,6 +566,8 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
         mu_ball=duals.mu_ball,
         mu_dt=duals.mu_dt,
         obs=obs_term,
+        via_pts=() if via_w is None else scenario.via_points,
+        via_w=() if via_w is None else via_w[:, N],
     )
     term_cons, _, term_merit, term_hess, term_gn_w = term_fns
     wN = torch.cat([xs[:, N], us[:, N - 1], dt[:, None]], dim=-1)
@@ -733,8 +780,9 @@ def _check_device(device, *trees):
 
 
 def fused_dispatch_ok(spec, settings, scenario, dtype, device) -> bool:
-    """The whole-solve-kernel admission decision of ``make_solver``: spec,
-    obstacle slots and candidate count in the fused kernel's scope, float32, a CUDA
+    """The whole-solve-kernel admission decision of ``make_solver``: spec and
+    obstacle slots in the fused kernel's scope (any grid length, slot count
+    and candidate count, as JAX ``fused_dispatch_ok``), float32, a CUDA
     device, a budget of at most 16 iterations, and not ``early_exit`` (the
     kernel runs its schedule to the end). As on the TPU, CPU tensors take
     the un-fused path."""
@@ -744,7 +792,6 @@ def fused_dispatch_ok(spec, settings, scenario, dtype, device) -> bool:
         settings.fused != "off"
         and k2a.fused_supported(spec)
         and k2a.fused_obstacles_supported(scenario)
-        and len(settings.alphas) <= k2a.MAX_ALPHAS
         and dtype == torch.float32
         and torch.device(device).type == "cuda"
         and settings.n_al * settings.n_sqp <= 16

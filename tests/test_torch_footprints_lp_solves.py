@@ -137,7 +137,7 @@ def _assert_f64_matches(t, j):
     np.testing.assert_allclose(t["cost"], j["cost"], atol=1e-9, rtol=0)
     tol = 1e-9 + RHO_ULP * j["duals"]["rho"]
     for k, b in j["duals"].items():
-        err = np.abs(t["duals"][k] - b).reshape(B, -1).max(axis=1, initial=0.0)
+        err = np.abs(t["duals"][k] - b).reshape(len(tol), -1).max(axis=1, initial=0.0)
         assert np.all(err <= tol), (k, err, tol)
 
 

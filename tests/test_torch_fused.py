@@ -263,8 +263,8 @@ def _small(batch=4, dtype=torch.float32):
         ("fused-off", False),
         ("early-exit", False),
         ("terminal-ball", True),
-        ("17-candidates", False),
-        ("17-obstacle-slots", False),
+        ("17-candidates", True),
+        ("17-obstacle-slots", True),
         ("line-slots", True),
         ("17-polygon-vertices", False),
     ],
@@ -323,10 +323,10 @@ def test_torch_k2a_wrapper_refuses_what_the_kernel_does_not_take():
     spec, st, scen, init, duals = _small()
     with pytest.raises(ValueError, match="CUDA"):
         k2a.fused_solve_cuda(spec, st, scen, init, duals)
-    wide = dataclasses.replace(spec, obstacle_cap=17)
-    with pytest.raises(NotImplementedError, match="M=17"):
+    wide = dataclasses.replace(spec, via_cap=9)
+    with pytest.raises(NotImplementedError, match="via_cap=9"):
         k2a.fused_solve_cuda(wide, st, scen, init, duals)
-    with pytest.raises(NotImplementedError, match="M=17"):
+    with pytest.raises(NotImplementedError, match="via_cap=9"):
         k2a.fused_solve_plain(wide, st, scen, init, duals)
     strided = dataclasses.replace(init, xs=init.xs.mT.contiguous().mT)
     with pytest.raises(ValueError, match="xs is not contiguous"):
@@ -340,7 +340,7 @@ def test_torch_k2a_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="float32 or float64"):
         k2a.kernel_io(spec, scen, dataclasses.replace(init, xs=init.xs.half()), duals)
     ins, outs = k2a.kernel_io(spec, scen, init, duals)
-    assert len(ins) == 24 and len(outs) == 15 and outs[-1].dtype == torch.bool
+    assert len(ins) == 26 and len(outs) == 15 and outs[-1].dtype == torch.bool
 
 
 def test_torch_fleet_cycle_solves_pass_the_kernel_checks(monkeypatch):

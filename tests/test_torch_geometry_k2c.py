@@ -496,7 +496,7 @@ def test_torch_family_spec_matches_jax(name):
     assert type(t.footprint).__name__ == type(j.footprint).__name__
 
 
-@pytest.mark.parametrize("name, item", [("via_points", "K2d"), ("nonuniform", "K2f")])
+@pytest.mark.parametrize("name, item", [("nonuniform", "K2f")])
 def test_torch_family_spec_names_what_waits(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP M9, {item}"):
         tb.family_spec(name, N=N)
@@ -545,7 +545,7 @@ def test_torch_k2c_dispatch_and_wrapper_checks():
     assert al_sqp.fused_dispatch_ok(spec, st, scen, torch.float32, "cuda")
     init, duals = al_sqp.default_init(spec, st, scen)
     ins, outs = k2a.kernel_io(spec, scen, init, duals)
-    assert len(ins) == 24 and ins[13].dtype == torch.int32
+    assert len(ins) == 26 and ins[13].dtype == torch.int32
     with pytest.raises(ValueError, match="3\\+2\\+2 obstacle slots, the spec has M=6"):
         k2a.kernel_io(dataclasses.replace(spec, obstacle_cap=6), scen, init, duals)
     wrong_nv = dataclasses.replace(obs, polygon_nv=obs.polygon_nv.long())

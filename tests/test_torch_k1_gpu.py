@@ -7,6 +7,9 @@ machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_k1_gpu.py
 
+The horizon has no cap (the gain tape lives in a workspace the wrapper
+allocates): the random QPs run up to N = 120.
+
 Tolerance: max |kernel − plain| over each output ≤ rtol × its largest entry;
 rtol 1e-9 in float64 (the same arithmetic in another order: a few ulps) and
 1e-4 in float32 (the backward recursion amplifies f32 rounding by the
@@ -97,7 +100,7 @@ def test_torch_k1_kernel_matches_plain_on_flagship_kkt(dtype, free_tau):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch, N", [(1, 1), (3, 6), (129, 64)])
+@pytest.mark.parametrize("batch, N", [(1, 1), (3, 6), (129, 64), (5, 65), (33, 120)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_torch_k1_kernel_matches_plain_on_random_qps(dtype, batch, N):
     _check(_random_qps(batch, N, _card()), dtype, True)
@@ -106,9 +109,6 @@ def test_torch_k1_kernel_matches_plain_on_random_qps(dtype, batch, N):
 @pytest.mark.gpu
 def test_torch_k1_kernel_refuses_what_it_does_not_take():
     args = list(_random_qps(3, 6, _card()))
-    long = list(_random_qps(2, 65, args[0].device))
-    with pytest.raises(ValueError, match="N <= 64"):
-        riccati_cuda.lqr_solve_cuda(*long, nx=NX, free_tau=True)
     strided = list(args)
     strided[3] = args[3].mT.contiguous().mT  # same values, not contiguous
     with pytest.raises(ValueError, match="not contiguous"):

@@ -7,7 +7,10 @@ car-like config (two discs), the wall world (line slots), polygon slots
 with a varying vertex count, dynamic line slots, all four slot families with
 two discs and dynamic obstacles, the bicycle with two discs, the
 polygon-footprint family, and all four slot families moving with a line
-footprint and with a polygon footprint.
+footprint and with a polygon footprint; via points (K2d: the via-points
+family, path D, and ordered via points with an orientation weight and
+masked slots), and what the kernel once refused: 30 obstacle slots (the
+example configs' capacity), 17 line-search candidates and N = 80.
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -41,6 +44,7 @@ import pytest
 import torch
 
 from mpc_local_planner_tpu_torch.benchmarks import (
+    case_ensemble,
     config1_unicycle_quadratic,
     config2_diffdrive_obstacles,
     config3_carlike_min_time,
@@ -117,6 +121,22 @@ K2C = {
 }
 
 
+# via points and the old caps: (spec, ensemble as ``_ensemble`` takes it,
+# settings)
+RESCUE17 = dict(RESCUE, alphas=tuple(0.85**i for i in range(17)))
+BEYOND = {
+    "via_points": lambda: (family_spec("via_points"), "via_points", WARM),
+    "via-ordered-orientation": lambda: (dataclasses.replace(
+        config3_carlike_min_time(N=30, obstacle_cap=8), objective="minimum_time_via_points",
+        via_cap=3, via_position_weight=2.0, via_orientation_weight=0.5,
+        via_points_ordered=True), "random_via", WARM),
+    "30-slots": lambda: (dataclasses.replace(family_spec("canonical_carlike"), obstacle_cap=30),
+                         "8_obstacles", WARM),
+    "17-candidates": lambda: (config3_carlike_min_time(N=30, obstacle_cap=8), None, RESCUE17),
+    "N80": lambda: (config3_carlike_min_time(N=80, obstacle_cap=8), None, WARM),
+}
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: kernel K2a has no CPU or interpret mode")
@@ -124,9 +144,12 @@ def _card():
 
 
 def _ensemble(spec, batch, gen, dtype, dev, slots):
-    """``random_ensemble``; a family's ensemble where ``slots`` names one;
-    its obstacles replaced by ``mixed_obstacles(**slots)`` where it is a
-    slot mix."""
+    """``random_ensemble``; a family's ensemble where ``slots`` names one,
+    or ``case_ensemble``'s where it names a kind of that (``"random_via"``,
+    ``"8_obstacles"``); its obstacles replaced by ``mixed_obstacles(**slots)``
+    where it is a slot mix."""
+    if slots in ("random_via", "8_obstacles"):
+        return case_ensemble(slots, spec, batch, gen, dtype=dtype, device=dev)
     if isinstance(slots, str):
         return family_ensemble(slots, spec, batch, gen, dtype=dtype, device=dev)
     if slots is None:
@@ -235,6 +258,18 @@ def test_torch_fused_kernel_matches_plain_on_the_k2c_geometry(case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(BEYOND))
+def test_torch_fused_kernel_matches_plain_on_via_points_and_beyond_the_old_caps(case, dtype):
+    """Via points (path D's family; ordered with an orientation weight and
+    masked slots), 30 obstacle slots, 17 candidates and N = 80, from the
+    live state of two fleet cycles."""
+    spec, slots, settings = BEYOND[case]()
+    args = _warm_state(_card(), dtype, settings, spec=spec, cycles=2, slots=slots)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
 def test_torch_make_solver_launches_the_kernel_for_the_wall_world():
     """Line slots are in the kernel's scope: the wall world's warm solve
     launches it."""
@@ -279,6 +314,21 @@ def test_torch_make_solver_launches_the_kernel_for_config2s_warm_solve():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BEYOND))
+def test_torch_make_solver_launches_the_kernel_beyond_the_old_caps(case):
+    """Via points, 30 slots, 17 candidates and N = 80 are in the kernel's
+    scope: the warm solve launches it once."""
+    dev = _card()
+    spec, slots, settings = BEYOND[case]()
+    spec, st, scen, init, duals = _warm_state(dev, torch.float32, settings, batch=64, spec=spec,
+                                              slots=slots)
+    before = k2a.fused_solve_cuda.launches
+    out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert out.duals.mu_obs.shape == (64, spec.N, spec.obstacle_cap)
+
+
+@pytest.mark.gpu
 def test_torch_make_solver_launches_k2a_for_the_warm_solve():
     dev = _card()
     spec, st, scen, init, duals = _warm_state(dev, torch.float32, WARM, batch=64)
@@ -299,8 +349,8 @@ def test_torch_k2a_kernel_refuses_what_it_does_not_take():
     short = dataclasses.replace(duals, mu_obs=duals.mu_obs[:, :, :2])
     with pytest.raises(ValueError, match="mu_obs has shape"):
         k2a.fused_solve_cuda(spec, st, scen, init, short)
-    with pytest.raises(NotImplementedError, match="M=17"):
-        k2a.fused_solve_cuda(dataclasses.replace(spec, obstacle_cap=17), st, scen, init, duals)
+    with pytest.raises(NotImplementedError, match="via_cap=9"):
+        k2a.fused_solve_cuda(dataclasses.replace(spec, via_cap=9), st, scen, init, duals)
     strided = dataclasses.replace(init, us=init.us.mT.contiguous().mT)
     with pytest.raises(ValueError, match="us is not contiguous"):
         k2a.fused_solve_cuda(spec, st, scen, strided, duals)

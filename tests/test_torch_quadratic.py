@@ -286,13 +286,13 @@ def test_torch_total_cost_matches_jax(form):
 def test_torch_spec_admits_the_quadratic_family_and_refuses_the_rest():
     _, c2 = spec_pair("config2")
     for kw in (TRAPEZOIDAL, dict(variable_dt=False, objective="minimum_time"),
-               dict(model=tm.KinematicBicycleModelVelocityInput())):
+               dict(model=tm.KinematicBicycleModelVelocityInput()), dict(via_cap=2)):
         assert k2a.fused_supported(dataclasses.replace(c2, **kw))
     with pytest.raises(ValueError, match="hybrid_time_weight"):
         dataclasses.replace(c2, hybrid_time_weight=-1.0)
     with pytest.raises(ValueError, match="cost_integration"):
         dataclasses.replace(c2, cost_integration="simpson")
-    for kw, item in ((dict(via_cap=2), "K2d"), (dict(collocation="midpoint_differences"), "K2b"),
+    for kw, item in ((dict(collocation="midpoint_differences"), "K2b"),
                      (dict(nonuniform_dt=True, variable_dt=True), "K2f")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP M9, {item}"):
             dataclasses.replace(c2, **kw)
@@ -460,11 +460,12 @@ def test_torch_quadratic_dispatch_admits_the_family(case):
     init, duals = al_sqp.default_init(spec, st, scen)
     with pytest.raises(ValueError, match="CUDA"):
         k2a.fused_solve_cuda(spec, st, scen, init, duals)
-    long = dataclasses.replace(spec, N=65)
-    with pytest.raises(NotImplementedError, match="N=65.*still to port"):
-        k2a.fused_solve_cuda(long, st, scen, init, duals)
+    assert k2a.fused_supported(dataclasses.replace(spec, N=65))  # no horizon cap
+    wide = dataclasses.replace(spec, via_cap=9)
+    with pytest.raises(NotImplementedError, match="via_cap=9.*still to port"):
+        k2a.fused_solve_cuda(wide, st, scen, init, duals)
     ins, outs = k2a.kernel_io(spec, scen, init, duals)
-    assert len(ins) == 24 and len(outs) == 15
+    assert len(ins) == 26 and len(outs) == 15
     params = k2a._params(spec, st, scen.obstacles)
     assert params.model == k2a.MODEL_IDS[type(spec.model)]
     assert params.quadratic == (spec.objective == "quadratic_form")
