@@ -6,8 +6,12 @@ NVIDIA GPU.
 
 Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA versions
-  2. build   — nvcc builds kernels K1 (csrc/riccati_sweep.cu) and K2a
-               (csrc/fused_al_sqp.cu) into _build/, in parallel
+  2. build   — nvcc builds kernel K1 (csrc/riccati_sweep.cu) and each
+               group of the fused kernel's instantiations that the smoke
+               launches (csrc/fused_al_sqp.cu: one library per working type,
+               model, objective family and grid, five instantiations each;
+               14 of the 48) into _build/, all at once; each build's
+               seconds and the phase's wall time
   3. kernel  — K1 against its plain PyTorch version on the Riccati inputs of
                one real flagship SQP iteration (B=4096 and 1024, N=30, and
                B=4096 at N=96, past the cap K1 once had), in float64 and
@@ -48,8 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                prefix, float32) at B=1024 for the flagship with the
                front-wheel car and with the kinematic bicycle, and for
                config #1 (no obstacle slot, integral left-sum), each from
-               its own cold solve and two fused fleet cycles; run last,
-               with phase 23
+               its own cold solve (the fused kernel's, at the cold preset)
+               and two fused fleet cycles; run last, with phase 23
  15. gate    — config #2's fused warm solve against the un-fused one, 256
                lanes of its live warm state
  16. trace   — one config #2 warm cycle under torch.profiler
@@ -81,8 +85,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                ordered via points with an orientation weight and masked
                slots, path A's spec with 30 obstacle slots (the example
                configs' capacity, 8 obstacles in them) and the flagship at
-               N=80; each from its own cold solve and two fused fleet cycles.
-               The twelve cases of phases 14 and 23 run at once, each in a
+               N=80; and (K2f) the non-uniform grid under config #2's
+               integral trapezoidal form and under the mixed-dynamic case;
+               each from its own cold solve (the fused kernel's, at the
+               cold preset: one launch where the un-fused solve is host-bound
+               for tens of seconds) and two fused fleet cycles. The
+               fourteen cases of phases 14 and 23 run at once, each in a
                process of its own (``chip_smoke.py --family-case NAME``);
                then each is timed alone
  24. path C  — the polygon-footprint family (family_spec "polygon_footprint":
@@ -103,7 +111,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  28. kernel  — the fused kernel against its plain version on path D's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  29. gate    — path D's fused warm solve against the un-fused one; trace
- 30. summary — the kernels line, the card line, then the result line
+ 30. path E  — the non-uniform family (family_spec "nonuniform": the
+               flagship with a per-stage dt, the kernel's K2f branch) as
+               bench.py's families mode runs it: cold 16×15 and the cold
+               oracle un-fused, their KKT solves the plain lqr_solve (δdt_k
+               a third control column: no K1 launch), 2 settle + 8 timed
+               warm cycles (3×4) with the 1024-slot 4×4 rescue; 20 fused
+               launches, 0 of K1; run after path D
+ 31. kernel  — the fused kernel against its plain version on path E's live
+               warm state (4096 lanes at 3×4, 1024 at 4×4)
+ 32. gate    — path E's fused warm solve against the un-fused one; trace
+ 33. summary — the seconds of the build, of each path and of the cases
+               (``smoke_split_s``), the kernels line, the card line, then
+               the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -137,10 +157,11 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # (solvers/agreement.py): conv flags identical on every lane; max relative
 # |Δ| over xs, us, dt and the duals within 1e-8 on 99.5% of the lanes both
 # converged with no tie shown; and on every lane at most 100 times the plain
-# version's own change under rounding. A lane both converged that the
-# plain version leaves elsewhere when it takes its near-ties of the line
-# search and the growth test the other way (a tie shown) is held to 100
-# times the larger of the two changes, its ρ to one growth factor. The check
+# version's own change under rounding. A lane that the plain version
+# leaves elsewhere when it takes its near-ties of the line search, the
+# growth test and the clip of a dt within rounding of its bound the other
+# way (a tie shown) is held to 100 times the larger of the two changes, its
+# ρ to one growth factor. The check
 # runs at every prefix of the solve's schedule (1×1, 1×2, then whole AL
 # phases), so a lane is held tight before its rounding can grow; a lane
 # whose own change passes 1e-6 (a chaotic lane) is counted and left out of
@@ -425,11 +446,12 @@ def schedule_prefixes(st):
     return sorted(set(prefixes), key=lambda b: (b[0], b[1]))
 
 
-def k2a_f64_phase(spec, st, args64, tag):
+def k2a_f64_phase(spec, st, args64, tag, floor=0.25):
     """K2a against its plain version in float64 at every prefix of ``st``'s
-    schedule (``agreement.f64_agreement``, every lane at 1×1); prints one
-    line per prefix and the error of the lane that ends furthest apart at
-    each prefix."""
+    schedule (``agreement.f64_agreement``, every lane at 1×1, at least
+    ``floor`` of the lanes converged on both after the whole schedule);
+    prints one line per prefix and the error of the lane that ends furthest
+    apart at each prefix."""
     import torch
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
@@ -437,7 +459,8 @@ def k2a_f64_phase(spec, st, args64, tag):
 
     scen, init, duals = args64
     rows = []
-    for n_al, n_sqp in schedule_prefixes(st):
+    prefixes = schedule_prefixes(st)
+    for n_al, n_sqp in prefixes:
         sp = dataclasses.replace(st, n_al=n_al, n_sqp=n_sqp)
         last, first = (n_al, n_sqp) == (st.n_al, st.n_sqp), (n_al, n_sqp) == (1, 1)
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
@@ -448,7 +471,7 @@ def k2a_f64_phase(spec, st, args64, tag):
         torch.cuda.synchronize()
         info, passed, err, sens = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth,
-            min_converged_frac=0.25 if last else 0.0, every_lane=first,
+            min_converged_frac=floor if last else 0.0, every_lane=first,
             outs_r=outs_r, outs_spread=outs_s,
         )
         print(f"{tag} f64 at {n_al}x{n_sqp}: {json.dumps(info)} passed={passed}")
@@ -471,17 +494,18 @@ def _double(args32):
     )
 
 
-def k2a_check(spec, st, args32, tag):
+def k2a_check(spec, st, args32, tag, floor=0.25):
     """The fused kernel against its plain version on one set of warm inputs:
     float64 at every prefix of the schedule, then float32 at bench-gate
-    semantics. Returns the gate's info."""
+    semantics, each with at least ``floor`` of the lanes converged on both
+    after the whole schedule. Returns the gate's info."""
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.solvers import agreement
 
-    k2a_f64_phase(spec, st, _double(args32), tag)
+    k2a_f64_phase(spec, st, _double(args32), tag, floor)
     out_k = k2a.fused_solve_cuda(spec, st, *args32)
     out_p = k2a.fused_solve_plain(spec, st, *args32)
-    info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp)
+    info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp, floor)
     print(f"{tag} f32: {json.dumps(info)} passed={passed}")
     if not passed:
         _fail(f"the fused kernel disagrees with its plain version in float32 ({tag})")
@@ -592,12 +616,15 @@ def k2c_cases():
 
 def family_case(name, save=None, batch=RESCUE_SLOTS):
     """One case of phases 14 and 23: the fused kernel against its plain
-    version on ``family_state``'s warm inputs; with ``save``, the inputs and
-    the float32 check's info go to that file for ``family_phase`` to time."""
+    version on ``family_state``'s warm inputs (at least a quarter of the
+    lanes converged on both, or the case's ``CONVERGED_FLOOR``); with
+    ``save``, the inputs and the float32 check's info go to that file for
+    ``family_phase`` to time."""
     import torch
 
     spec, warm, args32 = family_state(name, batch)
-    info = k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}")
+    info = k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}",
+                     CONVERGED_FLOOR.get(name, 0.25))
     if save is not None:
         torch.save({"args": args32, "info": info}, save)
 
@@ -622,10 +649,42 @@ def k2d_cases():
     )
 
 
+def k2f_cases():
+    """The B=1024 cases of the non-uniform grid (K2f): config #2 with the
+    integral trapezoidal form, hybrid weight 0.4 and a variable per-stage dt
+    in [1e-3, 0.5] (the spec of the JAX package's
+    ``tests/test_fused_solver.py::test_fused_nonuniform_trapezoidal_quadratic_matches_xla``
+    at N=30: the dt_{k-1} coupling row), and ``mixed-dynamic`` on the grid
+    (the cumulative prediction times under ``GEO_ALL``)."""
+    from mpc_local_planner_tpu_torch.benchmarks import config2_diffdrive_obstacles
+
+    trap = dataclasses.replace(
+        config2_diffdrive_obstacles(N=30, obstacle_cap=10), integral_form=True,
+        cost_integration="trapezoidal", hybrid_time_weight=0.4, variable_dt=True,
+        nonuniform_dt=True, dt_min=1e-3, dt_max=0.5)
+    mixed, slots = {n: (s, m) for n, s, m in k2c_cases()}["mixed-dynamic"]
+    return (
+        ("nonuniform-trapezoidal-quadratic", trap, None),
+        ("nonuniform-mixed-dynamic", dataclasses.replace(mixed, nonuniform_dt=True), slots),
+    )
+
+
+# The least share of the lanes converged on both versions after the whole
+# schedule, where a case's form converges fewer than the rule's quarter.
+# The trapezoidal form converges 91 of 1024 lanes at the warm 3×4 on the
+# card (JAX converges as few on the CPU: tests/test_torch_nonuniform_solves.py);
+# it is held to 64 lanes, the count the gate asks of its 256.
+CONVERGED_FLOOR = {"nonuniform-trapezoidal-quadratic": 1 / 16}
+
+
+def all_cases():
+    return model_cases() + k2c_cases() + k2d_cases() + k2f_cases()
+
+
 def case_spec(name):
-    """(spec, slot mix) of a case of ``model_cases``, ``k2c_cases`` or
-    ``k2d_cases``."""
-    return {n: (s, m) for n, s, m in model_cases() + k2c_cases() + k2d_cases()}[name]
+    """(spec, slot mix) of a case of ``model_cases``, ``k2c_cases``,
+    ``k2d_cases`` or ``k2f_cases``."""
+    return {n: (s, m) for n, s, m in all_cases()}[name]
 
 
 def family_state(name, batch=RESCUE_SLOTS, case=None):
@@ -633,18 +692,22 @@ def family_state(name, batch=RESCUE_SLOTS, case=None):
     ``case`` under ``name`` (a spec, and a slot mix for
     ``benchmarks.mixed_obstacles``, None for ``random_ensemble``'s circles,
     or a kind of ``benchmarks.case_ensemble``) at ``batch`` lanes: its own
-    cold solve (un-fused, K1) and two fleet cycles (fused, the flagship's
-    warm settings). Returns (spec, the warm settings, the fleet cycle's next
-    warm inputs)."""
+    cold solve and two fleet cycles (fused, the flagship's warm settings).
+    The cold solve is the fused kernel's at the spec's cold preset: the
+    same algorithm as the un-fused solve the main paths run (the plain
+    version, which the kernel is held to, drives the port's own ``solve``),
+    in one launch, where the un-fused one is host-bound for tens of seconds
+    and fourteen of them at once crowd the host. Returns (spec, the warm
+    settings, the fleet cycle's next warm inputs)."""
     import torch
 
     from mpc_local_planner_tpu_torch.benchmarks import case_ensemble, mixed_obstacles
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
     from mpc_local_planner_tpu_torch.solvers.al_sqp import (
         SolverSettings,
         default_init,
         init_duals,
-        make_solver,
     )
 
     device = torch.device("cuda", 0)
@@ -662,7 +725,7 @@ def family_state(name, batch=RESCUE_SLOTS, case=None):
         scen = dataclasses.replace(scen, obstacles=mixed_obstacles(
             batch, gen, dtype=torch.float32, device=device, **slots))
     init, duals = default_init(spec, cold, scen)
-    r = make_solver(spec, cold, device)(scen, init, duals)
+    r = k2a.fused_solve_cuda(spec, cold, scen, init, duals)
     duals0 = init_duals(spec, warm, dtype=torch.float32, device=device, batch=(batch,))
     cycle = make_fleet_cycle(spec, warm, duals0, device=device)
     for _ in range(SETTLE_CYCLES):
@@ -687,6 +750,7 @@ def family_phase(names):
 
     import torch
 
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         saved = {name: f"{tmp}/{name}.pt" for name in names}
         procs = [
@@ -709,6 +773,7 @@ def family_phase(names):
                     proc.wait()
         if failed:
             _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
+        print(f"family cases: {len(names)} processes done in {time.perf_counter() - t0:.2f} s")
         warm = dataclasses.replace(flagship()[2], fused="auto")
         for name in names:
             case = torch.load(saved[name], map_location="cuda:0", weights_only=False)
@@ -721,7 +786,8 @@ def family_phase(names):
 def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
     """A warm fleet cycle on the fused path (``main_path``'s keywords pass
     through): the fused kernel must carry every warm solve and rescue pass
-    (1 + chain launches per cycle), K1 the cold solve and the oracle and
+    (1 + chain launches per cycle), K1 the cold solve and the oracle (on the
+    non-uniform grid none: their KKT solve is the plain lqr_solve) and
     nothing in the warm cycles, and converged_frac reach ``floor``. Prints
     the path's line; returns (extra, settled state, one cycle, fused
     launches)."""
@@ -736,7 +802,7 @@ def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
     )
     fused = k2a.fused_solve_cuda.launches
     k1 = riccati_cuda.lqr_solve_cuda.launches
-    cold_iters = cold.n_al * cold.n_sqp
+    cold_iters = 0 if spec.nonuniform_dt else cold.n_al * cold.n_sqp  # K1 per cold solve
     print(json.dumps({**extra, "path": tag, "fused_launches": fused, "k1_launches": k1,
                       "k1_launches_in_warm_cycles": k1_before_oracle - cold_iters,
                       "device": card, **secs, "main_path_s": time.perf_counter() - t0}))
@@ -792,19 +858,44 @@ def trace_phase(cycle, settled, cycle_ms):
     return out
 
 
+PATH_FAMILIES = ("canonical_carlike", "converter_lines", "polygon_footprint", "via_points",
+                 "nonuniform")  # paths A-E
+
+
+def fused_groups():
+    """The fused kernel's library groups that the smoke launches: those of
+    the flagship, config #2, paths A-E and every case of phases 14 and 23,
+    in float32 and float64."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+
+    specs = [flagship()[0], config2()] + [family_spec(f, N=30) for f in PATH_FAMILIES]
+    specs += [spec for _, spec, _ in all_cases()]
+    return sorted({k2a.group(s, d) for s in specs for d in (torch.float32, torch.float64)})
+
+
 def build_phase():
-    """Build K1 and the fused kernel at once (one nvcc each); print times and
+    """Build K1 and the fused kernel's groups the smoke launches, all at once
+    (one nvcc each); print each build's seconds, the phase's wall time and
     ptxas' registers, stack frames and spills for every instantiation."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
 
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(lambda m: m.build(), (riccati_cuda, fused_al_sqp_cuda)))
+        k1 = pool.submit(riccati_cuda.build)
+        fused = pool.submit(fused_al_sqp_cuda.build, fused_groups())
+        builds = [k1.result(), *fused.result()]
+    wall = time.perf_counter() - t0
     for built in builds:
         print(f"build: {built['path']} in {built['seconds']:.2f} s")
         for name, usage in ptxas_rows(built["ptxas"]):
             print(f"  ptxas: {name}: {usage}")
+    print(f"build: phase 2 wall {wall:.2f} s")
+    return wall
 
 
 def ptxas_rows(report):
@@ -817,12 +908,12 @@ def ptxas_rows(report):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            args = re.search(r"k2a_kernelI([fd])Li(\d)ELi(\d)ELi(\d+)E", name)
+            args = re.search(r"k2a_kernelI([fd])Li(\d)ELi(\d)ELi(\d+)ELb([01])E", name)
             if args:
-                t, model, obj, geo = args.groups()
+                t, model, obj, geo, nonu = args.groups()
                 objective = {"0": "minimum time", "1": "quadratic", "2": "via points"}[obj]
                 name = (f"k2a_kernel<{'float' if t == 'f' else 'double'}, model {model}, "
-                        f"{objective}, GEO {geo}>")
+                        f"{objective}, GEO {geo}{', NONU' if nonu == '1' else ''}>")
             usage = {}
         for key, pat in (("stack", r"(\d+) bytes stack frame"), ("st", r"(\d+) bytes spill stores"),
                          ("ld", r"(\d+) bytes spill loads"), ("reg", r"Used (\d+) registers")):
@@ -852,13 +943,22 @@ def main():
     device = torch.device("cuda", 0)
 
     # ---- 2. build ------------------------------------------------------- #
-    build_phase()
+    t_start = time.perf_counter()
+    build_s = build_phase()
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(tag):
+        """The seconds since the last lap, under ``tag`` in ``smoke_split_s``."""
+        now = time.perf_counter()
+        laps[tag] = now - t_lap[0]
+        t_lap[0] = now
 
     # ---- 3. K1 against its plain version --------------------------------- #
     spec, cold, warm, rescue_set = flagship()
     k1 = kernel_phase(spec, warm, device)
     kernel_phase(flagship(N=K1_LONG_N)[0], warm, device, batches=(BATCH,),
                  tag=f"K1 N={K1_LONG_N}")
+    lap("3_k1")
 
     # ---- 4. main path, un-fused ------------------------------------------ #
     riccati_cuda.lqr_solve_cuda.launches = 0
@@ -888,11 +988,13 @@ def main():
 
     # ---- 6. where one un-fused warm cycle's device time goes -------------- #
     print(json.dumps({"trace": trace_phase(cycle, settled, extra["cycle_ms"])}))
+    lap("4_6_unfused")
 
     # ---- 7. K2a against its plain version --------------------------------- #
     warm_f = dataclasses.replace(warm, fused="auto")
     rescue_f = dataclasses.replace(rescue_set, fused="auto")
     k2a_rows = k2a_phase(spec, warm_f, rescue_f, settled)
+    lap("7_k2a")
 
     # ---- 8. main path, fused, from the same cold solve --------------------- #
     riccati_cuda.lqr_solve_cuda.launches = 0
@@ -924,6 +1026,7 @@ def main():
 
     # ---- 10. where one fused warm cycle's device time goes ----------------- #
     print(json.dumps({"trace_fused": trace_phase(cycle_f, settled_f, extra_f["cycle_ms"])}))
+    lap("8_10_fused")
 
     # ---- 11. K1 without the free δτ (config #2, fixed dt) ------------------- #
     spec2, cold2, warm2, rescue2 = fleet_settings(config2())
@@ -941,6 +1044,7 @@ def main():
 
     # ---- 15-16. config #2 fused-vs-un-fused gate, trace ---------------------- #
     gate_and_trace("config2", spec2, warm2, warm2_f, settled2, cycle2, extra2["cycle_ms"])
+    lap("11_16_config2")
 
     # ---- 17-19. path A: the reference's car-like config (two discs) --------- #
     from mpc_local_planner_tpu_torch.benchmarks import family_spec
@@ -955,6 +1059,7 @@ def main():
     rows_a = k2a_phase(specA, warmA_f, rescueA_f, settledA, name="pathA")
     gate_and_trace("canonical_carlike", specA, warmA, warmA_f, settledA, cycleA,
                    extraA["cycle_ms"])
+    lap("17_19_path_a")
 
     # ---- 20-22. path B: the wall world (line slots), warm 4x4, chained ------ #
     specB, coldB, warmB, _ = fleet_settings(family_spec("converter_lines", N=30))
@@ -969,6 +1074,7 @@ def main():
                        slots=LINES_RESCUE_SLOTS)
     gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
                    extraB["cycle_ms"])
+    lap("20_22_path_b")
 
     # ---- 24-26. path C: the polygon-footprint family (a moving rectangle) -- #
     specC, coldC, warmC, rescueC = fleet_settings(family_spec("polygon_footprint", N=30))
@@ -981,6 +1087,7 @@ def main():
     rows_c = k2a_phase(specC, warmC_f, rescueC_f, settledC, name="pathC")
     gate_and_trace("polygon_footprint", specC, warmC, warmC_f, settledC, cycleC,
                    extraC["cycle_ms"])
+    lap("24_26_path_c")
 
     # ---- 27-29. path D: the via-points family (K2d) ------------------------ #
     specD, coldD, warmD, rescueD = fleet_settings(family_spec("via_points", N=30))
@@ -992,11 +1099,30 @@ def main():
     )
     rows_d = k2a_phase(specD, warmD_f, rescueD_f, settledD, name="pathD")
     gate_and_trace("via_points", specD, warmD, warmD_f, settledD, cycleD, extraD["cycle_ms"])
+    lap("27_29_path_d")
 
-    # ---- 14 and 23. the other models, config #1, the K2c and K2d cases ----- #
-    family_phase([name for name, _, _ in model_cases() + k2c_cases() + k2d_cases()])
+    # ---- 30-32. path E: the non-uniform grid (K2f) ------------------------ #
+    specE, coldE, warmE, rescueE = fleet_settings(family_spec("nonuniform", N=30))
+    warmE_f = dataclasses.replace(warmE, fused="auto")
+    rescueE_f = dataclasses.replace(rescueE, fused="auto")
+    extraE, settledE, cycleE, fusedE = fused_path(
+        "nonuniform_fused", specE, coldE, warmE_f, rescueE_f, device, card, 0.5,
+        family="nonuniform",
+    )
+    rows_e = k2a_phase(specE, warmE_f, rescueE_f, settledE, name="pathE")
+    gate_and_trace("nonuniform", specE, warmE, warmE_f, settledE, cycleE, extraE["cycle_ms"])
+    lap("30_32_path_e")
+    paths_s = time.perf_counter() - t_start - build_s
 
-    # ---- 30. summary ---------------------------------------------------- #
+    # ---- 14 and 23. the other models, config #1, the K2c, K2d, K2f cases -- #
+    t_cases = time.perf_counter()
+    family_phase([name for name, _, _ in all_cases()])
+    print(json.dumps({"smoke_split_s": {
+        "build": build_s, "phases_3_to_32": paths_s,
+        "family_cases": time.perf_counter() - t_cases,
+        "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
+
+    # ---- 33. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
 
     def fused_row(name, launches, r):
@@ -1038,6 +1164,8 @@ def main():
                   "polygon-footprint family, path C)", fusedC, rows_c[BATCH]),
         fused_row("K2 fused_al_sqp: simple car, minimum time with via points (K2d; the "
                   "via-points family, path D)", fusedD, rows_d[BATCH]),
+        fused_row("K2 fused_al_sqp: simple car, minimum time on the non-uniform per-stage "
+                  "dt grid (K2f; the non-uniform family, path E)", fusedE, rows_e[BATCH]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
   (``GEO_NONE`` and ``GEO_ALL`` for disc footprints; a polygon footprint
   with static circle slots, ``GEO_FP_POLYGON``, and with every slot family,
   ``GEO_FP_POLYGON | GEO_SLOTS``; a line footprint, ``GEO_FP_LINE |
-  GEO_SLOTS``), and prints ptxas' registers, stack frame and spills for
-  each.
+  GEO_SLOTS``), and the kinematic bicycle's ``GEO_FP_POLYGON`` pair
+  (minimum time and quadratic, two rows that move with the library they
+  are built in), and prints ptxas' registers, stack frame and spills for
+  each; of the tree in the working directory, as ``times`` does.
 - timing: the flagship's and config #2's warm solves at B=4096 from the
   straight-line seed, through the ``GEO_NONE`` instantiation and through
   ``GEO_ALL`` on the same inputs (the same spec with dynamic obstacles at zero
@@ -67,8 +69,10 @@ def registers():
 
     source = k2a.SOURCE.read_text()
     # the kernel templates without the entry points (which instantiate the
-    # launched ones), then a pointer to the one probed instantiation
+    # launched ones), then a pointer to the one probed instantiation: of the
+    # uniform grid, where the kernel has the template parameter NONU
     body = source[: source.index('extern "C" {')]
+    nonu = ", false" if "bool NONU" in body else ""
     nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def build(case):
@@ -76,7 +80,7 @@ def registers():
         name = f"fused_probe_{model}_{quad}_{PARTS[part]}"
         probe = nvcc_build.BUILD_DIR / f"{name}.cu"
         probe.write_text(body + f"void* fused_probe_kernel = (void*)&k2a_kernel<float, {model}, "
-                                f"{quad}, {part}>;\n")
+                                f"{quad}, {part}{nonu}>;\n")
         lib = nvcc_build.BUILD_DIR / f"lib{name}.so"
         lib.unlink(missing_ok=True)
         ptxas = nvcc_build.build_library(probe, lib)["ptxas"]
@@ -91,7 +95,8 @@ def registers():
 
     cases = [(model, obj, part) for model, obj in (("SIMPLE_CAR", "OBJ_MIN_TIME"),
                                                    ("UNICYCLE", "OBJ_QUADRATIC"))
-             for part in PARTS]
+             for part in PARTS] + [("BICYCLE", obj, "GEO_FP_POLYGON")
+                                   for obj in ("OBJ_MIN_TIME", "OBJ_QUADRATIC")]
     with ThreadPoolExecutor(max_workers=8) as pool:
         rows = list(pool.map(build, cases))
     print(json.dumps({"registers": rows}))

@@ -1,7 +1,7 @@
 """Benchmark problem definitions (port of ``mpc_local_planner_tpu.benchmarks``:
 BASELINE.json configs #1-#3, the scenario ensemble, and the flagship,
-canonical car-like, wall-world, via-points and polygon-footprint families
-with their ensembles)."""
+canonical car-like, wall-world, via-points, polygon-footprint and
+non-uniform-grid families with their ensembles)."""
 
 from __future__ import annotations
 
@@ -126,13 +126,6 @@ def random_ensemble(
     return Scenario(x0, xf, obstacles, via_points, via_mask, u_prev)
 
 
-# the families of the JAX package's family_spec that the port does not run
-# yet, with the ROADMAP item that brings each
-_FAMILIES_TO_PORT = {
-    "nonuniform": "M9, K2f",
-}
-
-
 def family_spec(name: str, N: int = 30) -> OcpSpec:
     """Widened-family variants of the flagship car-like minimum-time config:
     ``canonical_carlike`` is the reference's own footprint (two_circles,
@@ -141,7 +134,9 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
     ``family_ensemble``), ``via_points`` the minimum-time objective with 4
     via points (position weight 2, unordered, filled with corridor points
     by ``family_ensemble``), ``polygon_footprint`` a 0.5 × 0.3 m rectangular
-    body (the reference's ``footprint_model.type: polygon``)."""
+    body (the reference's ``footprint_model.type: polygon``), ``nonuniform``
+    the non-uniform grid of a per-stage dt (``random_ensemble``'s
+    scenarios)."""
     base = config3_carlike_min_time(N=N, obstacle_cap=8)
     if name == "flagship":
         return base
@@ -165,10 +160,8 @@ def family_spec(name: str, N: int = 30) -> OcpSpec:
                 vertices=((0.25, 0.15), (-0.25, 0.15), (-0.25, -0.15), (0.25, -0.15))
             ),
         )
-    if name in _FAMILIES_TO_PORT:
-        raise NotImplementedError(
-            f"family {name!r} is not ported yet (ROADMAP {_FAMILIES_TO_PORT[name]})"
-        )
+    if name == "nonuniform":
+        return dataclasses.replace(base, nonuniform_dt=True)
     raise ValueError(f"unknown family {name!r}")
 
 

@@ -15,15 +15,21 @@
 // weight, the Pallas via_sweep and via_rows; the quadratic form plain or
 // integral, left-sum or trapezoidal, the hybrid time weight), the terminal
 // quadratic cost, the terminal ball, and a uniform dt that is a decision
-// variable or fixed at dt_ref. K2a (simple car, minimum time, variable dt,
-// no ball, one disc at the pose, static circle slots) is the instantiation
-// <T, SIMPLE_CAR, OBJ_MIN_TIME, GEO_NONE>. Per scenario it computes:
+// variable or fixed at dt_ref, or the non-uniform grid of a per-stage dt
+// (template parameter NONU, the Pallas nonu branches: dt_k a third control
+// column of the step, a 3x3 Quu, the interval's dt box a stage row, the
+// prediction times the cumulative sums of the stage dt). K2a (simple car,
+// minimum time, variable dt, no ball, one disc at the pose, static circle
+// slots) is the instantiation <T, SIMPLE_CAR, OBJ_MIN_TIME, GEO_NONE,
+// false>. Per scenario it computes:
 //   per SQP iteration: the via points' stage assignment at the current
 //     states (via points only), the closed-form forward-difference linearization, the
 //     terminal P/p, the stage AL gradients and Hessians streamed into the
-//     backward Riccati sweep (2x2 Quu inverse, K/kff tape), the free dtau
-//     stage (variable dt only), the forward rollout, the NaN quarantine, the
-//     dt trust cap, the candidate line search on the AL merit (alpha = 0
+//     backward Riccati sweep (2x2 Quu inverse, 3x3 on the non-uniform grid,
+//     K/kff tape), the free dtau stage (variable uniform dt only), the
+//     forward rollout, the NaN quarantine, the dt trust cap (the least over
+//     the stages on the non-uniform grid, each stage's dt floored at dt_ref),
+//     the candidate line search on the AL merit (alpha = 0
 //     candidate last, first of equal merits wins; each candidate's via
 //     cost from its own assignment) and the reg update;
 //   per AL phase: the dual update with conditional rho growth and the
@@ -65,7 +71,11 @@
 // vertices stay in the launch's parameters (the constant bank, read in
 // place through a __grid_constant__ parameter); each world edge is formed
 // where it is needed from one cos / sin per pose. Five instantiations per
-// (type, model, objective family): 120 in all.
+// (type, model, objective family, grid): 240 in all. One build compiles the
+// five of one such group, named by the macros K2A_DOUBLE, K2A_MODEL,
+// K2A_OBJ and K2A_NONU: the wrapper builds each group it needs into a
+// library of its own (48 at most), many at once, and loads the one a
+// launch needs.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
 // the step (dxs, dus) and the best-feasible snapshot in the workspace, the
 // via points' stage indices (at most 8) in a per-thread array, the primal and
@@ -81,8 +91,10 @@
 //
 // N, M and the number of line-search candidates are runtime arguments with
 // no cap, as in the TPU kernel: the step (dxs, dus), the K/kff gain tape
-// and the best-feasible snapshot live in a workspace that the wrapper
-// allocates, workspace_per_lane(N) values per lane, tiled by warp as the
+// and the best-feasible snapshot (on the non-uniform grid also the step's
+// per-stage dt, the snapshot's and the N+1 prediction times) live in a
+// workspace that the wrapper allocates, workspace_per_lane(N, nonu) values
+// per lane, tiled by warp as the
 // hardware interleaves local memory: value i of lane b at
 // ws[((b / 32) * workspace_per_lane(N) + i) * 32 + b % 32], so that a warp's
 // loads and stores coalesce and each thread reaches its values at constant
@@ -95,6 +107,24 @@
 #include <cfloat>
 #include <cmath>
 #include <cuda_runtime.h>
+#include <type_traits>
+
+// the group of instantiations this build compiles (nvcc -D...): the
+// working type (K2A_DOUBLE: 0 float, 1 double), the model (K2A_MODEL, a
+// ModelId), the objective family (K2A_OBJ, an Objective) and the grid
+// (K2A_NONU: 0 the uniform grid, 1 the non-uniform grid of a per-stage dt)
+#ifndef K2A_DOUBLE
+#define K2A_DOUBLE 0
+#endif
+#ifndef K2A_MODEL
+#define K2A_MODEL 1
+#endif
+#ifndef K2A_OBJ
+#define K2A_OBJ 0
+#endif
+#ifndef K2A_NONU
+#define K2A_NONU 0
+#endif
 
 namespace {
 
@@ -104,6 +134,8 @@ constexpr int NA = 6;  // z = [dx (3), du_prev (2), dtau]
 constexpr int MAX_V = 16;  // padded polygon vertices (JAX fused_obstacles_supported)
 constexpr int MAX_VIA = 8;  // via points (JAX fused_supported)
 constexpr int TAPE = NU * NA + NU;  // one stage of the gain tape: K (2x6), kff (2)
+constexpr int NV3 = NU + 1;  // the non-uniform grid's control width: [du, ddt]
+constexpr int TAPE3 = NV3 * NA + NV3;  // its gain tape: K (3x6), kff (3)
 constexpr int THREADS = 32;
 constexpr int WARP = 32;  // the workspace's tile: one warp's lanes
 constexpr double BIG = 1.0e6;   // geometry.obstacles.BIG_DISTANCE
@@ -118,9 +150,12 @@ enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
 enum Objective { OBJ_MIN_TIME = 0, OBJ_QUADRATIC = 1, OBJ_VIA = 2 };
 
 // values of the workspace per lane: the step dxs ((N+1) x 3) and dus
-// (N x 2), the gain tape (N x TAPE), the snapshot bxs and bus
-__host__ __device__ constexpr int workspace_per_lane(int N) {
-  return 2 * ((N + 1) * NX + N * NU) + N * TAPE;
+// (N x 2), the gain tape (N x TAPE), the snapshot bxs and bus; on the
+// non-uniform grid the tape is N x TAPE3, then the step's ddt (N), the
+// snapshot's dt (N) and the prediction times (N + 1)
+__host__ __device__ constexpr int workspace_per_lane(int N, bool nonu) {
+  return nonu ? 2 * ((N + 1) * NX + N * NU) + N * TAPE3 + 3 * N + 1
+              : 2 * ((N + 1) * NX + N * NU) + N * TAPE;
 }
 
 // the GEO template parameter: the parts of the geometry an instantiation
@@ -174,6 +209,10 @@ struct K2aParams {
   double dt_trust_frac, rho_growth, rho_max;
   double reg0, reg_shrink, reg_grow, reg_min, reg_max;
   double viol_decrease_req, tol_eq, tol_ineq;
+  // the non-uniform grid (the template parameter NONU of the launch): the
+  // trust cap's floor dt_ref and the ddt column's proximal weight
+  int nonu;
+  double dt_ref, dt_prox;
 };
 
 namespace {
@@ -261,10 +300,23 @@ struct Seg {
   T ax, ay, bx, by, tax, tay, tbx, tby;
 };
 
-template <typename T, int MODEL, int OBJ, int GEO>
-struct Lane {
+// the non-uniform grid's per-lane state: the working per-stage dt (in the
+// output tensor), the trust cap's floor, the ddt column's proximal weight;
+// empty on the uniform grid, so that a uniform lane is laid out as before
+template <typename T, bool NONU>
+struct NonuState {
+  T* dts;
+  T dt_ref, dt_prox;
+};
+template <typename T>
+struct NonuState<T, false> {};
+
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
+struct Lane : NonuState<T, NONU> {
   static constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
   static constexpr bool VIA = OBJ == OBJ_VIA;
+  static constexpr int NV = NONU ? NV3 : NU;          // the step's control width
+  static constexpr int TAPE_L = NONU ? TAPE3 : TAPE;  // one stage of the gain tape
   int N, M, Mc, Ml, Mg, V, n_disc;
   bool dynamic, rot;  // rot: a disc sits off the pose (theta-dependent rows)
   T disc_off[2], disc_r[2];
@@ -294,16 +346,34 @@ struct Lane {
   __device__ __forceinline__ T& dxs(int k, int i) const { return wsv(k * NX + i); }
   __device__ __forceinline__ T& dus(int k, int i) const { return wsv((N + 1) * NX + k * NU + i); }
   __device__ __forceinline__ T& Kt(int k, int i, int j) const {
-    return wsv((N + 1) * NX + N * NU + k * TAPE + i * NA + j);
+    return wsv((N + 1) * NX + N * NU + k * TAPE_L + i * NA + j);
   }
   __device__ __forceinline__ T& kft(int k, int i) const {
-    return wsv((N + 1) * NX + N * NU + k * TAPE + NU * NA + i);
+    return wsv((N + 1) * NX + N * NU + k * TAPE_L + NV * NA + i);
   }
   __device__ __forceinline__ T& bxs(int k, int i) const {
-    return wsv((N + 1) * NX + N * NU + N * TAPE + k * NX + i);
+    return wsv((N + 1) * NX + N * NU + N * TAPE_L + k * NX + i);
   }
   __device__ __forceinline__ T& bus(int k, int i) const {
-    return wsv(2 * (N + 1) * NX + N * NU + N * TAPE + k * NU + i);
+    return wsv(2 * (N + 1) * NX + N * NU + N * TAPE_L + k * NU + i);
+  }
+  // the non-uniform grid: the step's ddt_k, the snapshot's dt_k, the
+  // prediction time of pose i at the solve's initial dt (sum_{j<i} dt_j)
+  __device__ __forceinline__ T& dtaus(int k) const {
+    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + k);
+  }
+  __device__ __forceinline__ T& bdts(int k) const {
+    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + N + k);
+  }
+  __device__ __forceinline__ T& tv(int i) const {
+    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + 2 * N + i);
+  }
+
+  // the dt of stage k: the shared dt, or the stage's own on the non-uniform
+  // grid
+  __device__ __forceinline__ T dt_at(int k) const {
+    if constexpr (NONU) return this->dts[k];
+    return dt;
   }
 
   __device__ __forceinline__ void x_at(int k, T x[NX]) const {
@@ -396,14 +466,18 @@ struct Lane {
 
   // the quadratic form's stage cost at stage k: lx + lu (plain) or
   // (iw lx + lu) dt (integral; iw = 1/2 at k = 0 under the trapezoidal rule),
-  // plus hybrid * dt
-  __device__ __forceinline__ T stage_cost(const T x[NX], const T u[NU], T dtv, int k) const {
+  // plus hybrid * dt; on the non-uniform grid the trapezoidal stage is
+  // 1/2 (dtp + dt) lx + lu dt, dtp = dt_{k-1} (0 at k = 0)
+  __device__ __forceinline__ T stage_cost(const T x[NX], const T u[NU], T dtv, int k,
+                                          T dtp = T(0)) const {
     T d[NX];
     goal_dx(x, d);
     const T lx = q[0] * d[0] * d[0] + q[1] * d[1] * d[1] + q[2] * d[2] * d[2];
     const T lu = r[0] * u[0] * u[0] + r[1] * u[1] * u[1];
     T c;
-    if (integral) {
+    if (NONU && integral && trapezoidal) {
+      c = T(0.5) * (dtp + dtv) * lx + lu * dtv;
+    } else if (integral) {
       const T iw = (trapezoidal && k == 0) ? T(0.5) : T(1);
       c = (iw * lx + lu) * dtv;
     } else {
@@ -450,14 +524,34 @@ struct Lane {
   // the augmented transition of stage k at the current iterate:
   //   Fz = [[F, 0, m], [0, 0, 0], [0, 0, 1]], Gz = [[G], [I], [0]], rz = [c; 0]
   // with F = I + dt Jx, G = dt Ju, m = f (0 on a fixed dt), c the defect
-  // (E = -I exactly)
-  __device__ __forceinline__ void transition(int k, T Fz[NA][NA], T Gz[NA][NU],
+  // (E = -I exactly); on the non-uniform grid (ddt_k the control column 2,
+  // ddt_{k-1} in z[5]) Fz = [[F, 0, 0], [0, 0, 0]], Gz = [[G | m], [I3]]
+  __device__ __forceinline__ void transition(int k, T Fz[NA][NA], T Gz[NA][NV],
                                              T rz[NA]) const {
     T xk[NX], uk[NU], xk1[NX], f[NX], jx[2], ju[NX][NU];
     x_at(k, xk);
     u_at(k, uk);
     x_at(k + 1, xk1);
     dyn(xk, uk, f, jx, ju);
+    if constexpr (NONU) {
+      const T dk = this->dts[k];
+      rz[0] = xk[0] + dk * f[0] - xk1[0];
+      rz[1] = xk[1] + dk * f[1] - xk1[1];
+      rz[2] = wrap(xk[2] + dk * f[2] - xk1[2]);
+      rz[3] = rz[4] = rz[5] = T(0);
+      for (int i = 0; i < NA; ++i)
+        for (int j = 0; j < NA; ++j) Fz[i][j] = T(0);
+      for (int i = 0; i < NX; ++i) {
+        Fz[i][i] = T(1);
+        for (int j = 0; j < NU; ++j) Gz[i][j] = dk * ju[i][j];
+        Gz[i][NU] = f[i];
+      }
+      Fz[0][2] = dk * jx[0];
+      Fz[1][2] = dk * jx[1];
+      for (int i = 0; i < NV3; ++i)
+        for (int j = 0; j < NV3; ++j) Gz[NX + i][j] = i == j ? T(1) : T(0);
+      return;
+    }
     rz[0] = xk[0] + dt * f[0] - xk1[0];
     rz[1] = xk[1] + dt * f[1] - xk1[1];
     rz[2] = wrap(xk[2] + dt * f[2] - xk1[2]);
@@ -1019,6 +1113,13 @@ struct Lane {
     return moving() ? T(i) * dtv : T(0);
   }
 
+  // the prediction time of pose i in the derivatives: at the solve's initial
+  // dt, on the non-uniform grid the hoisted sum of its initial stage dt
+  __device__ __forceinline__ T deriv_time(int i) const {
+    if constexpr (NONU) return moving() ? tv(i) : T(0);
+    return pose_time(i, dt0);
+  }
+
   // rows of the stage inequalities that are linear: rate (4) and box (4)
   __device__ __forceinline__ void rate_g(const T u[NU], const T up[NU], T dtv, T g[4]) const {
     const T du0 = u[0] - up[0], du1 = u[1] - up[1];
@@ -1034,24 +1135,80 @@ struct Lane {
     g[3] = lo_u[1] - u[1];
   }
 
+  // the quadratic form's stage terms on the non-uniform grid, exact: the dt
+  // terms on the control column 2, the trapezoidal dt_{k-1} coupling on
+  // z[5] (the Pallas nonu branch of stage_grad_hess)
+  __device__ __forceinline__ void quadratic_nonu(int k, const T xk[NX], const T uk[NU],
+                                                 T hz[NA], T hu[NV], T Hzz[NA][NA],
+                                                 T Hzu[NA][NV], T Huu[NV][NV]) const {
+    T d[NX];
+    goal_dx(xk, d);
+    const T dk = this->dts[k];
+    if (integral) {
+      const T lx = q[0] * d[0] * d[0] + q[1] * d[1] * d[1] + q[2] * d[2] * d[2];
+      const T lu = r[0] * uk[0] * uk[0] + r[1] * uk[1] * uk[1];
+      const T dtp = k == 0 ? T(0) : this->dts[k - 1];
+      const T wx = trapezoidal ? T(0.5) * (dtp + dk) : dk;
+      if (trapezoidal) {
+        hz[5] += T(0.5) * lx;
+        hu[2] += T(0.5) * lx + lu;
+      } else {
+        hu[2] += lx + lu;
+      }
+      for (int i = 0; i < NX; ++i) {
+        const T qi = T(2) * q[i] * d[i];
+        hz[i] += qi * wx;
+        Hzz[i][i] += T(2) * q[i] * wx;
+        if (trapezoidal) {
+          Hzz[i][5] += T(0.5) * qi;
+          Hzz[5][i] = Hzz[i][5];
+          Hzu[i][2] += T(0.5) * qi;
+        } else {
+          Hzu[i][2] += qi;
+        }
+      }
+      for (int j = 0; j < NU; ++j) {
+        const T rj = T(2) * r[j] * uk[j];
+        hu[j] += rj * dk;
+        Huu[j][j] += T(2) * r[j] * dk;
+        Huu[j][2] += rj;
+        Huu[2][j] = Huu[j][2];
+      }
+    } else {
+      for (int i = 0; i < NX; ++i) {
+        hz[i] += T(2) * q[i] * d[i];
+        Hzz[i][i] += T(2) * q[i];
+      }
+      for (int j = 0; j < NU; ++j) {
+        hu[j] += T(2) * r[j] * uk[j];
+        Huu[j][j] += T(2) * r[j];
+      }
+    }
+    if (hybrid > T(0)) hu[2] += hybrid;
+  }
+
   // exact AL gradient (hz, hu) and hybrid Gauss-Newton Hessian blocks of the
-  // stage-k merit over z = [x, u_prev, dt] and v = u
-  __device__ __forceinline__ void stage_grad_hess(int k, T hz[NA], T hu[NU], T Hzz[NA][NA],
-                                                  T Hzu[NA][NU], T Huu[NU][NU]) const {
+  // stage-k merit over z = [x, u_prev, dt] and v = u; on the non-uniform grid
+  // over z = [x, u_prev, dt_{k-1}] and v = [u, dt_k], with the interval's dt
+  // box and the ddt column's proximal weight
+  __device__ __forceinline__ void stage_grad_hess(int k, T hz[NA], T hu[NV], T Hzz[NA][NA],
+                                                  T Hzu[NA][NV], T Huu[NV][NV]) const {
     for (int i = 0; i < NA; ++i) {
       hz[i] = T(0);
       for (int j = 0; j < NA; ++j) Hzz[i][j] = T(0);
-      for (int j = 0; j < NU; ++j) Hzu[i][j] = T(0);
+      for (int j = 0; j < NV; ++j) Hzu[i][j] = T(0);
     }
-    for (int i = 0; i < NU; ++i) {
+    for (int i = 0; i < NV; ++i) {
       hu[i] = T(0);
-      for (int j = 0; j < NU; ++j) Huu[i][j] = T(0);
+      for (int j = 0; j < NV; ++j) Huu[i][j] = T(0);
     }
     T xk[NX], uk[NU], up[NU];
     x_at(k, xk);
     u_at(k, uk);
     uprev_at(k, up);
-    if constexpr (QUAD) {
+    if constexpr (QUAD && NONU) {
+      quadratic_nonu(k, xk, uk, hz, hu, Hzz, Hzu, Huu);
+    } else if constexpr (QUAD) {
       // the quadratic form, exact: gradient and (diagonal, PSD) Hessian,
       // with the x-dt and u-dt rows of the integral form
       T d[NX];
@@ -1086,17 +1243,22 @@ struct Lane {
       }
       if (hybrid > T(0)) hz[5] += hybrid;
     } else {
-      hz[5] = T(1);  // minimum time: the stage cost dt has a unit gradient
+      // minimum time: the stage cost dt has a unit gradient (dt_k: v[2])
+      if constexpr (NONU)
+        hu[2] = T(1);
+      else
+        hz[5] = T(1);
       if constexpr (VIA) via_rows(xk, k, hz, Hzz);
     }
 
     // obstacles at x_k with multiplier row k-1 (inactive at k = 0), predicted
     // to k dt at the solve's initial dt
-    if (k > 0) obstacle_block(xk, mo + (k - 1) * M, pose_time(k, dt0), hz, Hzz);
+    if (k > 0) obstacle_block(xk, mo + (k - 1) * M, deriv_time(k), hz, Hzz);
 
-    // rate rows g = +-(du - b dt): J over [u_prev (z), dt (z), u (v)]
+    // rate rows g = +-(du - b dt): J over [u_prev (z), dt (z), u (v)]; on the
+    // non-uniform grid dt_k is v[2]
     T gr[4];
-    rate_g(uk, up, dt, gr);
+    rate_g(uk, up, dt_at(k), gr);
     for (int idx = 0; idx < 4; ++idx) {
       const int comp = idx & 1;
       const T sgn = idx < 2 ? T(1) : T(-1);
@@ -1111,6 +1273,14 @@ struct Lane {
       Hzz[zi][zi] += aw * jz_up * jz_up;
       Hzu[zi][comp] += aw * jz_up * jv;
       Huu[comp][comp] += aw * jv * jv;
+      if constexpr (NONU) {
+        hu[2] += a * jz_t;
+        Hzu[zi][2] += aw * jz_up * jz_t;
+        Huu[comp][2] += aw * jv * jz_t;
+        Huu[2][comp] = Huu[comp][2];
+        Huu[2][2] += aw * jz_t * jz_t;
+        continue;
+      }
       hz[5] += a * jz_t;
       Hzz[zi][5] += aw * jz_up * jz_t;
       Hzz[5][zi] = Hzz[zi][5];
@@ -1128,11 +1298,23 @@ struct Lane {
       hu[comp] += hinge(t) * sgn;
       Huu[comp][comp] += hinge_w(t, rho);
     }
+
+    if constexpr (NONU) {
+      // the interval's dt box, exact, and the ddt column's proximal weight
+      const T dk = this->dts[k];
+      const T t1 = md[2 * k] + rho * (dk - dt_max);
+      const T t2 = md[2 * k + 1] + rho * (dt_min - dk);
+      hu[2] += hinge(t1) - hinge(t2);
+      Huu[2][2] += hinge_w(t1, rho) + hinge_w(t2, rho);
+      if (this->dt_prox > T(0)) Huu[2][2] += this->dt_prox;
+    }
   }
 
   // PN (6x6) and pN (6) of the terminal merit: the masked terminal equality,
   // Qf, the obstacle Gauss-Newton block at x_N (multiplier row N-1), the
-  // trapezoidal tail, the terminal ball and the dt box (variable dt only)
+  // trapezoidal tail, the terminal ball and the dt box (variable uniform dt
+  // only; on the non-uniform grid z[5] is dt_{N-1} and the boxes are stage
+  // rows)
   __device__ __forceinline__ void terminal_Pp(T P[NA][NA], T p[NA]) const {
     for (int i = 0; i < NA; ++i) {
       p[i] = T(0);
@@ -1154,13 +1336,14 @@ struct Lane {
       }
     }
     if constexpr (VIA) via_rows(xN, N, p, P);
-    obstacle_block(xN, mo + (N - 1) * M, pose_time(N, dt0), p, P);
+    obstacle_block(xN, mo + (N - 1) * M, deriv_time(N), p, P);
     if (QUAD && integral && trapezoidal) {
       // the 1/2 dt lx(x_N) tail, exact, with its dtau cross terms
+      const T dtN = dt_at(N - 1);
       p[5] += T(0.5) * (q[0] * gd[0] * gd[0] + q[1] * gd[1] * gd[1] + q[2] * gd[2] * gd[2]);
       for (int i = 0; i < NX; ++i) {
-        p[i] += q[i] * gd[i] * dt;
-        P[i][i] += q[i] * dt;
+        p[i] += q[i] * gd[i] * dtN;
+        P[i][i] += q[i] * dtN;
         P[i][5] += q[i] * gd[i];
         P[5][i] = P[i][5];
       }
@@ -1177,7 +1360,7 @@ struct Lane {
         for (int j = 0; j < NX; ++j) P[i][j] += hwb * gp[i] * gp[j];
       }
     }
-    if (vdt) {
+    if (vdt && !NONU) {
       const T t1 = md[0] + rho * (dt - dt_max);
       const T t2 = md[1] + rho * (dt_min - dt);
       p[5] += hinge(t1) - hinge(t2);
@@ -1186,18 +1369,21 @@ struct Lane {
   }
 
   // the Riccati sweep, the free dtau stage and the rollout: the step of one
-  // SQP iteration into dxs, dus, dtau (the algebra of kernel K1)
+  // SQP iteration into dxs, dus, dtau (the algebra of kernel K1); on the
+  // non-uniform grid the control is [du, ddt_k] (ddt_k into dtaus, a 3x3 Quu
+  // inverted by its adjugate over its determinant, as the Pallas kernel
+  // does) and no free dtau
   __device__ __forceinline__ void kkt_step(T reg) {
     T P[NA][NA], p[NA];
     terminal_Pp(P, p);
     for (int k = N - 1; k >= 0; --k) {
-      T Fz[NA][NA], Gz[NA][NU], rz[NA];
+      T Fz[NA][NA], Gz[NA][NV], rz[NA];
       transition(k, Fz, Gz, rz);
-      T hz[NA], hu[NU], Hzz[NA][NA], Hzu[NA][NU], Huu[NU][NU];
+      T hz[NA], hu[NV], Hzz[NA][NA], Hzu[NA][NV], Huu[NV][NV];
       stage_grad_hess(k, hz, hu, Hzz, Hzu, Huu);
 
       // PF = P Fz ; PG = P Gz ; Prp = P rz + p
-      T PF[NA][NA], PG[NA][NU], Prp[NA];
+      T PF[NA][NA], PG[NA][NV], Prp[NA];
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
         T acc_r = T(0);
@@ -1212,7 +1398,7 @@ struct Lane {
           PF[i][j] = acc;
         }
 #pragma unroll
-        for (int j = 0; j < NU; ++j) {
+        for (int j = 0; j < NV; ++j) {
           T acc = T(0);
 #pragma unroll
           for (int l = 0; l < NA; ++l) acc += P[i][l] * Gz[l][j];
@@ -1220,7 +1406,7 @@ struct Lane {
         }
       }
       // Qzz = Hzz + Fz' PF ; Qzu = Hzu + Fz' PG ; Quu = Huu + Gz' PG + reg I
-      T Qzz[NA][NA], Qzu[NA][NU], Quu[NU][NU], qz[NA], qu[NU];
+      T Qzz[NA][NA], Qzu[NA][NV], Quu[NV][NV], qz[NA], qu[NV];
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
 #pragma unroll
@@ -1231,7 +1417,7 @@ struct Lane {
           Qzz[i][j] = Hzz[i][j] + acc;
         }
 #pragma unroll
-        for (int j = 0; j < NU; ++j) {
+        for (int j = 0; j < NV; ++j) {
           T acc = T(0);
 #pragma unroll
           for (int l = 0; l < NA; ++l) acc += Fz[l][i] * PG[l][j];
@@ -1243,9 +1429,9 @@ struct Lane {
         qz[i] = hz[i] + acc;
       }
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
+      for (int i = 0; i < NV; ++i) {
 #pragma unroll
-        for (int j = 0; j < NU; ++j) {
+        for (int j = 0; j < NV; ++j) {
           T acc = T(0);
 #pragma unroll
           for (int l = 0; l < NA; ++l) acc += Gz[l][i] * PG[l][j];
@@ -1255,6 +1441,10 @@ struct Lane {
 #pragma unroll
         for (int l = 0; l < NA; ++l) acc += Gz[l][i] * Prp[l];
         qu[i] = hu[i] + acc;
+      }
+      if constexpr (NONU) {
+        gains3(k, Qzz, Qzu, Quu, qz, qu, P, p);
+        continue;
       }
       // closed-form 2x2 inverse; K = -Quu^-1 Qzu' ; kff = -Quu^-1 qu
       const T inv_det = T(1) / (Quu[0][0] * Quu[1][1] - Quu[0][1] * Quu[1][0]);
@@ -1286,23 +1476,28 @@ struct Lane {
       }
     }
 
-    // free dtau (variable dt only): max(P_tau, tiny) that keeps a NaN (fmax
-    // would drop it)
-    const T Ptau = P[NA - 1][NA - 1] + reg;
-    const T den = Ptau < tiny<T>() ? tiny<T>() : Ptau;
-    dtau = vdt ? -p[NA - 1] / den : T(0);
+    // free dtau (variable uniform dt only): max(P_tau, tiny) that keeps a
+    // NaN (fmax would drop it)
+    if constexpr (NONU) {
+      dtau = T(0);
+    } else {
+      const T Ptau = P[NA - 1][NA - 1] + reg;
+      const T den = Ptau < tiny<T>() ? tiny<T>() : Ptau;
+      dtau = vdt ? -p[NA - 1] / den : T(0);
+    }
 
-    // forward rollout from z_0 = [0, 0, dtau]
+    // forward rollout from z_0 = [0, 0, dtau] (ddt_{-1} = 0 on the
+    // non-uniform grid)
     T z[NA];
     for (int i = 0; i < NA; ++i) z[i] = T(0);
     z[NA - 1] = dtau;
     for (int i = 0; i < NX; ++i) dxs(0, i) = T(0);
     for (int k = 0; k < N; ++k) {
-      T Fz[NA][NA], Gz[NA][NU], rz[NA];
+      T Fz[NA][NA], Gz[NA][NV], rz[NA];
       transition(k, Fz, Gz, rz);
-      T u[NU];
+      T u[NV];
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
+      for (int i = 0; i < NV; ++i) {
         T acc = T(0);
 #pragma unroll
         for (int j = 0; j < NA; ++j) acc += Kt(k, i, j) * z[j];
@@ -1316,10 +1511,11 @@ struct Lane {
         for (int j = 0; j < NA; ++j) acc += Fz[i][j] * z[j];
         T accu = T(0);
 #pragma unroll
-        for (int l = 0; l < NU; ++l) accu += Gz[i][l] * u[l];
+        for (int l = 0; l < NV; ++l) accu += Gz[i][l] * u[l];
         zn[i] = acc + accu + rz[i];
       }
       for (int i = 0; i < NU; ++i) dus(k, i) = u[i];
+      if constexpr (NONU) dtaus(k) = u[NU];
       for (int i = 0; i < NX; ++i) dxs(k + 1, i) = zn[i];
       for (int i = 0; i < NA; ++i) z[i] = zn[i];
     }
@@ -1329,6 +1525,7 @@ struct Lane {
     for (int k = 0; k < N; ++k) {
       for (int i = 0; i < NX; ++i) ok = ok && isfinite(dxs(k + 1, i));
       for (int i = 0; i < NU; ++i) ok = ok && isfinite(dus(k, i));
+      if constexpr (NONU) ok = ok && isfinite(dtaus(k));
     }
     if (!ok) {
       dtau = T(0);
@@ -1336,6 +1533,53 @@ struct Lane {
         for (int i = 0; i < NX; ++i) dxs(k, i) = T(0);
       for (int k = 0; k < N; ++k)
         for (int i = 0; i < NU; ++i) dus(k, i) = T(0);
+      if constexpr (NONU)
+        for (int k = 0; k < N; ++k) dtaus(k) = T(0);
+    }
+  }
+
+  // the gains of stage k on the non-uniform grid: the closed-form 3x3 inverse
+  // of Quu (adjugate over determinant, the Pallas kernel's cofactor order),
+  // K = -Quu^-1 Qzu', kff = -Quu^-1 qu into the tape, then
+  // P <- Qzz + Qzu K (symmetrized), p <- qz + Qzu kff
+  __device__ __forceinline__ void gains3(int k, const T Qzz[NA][NA], const T Qzu[NA][NV],
+                                         const T Quu[NV][NV], const T qz[NA], const T qu[NV],
+                                         T P[NA][NA], T p[NA]) const {
+    const T a00 = Quu[0][0], a01 = Quu[0][1], a02 = Quu[0][2];
+    const T a10 = Quu[1][0], a11 = Quu[1][1], a12 = Quu[1][2];
+    const T a20 = Quu[2][0], a21 = Quu[2][1], a22 = Quu[2][2];
+    const T c00 = a11 * a22 - a12 * a21, c01 = a02 * a21 - a01 * a22, c02 = a01 * a12 - a02 * a11;
+    const T c10 = a12 * a20 - a10 * a22, c11 = a00 * a22 - a02 * a20, c12 = a02 * a10 - a00 * a12;
+    const T c20 = a10 * a21 - a11 * a20, c21 = a01 * a20 - a00 * a21, c22 = a00 * a11 - a01 * a10;
+    const T inv_det = T(1) / (a00 * c00 + a01 * c10 + a02 * c20);
+    const T Qi[NV][NV] = {{c00 * inv_det, c01 * inv_det, c02 * inv_det},
+                          {c10 * inv_det, c11 * inv_det, c12 * inv_det},
+                          {c20 * inv_det, c21 * inv_det, c22 * inv_det}};
+    T Km[NV][NA], kf[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+        Km[i][j] = -(Qi[i][0] * Qzu[j][0] + Qi[i][1] * Qzu[j][1] + Qi[i][2] * Qzu[j][2]);
+      kf[i] = -(Qi[i][0] * qu[0] + Qi[i][1] * qu[1] + Qi[i][2] * qu[2]);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        const T v = Qzz[i][j] + (Qzu[i][0] * Km[0][j] + Qzu[i][1] * Km[1][j] +
+                                 Qzu[i][2] * Km[2][j]);
+        const T vT = Qzz[j][i] + (Qzu[j][0] * Km[0][i] + Qzu[j][1] * Km[1][i] +
+                                  Qzu[j][2] * Km[2][i]);
+        P[i][j] = T(0.5) * (v + vT);
+      }
+      p[i] = qz[i] + (Qzu[i][0] * kf[0] + Qzu[i][1] * kf[1] + Qzu[i][2] * kf[2]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      kft(k, i) = kf[i];
+#pragma unroll
+      for (int j = 0; j < NA; ++j) Kt(k, i, j) = Km[i][j];
     }
   }
 
@@ -1409,10 +1653,13 @@ struct Lane {
   }
 
   // the AL merit of the candidate (xs + al dxs [theta wrapped], us + al dus,
-  // clip(dt + al dtau)), one pass over the stages
+  // clip(dt + al dtau)), one pass over the stages; on the non-uniform grid
+  // each stage's clip(dt_k + al ddt_k), its dt box and, for minimum time,
+  // its cost dt_k, the slots predicted to the candidate's cumulative time
   __device__ __forceinline__ T merit(T al) const {
-    const T dtv = clip(dt + al * dtau, dt_lo, dt_hi);
-    T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = QUAD ? T(0) : T(N) * dtv;
+    const T dtv = NONU ? T(0) : clip(dt + al * dtau, dt_lo, dt_hi);
+    T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = (QUAD || NONU) ? T(0) : T(N) * dtv;
+    T tc = T(0), dtp = T(0);  // the non-uniform grid: the time of x_{k+1}, dt_{k-1}
     T xk[NX], uk[NU], up[NU];
     auto cand_x = [&](int k, T x[NX]) {
       x[0] = xs[k * NX + 0] + al * dxs(k, 0);
@@ -1425,7 +1672,12 @@ struct Lane {
       T xk1[NX], c[NX];
       cand_x(k + 1, xk1);
       for (int i = 0; i < NU; ++i) uk[i] = us[k * NU + i] + al * dus(k, i);
-      defect_value(xk, uk, xk1, dtv, c);
+      T dk = dtv;
+      if constexpr (NONU) {
+        dk = clip(this->dts[k] + al * dtaus(k), dt_lo, dt_hi);
+        tc += dk;
+      }
+      defect_value(xk, uk, xk1, dk, c);
       for (int i = 0; i < NX; ++i) {
         eq_lin += ld[k * NX + i] * c[i];
         eq_sq += c[i] * c[i];
@@ -1435,7 +1687,7 @@ struct Lane {
       if (M > 0) {
         Foot<T> D;
         foot_at(xk1, D);
-        const T t = pose_time(k + 1, dtv);
+        const T t = NONU ? (moving() ? tc : T(0)) : pose_time(k + 1, dtv);
         for (int j = 0; j < M; ++j) {
           const T mu = mo[k * M + j];
           const T a = hinge(mu + rho * obs_row<false>(D, j, t, nullptr));
@@ -1443,14 +1695,24 @@ struct Lane {
         }
       }
       T gr[4], gb[4];
-      rate_g(uk, up, dtv, gr);
+      rate_g(uk, up, dk, gr);
       box_g(uk, gb);
       for (int i = 0; i < 4; ++i) {
         const T mu_r = mr[k * 4 + i], mu_b = mb[k * 4 + i];
         const T ar = hinge(mu_r + rho * gr[i]), ab = hinge(mu_b + rho * gb[i]);
         ineq += (ar * ar - mu_r * mu_r) + (ab * ab - mu_b * mu_b);
       }
-      if constexpr (QUAD) cost += stage_cost(xk, uk, dtv, k);
+      if constexpr (NONU) {
+        // the interval's dt box; minimum time: the stage cost dt_k
+        const T gdt[2] = {dk - dt_max, dt_min - dk};
+        for (int i = 0; i < 2; ++i) {
+          const T a = hinge(md[2 * k + i] + rho * gdt[i]);
+          ineq += a * a - md[2 * k + i] * md[2 * k + i];
+        }
+        if constexpr (!QUAD) cost += dk;
+      }
+      if constexpr (QUAD) cost += stage_cost(xk, uk, dk, k, dtp);
+      if constexpr (NONU) dtp = dk;
       for (int i = 0; i < NX; ++i) xk[i] = xk1[i];
       for (int i = 0; i < NU; ++i) up[i] = uk[i];
     }
@@ -1462,12 +1724,12 @@ struct Lane {
         eq_sq += gd[i] * gd[i];
       }
     }
-    cost += terminal_cost(xk, dtv);
+    cost += terminal_cost(xk, NONU ? dtp : dtv);
     // the via attraction, from the candidate's own assignment (funcs.cost)
     if constexpr (VIA) cost += via_sweep<true, true>(al);
-    // dt box (variable dt only), and the terminal ball's row (a disabled
-    // ball keeps the constant row g = -BIG, as the port's merit does)
-    if (vdt) {
+    // dt box (variable uniform dt only), and the terminal ball's row (a
+    // disabled ball keeps the constant row g = -BIG, as the port's merit does)
+    if (vdt && !NONU) {
       const T gdt[2] = {dtv - dt_max, dt_min - dtv};
       for (int i = 0; i < 2; ++i) {
         const T a = hinge(md[i] + rho * gdt[i]);
@@ -1489,23 +1751,26 @@ struct Lane {
 // the quadratic form's and the unicycle's GEO_NONE spill at 128, and the
 // geometry's spill under ptxas' own choice, none at 168); double is left to
 // ptxas. One warp per SM runs at the batches of the fleet cycle, so the
-// count costs no occupancy there.
-template <typename T, int MODEL, int OBJ, int GEO>
+// count costs no occupancy there. The non-uniform grid's float launches
+// (the 3-column step, a 3x3 Quu) get 168.
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
 struct MinBlocks {
   static constexpr int value =
       sizeof(T) == 8 ? 1
-                     : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE ? 16 : 12);
+                     : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE && !NONU
+                            ? 16
+                            : 12);
 };
 
-template <typename T, int MODEL, int OBJ, int GEO>
-__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value))
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
+__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU>::value))
     k2a_kernel(const K2aArgs<T> a, const __grid_constant__ K2aParams prm) {
   constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
   constexpr bool VIA = OBJ == OBJ_VIA;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
-  Lane<T, MODEL, OBJ, GEO> L;
+  Lane<T, MODEL, OBJ, GEO, NONU> L;
   L.N = N;
   L.M = M;
   L.Mc = prm.Mc;
@@ -1571,9 +1836,14 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
   L.mo = a.mo + bb * N * M;
   L.mr = a.mr + bb * N * 4;
   L.mb = a.mb + bb * N * 4;
-  L.md = a.md + bb * 2;
+  L.md = a.md + bb * (NONU ? 2 * N : 2);
   L.mball = a.mball + bb;
-  L.ws = a.ws + (bb / WARP) * workspace_per_lane(N) * WARP + bb % WARP;
+  L.ws = a.ws + (bb / WARP) * workspace_per_lane(N, NONU) * WARP + bb % WARP;
+  if constexpr (NONU) {
+    L.dts = a.dt + bb * N;
+    L.dt_ref = T(prm.dt_ref);
+    L.dt_prox = T(prm.dt_prox);
+  }
   if constexpr (VIA) {
     L.mv = prm.mv;
     L.via_ordered = prm.via_ordered != 0;
@@ -1593,10 +1863,28 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
     L.mb[i] = a.mb_i[bb * N * 4 + i];
   }
   for (int i = 0; i < NX; ++i) L.lt[i] = a.lt_i[bb * NX + i];
-  for (int i = 0; i < 2; ++i) L.md[i] = a.md_i[bb * 2 + i];
+  if constexpr (NONU) {
+    for (int i = 0; i < 2 * N; ++i) L.md[i] = a.md_i[bb * 2 * N + i];  // one pair per interval
+  } else {
+    for (int i = 0; i < 2; ++i) L.md[i] = a.md_i[bb * 2 + i];
+  }
   L.mball[0] = a.mball_i[bb];
-  L.dt = a.dt_i[b];
-  L.dt0 = L.dt;  // the derivatives predict dynamic slots at the initial dt
+  if constexpr (NONU) {
+    // the per-stage dt; the derivatives predict dynamic slots at the
+    // initial dt's cumulative times
+    T t = T(0);
+    for (int k = 0; k < N; ++k) {
+      L.dts[k] = a.dt_i[bb * N + k];
+      L.tv(k) = t;
+      t += L.dts[k];
+    }
+    L.tv(N) = t;
+    L.dt = T(0);
+    L.dt0 = T(0);
+  } else {
+    L.dt = a.dt_i[b];
+    L.dt0 = L.dt;  // the derivatives predict dynamic slots at the initial dt
+  }
   L.rho = a.rho_i[b];
 
   const T inf = T(INFINITY);
@@ -1614,10 +1902,23 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
       L.kkt_step(reg);
 
       // ---- line search: dt trust cap, candidates in order, alpha = 0 last
-      const T adt = fabs(L.dtau);
-      const T cap = adt > T(0)
-                        ? vmin(T(prm.dt_trust_frac) * L.dt / vmax(adt, T(1e-30)), T(1))
-                        : T(1);
+      T cap;
+      if constexpr (NONU) {
+        // the least over the stages, each stage's dt floored at dt_ref
+        cap = T(1);
+        for (int k = 0; k < N; ++k) {
+          const T adk = fabs(L.dtaus(k));
+          const T ck = adk > T(0) ? vmin(T(prm.dt_trust_frac) * vmax(L.dts[k], L.dt_ref) /
+                                             vmax(adk, T(1e-30)),
+                                         T(1))
+                                  : T(1);
+          cap = vmin(cap, ck);
+        }
+      } else {
+        const T adt = fabs(L.dtau);
+        cap = adt > T(0) ? vmin(T(prm.dt_trust_frac) * L.dt / vmax(adt, T(1e-30)), T(1))
+                         : T(1);
+      }
       T best_m = inf, best_a = T(0);
       bool accepted = false;
       for (int c = 0; c < prm.n_alpha; ++c) {
@@ -1645,7 +1946,12 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
       }
       for (int k = 0; k < N; ++k)
         for (int i = 0; i < NU; ++i) L.us[k * NU + i] += best_a * L.dus(k, i);
-      L.dt = clip(L.dt + best_a * L.dtau, L.dt_lo, L.dt_hi);
+      if constexpr (NONU) {
+        for (int k = 0; k < N; ++k)
+          L.dts[k] = clip(L.dts[k] + best_a * L.dtaus(k), L.dt_lo, L.dt_hi);
+      } else {
+        L.dt = clip(L.dt + best_a * L.dtau, L.dt_lo, L.dt_hi);
+      }
       reg = accepted ? vmax(reg * T(prm.reg_shrink), T(prm.reg_min))
                      : vmin(vmax(reg, reg0) * T(prm.reg_grow), T(prm.reg_max));
     }
@@ -1653,13 +1959,15 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
     // ---- dual update with conditional rho growth ----------------------- //
     const T rho = L.rho;
     T eq_m = T(0), in_m = -inf;
+    T tc = T(0);  // the non-uniform grid: the time of x_{k+1}
     for (int k = 0; k < N; ++k) {
       T xk[NX], uk[NU], up[NU], xk1[NX], c[NX];
       L.x_at(k, xk);
       L.u_at(k, uk);
       L.uprev_at(k, up);
       L.x_at(k + 1, xk1);
-      L.defect_value(xk, uk, xk1, L.dt, c);
+      if constexpr (NONU) tc += L.dts[k];
+      L.defect_value(xk, uk, xk1, L.dt_at(k), c);
       for (int i = 0; i < NX; ++i) {
         L.ld[k * NX + i] += rho * c[i];
         eq_m = vmax(eq_m, T(fabs(c[i])));
@@ -1668,7 +1976,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
         // predicted at the current dt
         Foot<T> D;
         L.foot_at(xk1, D);
-        const T t = L.pose_time(k + 1, L.dt);
+        const T t = NONU ? (L.moving() ? tc : T(0)) : L.pose_time(k + 1, L.dt);
         for (int j = 0; j < M; ++j) {
           const T g = L.template obs_row<false>(D, j, t, nullptr);
           L.mo[k * M + j] = hinge(L.mo[k * M + j] + rho * g);
@@ -1676,12 +1984,21 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
         }
       }
       T gr[4], gb[4];
-      L.rate_g(uk, up, L.dt, gr);
+      L.rate_g(uk, up, L.dt_at(k), gr);
       L.box_g(uk, gb);
       for (int i = 0; i < 4; ++i) {
         L.mr[k * 4 + i] = hinge(L.mr[k * 4 + i] + rho * gr[i]);
         L.mb[k * 4 + i] = hinge(L.mb[k * 4 + i] + rho * gb[i]);
         in_m = vmax(in_m, vmax(gr[i], gb[i]));
+      }
+      if constexpr (NONU) {
+        // the interval's dt box
+        const T dk = L.dts[k];
+        const T gdt[2] = {dk - L.dt_max, L.dt_min - dk};
+        for (int i = 0; i < 2; ++i) {
+          L.md[2 * k + i] = hinge(L.md[2 * k + i] + rho * gdt[i]);
+          in_m = vmax(in_m, gdt[i]);
+        }
       }
     }
     T xN[NX];
@@ -1702,7 +2019,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
     const T gball = L.ball_on ? L.ball_g(xN, gp) : T(-BIG);
     L.mball[0] = hinge(L.mball[0] + rho * gball);
     in_m = vmax(in_m, gball);
-    if (L.vdt) {
+    if (L.vdt && !NONU) {
       const T gdt[2] = {L.dt - L.dt_max, L.dt_min - L.dt};
       for (int i = 0; i < 2; ++i) {
         L.md[i] = hinge(L.md[i] + rho * gdt[i]);
@@ -1725,6 +2042,8 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
         for (int i = 0; i < NX; ++i) L.bxs(k, i) = L.xs[k * NX + i];
       for (int k = 0; k < N; ++k)
         for (int i = 0; i < NU; ++i) L.bus(k, i) = L.us[k * NU + i];
+      if constexpr (NONU)
+        for (int k = 0; k < N; ++k) L.bdts(k) = L.dts[k];
       best_dt = L.dt;
       best_eq = eq_m;
       best_in = in_m;
@@ -1740,55 +2059,55 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO>::value
       for (int i = 0; i < NX; ++i) L.xs[k * NX + i] = L.bxs(k, i);
     for (int k = 0; k < N; ++k)
       for (int i = 0; i < NU; ++i) L.us[k * NU + i] = L.bus(k, i);
+    if constexpr (NONU)
+      for (int k = 0; k < N; ++k) L.dts[k] = L.bdts(k);
   }
   const T dt_fin = use_best ? best_dt : L.dt;
   T cost = T(0);
   if constexpr (QUAD) {
+    T dtp = T(0);
     for (int k = 0; k < N; ++k) {
       T xk[NX], uk[NU];
       L.x_at(k, xk);
       L.u_at(k, uk);
-      cost += L.stage_cost(xk, uk, dt_fin, k);
+      const T dk = NONU ? L.dt_at(k) : dt_fin;
+      cost += L.stage_cost(xk, uk, dk, k, dtp);
+      dtp = dk;
     }
   } else {
-    cost = T(N) * dt_fin;
+    if constexpr (NONU) {
+      for (int k = 0; k < N; ++k) cost += L.dts[k];  // sum_k dt_k
+    } else {
+      cost = T(N) * dt_fin;
+    }
     if constexpr (VIA) cost += L.template via_sweep<true, false>(T(0));  // the selected states
   }
   T xN_fin[NX];
   L.x_at(N, xN_fin);
-  a.dt[b] = dt_fin;
+  if constexpr (!NONU) a.dt[b] = dt_fin;
   a.rho[b] = L.rho;
-  a.cost[b] = cost + L.terminal_cost(xN_fin, dt_fin);
+  a.cost[b] = cost + L.terminal_cost(xN_fin, NONU ? L.dt_at(N - 1) : dt_fin);
   a.eq[b] = use_best ? best_eq : eq_last;
   a.ineq[b] = use_best ? best_in : in_last;
   a.conv[b] = (final_ok || found) ? 1 : 0;
 }
 
-template <typename T, int MODEL, int OBJ>
+template <typename T, int MODEL, int OBJ, bool NONU>
 void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   const int blocks = (a.B + THREADS - 1) / THREADS;
   const bool plain_slots = prm.Ml == 0 && prm.Mg == 0 && prm.dynamic == 0;
   if (prm.fp_kind == FP_LINE)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS, NONU><<<blocks, THREADS, 0, stream>>>(
+        a, prm);
   else if (prm.fp_kind == FP_POLYGON && plain_slots)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
   else if (prm.fp_kind == FP_POLYGON)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS><<<blocks, THREADS, 0, stream>>>(a,
-                                                                                         prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS, NONU><<<blocks, THREADS, 0, stream>>>(
+        a, prm);
   else if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
-    k2a_kernel<T, MODEL, OBJ, GEO_NONE><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_NONE, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
   else
-    k2a_kernel<T, MODEL, OBJ, GEO_ALL><<<blocks, THREADS, 0, stream>>>(a, prm);
-}
-
-template <typename T, int MODEL>
-void launch_model(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
-  if (prm.quadratic)
-    launch_as<T, MODEL, OBJ_QUADRATIC>(a, prm, stream);
-  else if (prm.mv > 0)
-    launch_as<T, MODEL, OBJ_VIA>(a, prm, stream);
-  else
-    launch_as<T, MODEL, OBJ_MIN_TIME>(a, prm, stream);
+    k2a_kernel<T, MODEL, OBJ, GEO_ALL, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
 }
 
 template <typename T>
@@ -1801,7 +2120,9 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
       (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2 ||
       prm->fp_kind < FP_DISCS || prm->fp_kind > FP_POLYGON ||
       (prm->fp_kind == FP_LINE && prm->fp_nv != 2) ||
-      (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 3 || prm->fp_nv > MAX_FP_V)))
+      (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 3 || prm->fp_nv > MAX_FP_V)) ||
+      prm->nonu != K2A_NONU || (prm->nonu && !prm->variable_dt) || prm->model != K2A_MODEL ||
+      (prm->quadratic ? OBJ_QUADRATIC : prm->mv > 0 ? OBJ_VIA : OBJ_MIN_TIME) != K2A_OBJ)
     return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
@@ -1849,12 +2170,7 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
   a.conv = static_cast<unsigned char*>(out[14]);
   a.B = B;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (prm->model) {
-    case UNICYCLE: launch_model<T, UNICYCLE>(a, *prm, s); break;
-    case SIMPLE_CAR: launch_model<T, SIMPLE_CAR>(a, *prm, s); break;
-    case FRONT_WHEEL: launch_model<T, FRONT_WHEEL>(a, *prm, s); break;
-    default: launch_model<T, BICYCLE>(a, *prm, s); break;
-  }
+  launch_as<T, K2A_MODEL, K2A_OBJ, K2A_NONU != 0>(a, *prm, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1865,7 +2181,10 @@ extern "C" {
 int k2a_max_v() { return MAX_V; }
 int k2a_max_fp_v() { return MAX_FP_V; }
 int k2a_max_via() { return MAX_VIA; }
-int k2a_workspace_per_lane(int N) { return workspace_per_lane(N); }
+// this build's group: K2A_DOUBLE, K2A_MODEL, K2A_OBJ, K2A_NONU as the digits
+// of one number
+int k2a_group() { return ((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU; }
+int k2a_workspace_per_lane(int N) { return workspace_per_lane(N, K2A_NONU != 0); }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 
 // in: xs, us, dt, xf, u_prev, point and circle centers, radii, mask,
@@ -1875,16 +2194,16 @@ int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 //     candidates (27 pointers)
 // out: xs, us, dt, lam_def, lam_term, mu_obs, mu_rate, mu_box, mu_dt,
 //      mu_ball, rho, cost, eq_norm, ineq_viol, converged (15 pointers)
+// On the non-uniform grid (a K2A_NONU build, prm->nonu) dt is (B, N) and
+// mu_dt (B, N, 2) in and out.
 // ws: the workspace, ceil(B / 32) * workspace_per_lane(N) * 32 values of the
 //     working type
-int k2a_fused_solve_f32(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
-                        int B, void* stream) {
-  return launch<float>(prm, in, out, ws, B, stream);
-}
-
-int k2a_fused_solve_f64(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
-                        int B, void* stream) {
-  return launch<double>(prm, in, out, ws, B, stream);
+// Launches this build's group (K2A_DOUBLE is the working type of every
+// pointer); a launch of another model or objective family is refused.
+int k2a_fused_solve(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
+                    int B, void* stream) {
+  return launch<std::conditional_t<K2A_DOUBLE != 0, double, float>>(prm, in, out, ws, B,
+                                                                      stream);
 }
 
 const char* k2a_error_string(int code) {

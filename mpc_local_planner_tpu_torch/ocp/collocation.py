@@ -37,10 +37,11 @@ def stage_defect(model, method: str, xk, uk, xk1, dt):
 def collocation_defects(model, method: str, xs, us, dt):
     """All N stage defects for a trajectory.
 
-    xs: (..., N+1, 3); us: (..., N, nu); dt: (...,) scalar per trajectory.
-    Returns (..., N, 3).
+    xs: (..., N+1, 3); us: (..., N, nu); dt: (...,) scalar per trajectory
+    or (..., N) per stage. Returns (..., N, 3).
     """
     xk = xs[..., :-1, :]
     xk1 = xs[..., 1:, :]
-    pred = xk + dt[..., None, None] * _phi(method)(model, xk, us, xk1)
+    dtb = dt[..., None] if dt.dim() == xs.dim() - 1 else dt[..., None, None]
+    pred = xk + dtb * _phi(method)(model, xk, us, xk1)
     return _wrap(pred - xk1)

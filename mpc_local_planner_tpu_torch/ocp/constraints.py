@@ -17,17 +17,22 @@ from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE
 
 def obstacle_inequalities(spec, xs, dt, scenario):
     """Per-stage obstacle terms, stages k = 1..N (x_0 is fixed): (..., N, M).
-    Dynamic obstacles are predicted to t_k = k·dt at this trajectory's dt
-    (a line-search candidate's, a dual update's current one)."""
+    Dynamic obstacles are predicted to t_k = k·dt (on the non-uniform grid
+    the cumulative Σ_{j<k} dt_j) at this trajectory's dt (a line-search
+    candidate's, a dual update's current one)."""
     if spec.obstacle_cap == 0:
         return xs.new_zeros(xs.shape[:-2] + (spec.N, 0))
     poses = xs[..., 1:, :]
     obs = scenario.obstacles.with_stage_axis()
     if spec.enable_dynamic_obstacles:
-        # constant-velocity extrapolation to the stage times t_k = k·dt, dt
-        # detached: predicted positions are stage data, not decision-dependent
-        k = torch.arange(1, spec.N + 1, dtype=xs.dtype, device=xs.device)
-        obs = obs.predict(k * dt.detach()[..., None])
+        # constant-velocity extrapolation to the stage times, dt detached:
+        # predicted positions are stage data, not decision-dependent
+        if spec.nonuniform_dt:
+            t = torch.cumsum(dt.detach(), dim=-1)
+        else:
+            k = torch.arange(1, spec.N + 1, dtype=xs.dtype, device=xs.device)
+            t = k * dt.detach()[..., None]
+        obs = obs.predict(t)
     d = spec.footprint.distances(poses, obs)
     return spec.min_obstacle_dist - d
 
@@ -35,7 +40,8 @@ def obstacle_inequalities(spec, xs, dt, scenario):
 def control_rate_inequalities(spec, us, dt, u_prev):
     """dt-scaled acceleration bounds on control differences, stages 0..N-1:
     g_hi = (u_k − u_{k−1}) − hi·dt ≤ 0 ;  g_lo = lo·dt − (u_k − u_{k−1}) ≤ 0,
-    with u_{−1} = u_prev and ±inf limits sanitized to ±BIG_DISTANCE first.
+    with u_{−1} = u_prev and ±inf limits sanitized to ±BIG_DISTANCE first;
+    dt is (...,) or per stage (..., N).
     """
     lo, hi = spec.control_rate_box()
     lo = torch.maximum(const(lo, us), const((-BIG_DISTANCE,), us))
@@ -43,7 +49,7 @@ def control_rate_inequalities(spec, us, dt, u_prev):
     u_prev = u_prev.expand(us.shape[:-2] + u_prev.shape[-1:])
     u_ext = torch.cat([u_prev[..., None, :], us], dim=-2)
     du = u_ext[..., 1:, :] - u_ext[..., :-1, :]
-    dtb = dt[..., None, None]
+    dtb = dt[..., None] if dt.dim() == us.dim() - 1 else dt[..., None, None]
     g_hi = du - hi * dtb
     g_lo = lo * dtb - du
     return torch.cat([g_hi, g_lo], dim=-1)  # (..., N, 2*nu)
@@ -56,11 +62,14 @@ def control_box_inequalities(spec, us):
 
 
 def dt_inequalities(spec, dt, dtype):
-    """dt ∈ [dt_min, dt_max] when dt is a decision variable; else inactive."""
+    """dt ∈ [dt_min, dt_max] when dt is a decision variable; else inactive.
+    (..., 2), or on the non-uniform grid every interval's box (..., 2N)
+    flattened, [hi, lo] per interval."""
     dt = dt.to(dtype)
     if not spec.variable_dt:
         return torch.full(dt.shape + (2,), -BIG_DISTANCE, dtype=dtype, device=dt.device)
-    return torch.stack([dt - spec.dt_max, spec.dt_min - dt], dim=-1)
+    g = torch.stack([dt - spec.dt_max, spec.dt_min - dt], dim=-1)
+    return g.flatten(-2) if spec.nonuniform_dt else g
 
 
 def terminal_ball_inequality(spec, xs, xf):

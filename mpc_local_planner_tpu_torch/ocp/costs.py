@@ -1,7 +1,7 @@
 """Objective terms (port of ``mpc_local_planner_tpu.ocp.costs``): minimum
 time, the quadratic form with its integral rules and hybrid time weight, and
 the terminal quadratic cost and the via-point attraction, on the uniform
-grid.
+grid (dt (...,)) and the non-uniform one (a per-stage dt (..., N)).
 
 State differences use ``se2_boxminus`` (θ wrapped). Each function returns a
 scalar per trajectory and broadcasts over leading batch dims.
@@ -30,7 +30,8 @@ def quadratic_form_cost(spec, xs, us, dt, xref):
 
     integral_form=False sums the stage terms; integral_form=True weighs them
     by dt, with ``spec.cost_integration``: left_sum = left rectangle;
-    trapezoidal = dt·[½lx_0 + Σ_{1..N-1} lx_k + ½lx_N] + dt·Σ lu_k. The
+    trapezoidal = dt·[½lx_0 + Σ_{1..N-1} lx_k + ½lx_N] + dt·Σ lu_k, on the
+    non-uniform grid Σ_k dt_k·½(lx_k + lx_{k+1}) + Σ_k dt_k·lu_k. The
     terminal quadratic cost (qf_diag) stays separate.
     """
     q = const(spec.q_diag, xs)
@@ -38,6 +39,11 @@ def quadratic_form_cost(spec, xs, us, dt, xref):
     dx = se2_boxminus(xs[..., :-1, :], xref[..., None, :])
     x_term = torch.sum(dx * dx * q, dim=-1)
     u_term = torch.sum(us * us * r, dim=-1)
+    if trapezoidal(spec) and spec.nonuniform_dt:
+        dx_all = se2_boxminus(xs, xref[..., None, :])
+        lx = torch.sum(dx_all * dx_all * q, dim=-1)
+        x_int = 0.5 * torch.sum(dt * (lx[..., :-1] + lx[..., 1:]), dim=-1)
+        return x_int + torch.sum(dt * u_term, dim=-1)
     if trapezoidal(spec):
         w = torch.ones(x_term.shape[-1], dtype=xs.dtype, device=xs.device)
         w[0] = 0.5
@@ -46,7 +52,7 @@ def quadratic_form_cost(spec, xs, us, dt, xref):
         return (torch.sum(w * x_term + u_term, dim=-1) + tail) * dt
     term = x_term + u_term
     if spec.integral_form:
-        term = term * dt[..., None]
+        term = term * (dt if spec.nonuniform_dt else dt[..., None])
     return torch.sum(term, dim=-1)
 
 
@@ -60,7 +66,10 @@ def quadratic_final_state_cost(spec, xs, xref):
 
 
 def minimum_time_cost(spec, dt):
-    """Σ_k dt_k = N·dt on a uniform grid (parity: corbo MinimumTime)."""
+    """Σ_k dt_k (parity: corbo MinimumTime): N·dt on a uniform grid, the
+    per-stage sum on the non-uniform one."""
+    if spec.nonuniform_dt:
+        return torch.sum(dt, dim=-1)
     return spec.N * dt
 
 

@@ -9,8 +9,9 @@ dynamic (constant velocity), minimum time, minimum time with via points
 (ordered or unordered, with an optional orientation weight) or the
 quadratic form (plain or integral, left-sum or trapezoidal, with the hybrid
 time weight), the terminal quadratic cost and the terminal ball, on a
-uniform grid with a fixed or variable dt. It raises ``NotImplementedError`` naming the ROADMAP
-item for anything else.
+uniform grid with a fixed or variable dt or on the non-uniform grid of a
+per-stage dt. It raises ``NotImplementedError`` naming the ROADMAP item for
+anything else.
 """
 
 from __future__ import annotations
@@ -92,8 +93,6 @@ class OcpSpec:
             raise ValueError(f"unknown cost_integration {self.cost_integration!r}")
         if self.hybrid_time_weight < 0.0:
             raise ValueError("hybrid_time_weight must be >= 0")
-        if self.nonuniform_dt:
-            _not_ported("the non-uniform per-stage dt grid", "M9, K2f")
 
     @property
     def nx(self) -> int:

@@ -14,11 +14,13 @@ polygon footprint), minimum time, minimum time with at most 8 via points
 (ordered or not, with an orientation weight) or the quadratic form
 (template parameter; plain or integral, left-sum or trapezoidal, hybrid
 time weight), the terminal quadratic cost and the terminal ball, on a
-uniform grid of any length with a variable or fixed dt, any number of
-obstacle slots and of line-search candidates. K2a, the first
-specialization ported (simple car, minimum time, variable dt), is one
-instantiation. Still to port: the midpoint and Crank–Nicolson rules (K2b),
-shooting (K2e) and the non-uniform grid (K2f). The
+uniform grid of any length with a variable or fixed dt or on the
+non-uniform grid of a per-stage dt (K2f: δdt_k a third control column of
+the step, the interval's dt box a stage row; the template parameter NONU),
+any number of obstacle slots and of
+line-search candidates. K2a, the first specialization ported (simple car,
+minimum time, variable dt), is one instantiation. Still to port: the
+midpoint and Crank–Nicolson rules (K2b) and shooting (K2e). The
 source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
 n_al × n_sqp schedule to its end — closed-form derivatives streamed into
 the Riccati sweep, the rollout, the NaN quarantine, the candidate line
@@ -26,7 +28,9 @@ search, the dual updates, the best-feasible snapshot and the final
 selection — for float and double, in the port's (B, N, ...) layout. The
 step, the gain tape and the snapshot live in a workspace the wrapper
 allocates, tiled by warp with the lane index fastest; the candidates are a
-device input.
+device input. Each (working type, model, objective family, grid) is a
+group of five instantiations built into a library of its own (``Group``),
+when a launch first needs it or all at once beforehand (``build``).
 
 What bounds it on an H100 is arithmetic: the flagship solve needs about
 0.79 MFLOP per scenario at the warm 3×4 budget (``k2a_flops``, the Riccati
@@ -52,6 +56,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import torch
 
@@ -82,7 +88,10 @@ from mpc_local_planner_tpu_torch.solvers.al_sqp import (
     has_via,
     solve,
 )
-from mpc_local_planner_tpu_torch.solvers.riccati import build_augmented_transition
+from mpc_local_planner_tpu_torch.solvers.riccati import (
+    build_augmented_transition,
+    build_augmented_transition_nonuniform,
+)
 from mpc_local_planner_tpu_torch.systems.models import (
     KinematicBicycleModelVelocityInput,
     SimpleCarFrontWheelDrivingModel,
@@ -97,7 +106,7 @@ SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
 MAX_V, MAX_FP_V, MAX_VIA = 16, 8, 8
 WARP = 32  # the workspace's tile (csrc/fused_al_sqp.cu)
 
-_lib = None
+_libs = {}  # the loaded library of each ``Group``
 
 
 # --------------------------------------------------------------------------- #
@@ -133,8 +142,6 @@ def _spec_scope_error(spec):
         return f"collocation {spec.collocation!r} (K2b, K2e)"
     if spec.via_cap > MAX_VIA:
         return f"via_cap={spec.via_cap} (at most {MAX_VIA})"
-    if spec.nonuniform_dt:
-        return "the non-uniform per-stage dt grid (K2f)"
     return None
 
 
@@ -557,12 +564,18 @@ def box_g(spec, u):
 _RATE_ROWS = ((1.0, 0, 1), (1.0, 1, 1), (-1.0, 0, 0), (-1.0, 1, 0))
 
 
-def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu):
+def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu, dtp=None):
     """The quadratic form's stage terms, exact, added in place: l = lx + lu
     (plain) or (iw·lx + lu)·dt (integral), plus w·dt (hybrid), with
-    lx = Σ q_i dx_i², dx = x_k ⊖ xref, and lu = Σ r_j u_j²."""
+    lx = Σ q_i dx_i², dx = x_k ⊖ xref, and lu = Σ r_j u_j². On the
+    non-uniform grid dt_k is control column 2 and the trapezoidal stage is
+    ½(dt_{k-1} + dt_k)·lx + lu·dt_k, dt_{k-1} = ``dtp`` in z column 5 (Pallas
+    ``stage_grad_hess``)."""
     dx = se2_boxminus(xk, xref)
     q, r = spec.q_diag, spec.r_diag
+    if spec.nonuniform_dt:
+        _quadratic_stage_nonu(spec, dx, uk, dt, dtp, hz, hu, Hzz, Hzu, Huu)
+        return
     if spec.integral_form:
         x_term = sum(q[i] * dx[..., i] * dx[..., i] for i in range(3))
         u_term = sum(r[j] * uk[..., j] * uk[..., j] for j in range(2))
@@ -587,6 +600,47 @@ def _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu):
             Huu[..., j, j] += 2.0 * r[j]
     if spec.hybrid_time_weight > 0.0:
         hz[..., 5] += spec.hybrid_time_weight
+
+
+def _quadratic_stage_nonu(spec, dx, uk, dt, dtp, hz, hu, Hzz, Hzu, Huu):
+    """``_quadratic_stage`` on the non-uniform grid: the dt terms on control
+    column 2 (and, trapezoidal, the dt_{k-1} coupling on z column 5)."""
+    q, r = spec.q_diag, spec.r_diag
+    if spec.integral_form:
+        x_term = sum(q[i] * dx[..., i] * dx[..., i] for i in range(3))
+        u_term = sum(r[j] * uk[..., j] * uk[..., j] for j in range(2))
+        trap = spec.cost_integration == "trapezoidal"
+        wx = 0.5 * (dtp + dt) if trap else dt
+        if trap:
+            hz[..., 5] += 0.5 * x_term
+            hu[..., 2] += 0.5 * x_term + u_term
+        else:
+            hu[..., 2] += x_term + u_term
+        for i in range(3):
+            qi = 2.0 * q[i] * dx[..., i]
+            hz[..., i] += qi * wx
+            Hzz[..., i, i] += 2.0 * q[i] * wx
+            if trap:
+                Hzz[..., i, 5] += 0.5 * qi
+                Hzz[..., 5, i] = Hzz[..., i, 5]
+                Hzu[..., i, 2] += 0.5 * qi
+            else:
+                Hzu[..., i, 2] += qi
+        for j in range(2):
+            rj = 2.0 * r[j] * uk[..., j]
+            hu[..., j] += rj * dt
+            Huu[..., j, j] += 2.0 * r[j] * dt
+            Huu[..., j, 2] += rj
+            Huu[..., 2, j] = Huu[..., j, 2]
+    else:
+        for i in range(3):
+            hz[..., i] += 2.0 * q[i] * dx[..., i]
+            Hzz[..., i, i] += 2.0 * q[i]
+        for j in range(2):
+            hu[..., j] += 2.0 * r[j] * uk[..., j]
+            Huu[..., j, j] += 2.0 * r[j]
+    if spec.hybrid_time_weight > 0.0:
+        hu[..., 2] += spec.hybrid_time_weight
 
 
 def via_rows(spec, x, via_pts, via_w, h, H):
@@ -622,7 +676,7 @@ def _obstacle_block(g, grad, t, on, rho, h, H):
 
 
 def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
-                    xref=None, iw=None, via=None):
+                    xref=None, iw=None, via=None, dtp=None, mu_dt=None, dt_prox=0.0):
     """Exact AL gradient (hz (..., 6), hu (..., 2)) and hybrid Gauss-Newton
     Hessian blocks (Hzz, Hzu, Huu) of the stage merit over z = [x, u_prev,
     dt] and v = u. ``mu_obs`` (..., M) is the stage's multiplier row, ``on``
@@ -630,17 +684,25 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
     (dynamic obstacles predicted to its time); the quadratic form reads
     ``xref`` (..., 3) and the integration weight ``iw``; the via attraction
     ``via`` = (via points, assignment weights), as ``via_rows`` takes them;
-    all leading dims are batch dims."""
+    all leading dims are batch dims. On the non-uniform grid z = [x, u_prev,
+    dt_prev] and v = [u, dt] (hu (..., 3), Hzu (..., 6, 3), Huu (..., 3, 3)):
+    ``dtp`` is dt_{k-1} (0 at k = 0), ``mu_dt`` (..., 2) the interval's
+    dt-box multipliers, ``dt_prox`` the δdt column's proximal weight."""
+    nonu = spec.nonuniform_dt
+    nv = 3 if nonu else 2
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     hz = torch.zeros(lead + (6,), **opts)
-    hu = torch.zeros(lead + (2,), **opts)
+    hu = torch.zeros(lead + (nv,), **opts)
     Hzz = torch.zeros(lead + (6, 6), **opts)
-    Hzu = torch.zeros(lead + (6, 2), **opts)
-    Huu = torch.zeros(lead + (2, 2), **opts)
+    Hzu = torch.zeros(lead + (6, nv), **opts)
+    Huu = torch.zeros(lead + (nv, nv), **opts)
     if spec.objective == "quadratic_form":
-        _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu)
+        _quadratic_stage(spec, xk, uk, dt, xref, iw, hz, hu, Hzz, Hzu, Huu, dtp)
     else:
-        hz[..., 5] = 1.0  # minimum time: the stage cost dt
+        if nonu:
+            hu[..., 2] = 1.0  # minimum time: the stage cost dt_k
+        else:
+            hz[..., 5] = 1.0  # minimum time: the stage cost dt
         if via is not None:
             via_rows(spec, xk, *via, hz, Hzz)
 
@@ -662,6 +724,13 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
         Hzz[..., zi, zi] += awi * jz_up * jz_up
         Hzu[..., zi, comp] += awi * jz_up * jv
         Huu[..., comp, comp] += awi * jv * jv
+        if nonu:  # the dt column is v[2]
+            hu[..., 2] += ai * jz_t
+            Hzu[..., zi, 2] += awi * jz_up * jz_t
+            Huu[..., comp, 2] += awi * jv * jz_t
+            Huu[..., 2, comp] = Huu[..., comp, 2]
+            Huu[..., 2, 2] += awi * jz_t * jz_t
+            continue
         hz[..., 5] += ai * jz_t
         Hzz[..., zi, 5] += awi * jz_up * jz_t
         Hzz[..., 5, zi] = Hzz[..., zi, 5]
@@ -674,6 +743,14 @@ def stage_grad_hess(spec, xk, uk, up, dt, mu_obs, on, mu_rate, mu_box, rho, obs,
     for idx, (sgn, comp, _) in enumerate(_RATE_ROWS):
         hu[..., comp] += a[..., idx] * sgn
         Huu[..., comp, comp] += aw[..., idx]
+    if nonu:
+        # the interval's dt box, exact; the δdt column's proximal damping
+        t1 = mu_dt[..., 0] + rho * (dt - spec.dt_max)
+        t2 = mu_dt[..., 1] + rho * (spec.dt_min - dt)
+        hu[..., 2] += _hinge(t1) - _hinge(t2)
+        Huu[..., 2, 2] += hinge_w(t1, rho) + hinge_w(t2, rho)
+        if dt_prox > 0.0:
+            Huu[..., 2, 2] += dt_prox
     return hz, hu, Hzz, Hzu, Huu
 
 
@@ -684,7 +761,8 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=Non
     pose at x_N (multiplier row N−1, ``obs`` predicted to its time), the
     ½·dt·lx(x_N) tail of the trapezoidal quadratic form, the terminal ball
     (exact PSD Hessian ρs²·g′g′ᵀ + a·2 diag(w), s the 0.5 tie subgradient)
-    and the dt box on a variable dt."""
+    and the dt box on a variable uniform dt. On the non-uniform grid ``dt``
+    is dt_{N-1} (z column 5) and the dt boxes are stage rows."""
     lead, opts = dt.shape, dict(dtype=dt.dtype, device=dt.device)
     P = torch.zeros(lead + (6, 6), **opts)
     p = torch.zeros(lead + (6,), **opts)
@@ -719,7 +797,7 @@ def terminal_Pp(spec, xN, dt, xf, lam_term, mu_obs, mu_dt, rho, obs, mu_ball=Non
             P[..., i, i] += 2.0 * w * ab
             for j in range(3):
                 P[..., i, j] += hwb * gp[..., i] * gp[..., j]
-    if spec.variable_dt:
+    if spec.variable_dt and not spec.nonuniform_dt:
         t1 = mu_dt[..., 0] + rho * (dt - spec.dt_max)
         t2 = mu_dt[..., 1] + rho * (spec.dt_min - dt)
         p[..., 5] += _hinge(t1) - _hinge(t2)
@@ -736,19 +814,23 @@ def ball_g(spec, xN, xf):
     return g, torch.stack([2.0 * w[i] * d[..., i] for i in range(3)], dim=-1)
 
 
-def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k):
+def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k,
+                     dt_prox: float = 1.0):
     """The Riccati inputs (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN) of one
     SQP iteration from the kernel's closed forms; the counterpart of the AD
-    ``al_sqp._kkt_system``. ``obs_k`` holds the per-stage obstacle sets
+    ``al_sqp._kkt_system`` (``dt_prox``: ``settings.dt_prox``, on the
+    non-uniform grid). ``obs_k`` holds the per-stage obstacle sets
     (B, N+1, ...), ``al_sqp._stage_obstacles`` at the solve's initial dt."""
     N, M = spec.N, spec.obstacle_cap
+    nonu = spec.nonuniform_dt
     xs, us, dt = primal.xs, primal.us, primal.dt
     B = dt.shape[0]
-    dt_b = dt[:, None].expand(B, N)
+    dt_b = dt if nonu else dt[:, None].expand(B, N)
     c, F, G, m = defect_linearization(spec, xs[:, :-1], us, xs[:, 1:], dt_b)
     if not spec.variable_dt:
         m = torch.zeros_like(m)
-    Fz, Gz, rz = build_augmented_transition(F, G, m, c, nu=spec.nu)
+    transition = build_augmented_transition_nonuniform if nonu else build_augmented_transition
+    Fz, Gz, rz = transition(F, G, m, c, nu=spec.nu)
     up = torch.cat([scenario.u_prev[:, None], us[:, :-1]], dim=1)
     # obstacle multiplier rows: stage k uses mu_obs[k-1]; k = 0 inactive
     mu_obs = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
@@ -763,14 +845,19 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k):
         w = _via_weights(spec, xs, scenario)  # (B, N+1, Mv)
         via_s = (scenario.via_points[:, None], w[:, :N])
         via_t = (scenario.via_points, w[:, N])
+    nonu_kw = {}
+    if nonu:  # dt_{k-1} (dt_{-1} = 0), the intervals' dt-box multipliers
+        nonu_kw = dict(dtp=torch.cat([dt.new_zeros(B, 1), dt[:, :-1]], dim=1),
+                       mu_dt=duals.mu_dt.reshape(B, N, 2), dt_prox=dt_prox)
     hz, hu, Hzz, Hzu, Huu = stage_grad_hess(
         spec, xs[:, :-1], us, up, dt_b, mu_obs, on, duals.mu_rate, duals.mu_box,
         duals.rho[:, None].expand(B, N), tree_map(lambda a: a[:, :N], obs_k),
-        scenario.xf[:, None], iw, via_s,
+        scenario.xf[:, None], iw, via_s, **nonu_kw,
     )
     PN, pN = terminal_Pp(
-        spec, xs[:, N], dt, scenario.xf, duals.lam_term, duals.mu_obs[:, N - 1],
-        duals.mu_dt, duals.rho, tree_map(lambda a: a[:, N], obs_k), duals.mu_ball, via_t,
+        spec, xs[:, N], dt[:, N - 1] if nonu else dt, scenario.xf, duals.lam_term,
+        duals.mu_obs[:, N - 1], duals.mu_dt, duals.rho, tree_map(lambda a: a[:, N], obs_k),
+        duals.mu_ball, via_t,
     )
     return tuple(a.contiguous() for a in (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN))
 
@@ -783,8 +870,7 @@ def _check_scope(spec, settings, scenario):
     if reason is not None:
         raise NotImplementedError(
             f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
-            "midpoint and Crank-Nicolson rules (K2b), shooting (K2e), the non-uniform "
-            "grid (K2f)"
+            "midpoint and Crank-Nicolson rules (K2b), shooting (K2e)"
         )
 
 
@@ -800,7 +886,7 @@ def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState,
     obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
 
     def kkt_system(primal, duals):
-        kkt = fused_kkt_system(spec, primal, scenario, duals, obs_k)
+        kkt = fused_kkt_system(spec, primal, scenario, duals, obs_k, settings.dt_prox)
         return kkt if kkt_rounding is None else kkt_rounding(kkt)
 
     plain = dataclasses.replace(settings, kkt="scan", fused="off")
@@ -844,6 +930,7 @@ class _Params(ctypes.Structure):
         ("reg_max", ctypes.c_double),
         ("viol_decrease_req", ctypes.c_double), ("tol_eq", ctypes.c_double),
         ("tol_ineq", ctypes.c_double),
+        ("nonu", ctypes.c_int), ("dt_ref", ctypes.c_double), ("dt_prox", ctypes.c_double),
     ]
 
 
@@ -890,27 +977,74 @@ def _params(spec, settings, obstacles) -> _Params:
         reg_grow=settings.reg_grow, reg_min=settings.reg_min, reg_max=settings.reg_max,
         viol_decrease_req=settings.viol_decrease_req, tol_eq=settings.tol_eq,
         tol_ineq=settings.tol_ineq,
+        nonu=int(spec.nonuniform_dt), dt_ref=spec.dt_ref,
+        dt_prox=settings.dt_prox if spec.nonuniform_dt else 0.0,
     )
 
 
-def library_path():
-    return nvcc_build.library_path(SOURCE)
+class Group(NamedTuple):
+    """The template arguments one library of the kernel holds (its five
+    ``GEO`` instantiations): the working type, the model (``MODEL_IDS``),
+    the objective family (``OBJ_IDS``) and the grid."""
+
+    double: bool
+    model: int
+    obj: int
+    nonu: bool
+
+    def defines(self):
+        return (f"K2A_DOUBLE={int(self.double)}", f"K2A_MODEL={self.model}",
+                f"K2A_OBJ={self.obj}", f"K2A_NONU={int(self.nonu)}")
+
+    def code(self) -> int:
+        """``k2a_group()`` of the library built for this group."""
+        return ((int(self.double) * 10 + self.model) * 10 + self.obj) * 10 + int(self.nonu)
 
 
-def build() -> dict:
-    """Compile the kernel if its library is missing (``nvcc_build``)."""
-    return nvcc_build.build_library(SOURCE, library_path())
+# the kernel's objective template parameter (csrc/fused_al_sqp.cu Objective)
+OBJ_IDS = {"minimum_time": 0, "quadratic_form": 1, "minimum_time_via_points": 2}
+GROUPS = tuple(Group(d, m, o, n) for n in (False, True) for d in (False, True)
+               for m in sorted(set(MODEL_IDS.values())) for o in sorted(OBJ_IDS.values()))
 
 
-def bind(path):
-    """Load a built fused-kernel library and declare its C entry points."""
+def group(spec, dtype) -> Group:
+    """The library group that launches ``spec`` in ``dtype``: its model, its
+    objective family (via points only where it has some, as ``_params``
+    passes them) and its grid."""
+    obj = OBJ_IDS["quadratic_form"] if spec.objective == "quadratic_form" else (
+        OBJ_IDS["minimum_time_via_points"] if has_via(spec) else OBJ_IDS["minimum_time"])
+    return Group(dtype == torch.float64, MODEL_IDS[type(spec.model)], obj,
+                 bool(spec.nonuniform_dt))
+
+
+def library_path(g: Group):
+    """The library of one group, built from the one source with the group's
+    macros, under a name of its own."""
+    variant = (f"_{'f64' if g.double else 'f32'}_m{g.model}_o{g.obj}"
+               f"{'_nonu' if g.nonu else ''}")
+    return nvcc_build.library_path(SOURCE, variant)
+
+
+def build(groups=GROUPS) -> list:
+    """Compile the library of each group in ``groups`` that is missing, all
+    at once (one nvcc each, at most 16 at a time; ``nvcc_build``). Returns
+    each build's report."""
+    def one(g):
+        return nvcc_build.build_library(SOURCE, library_path(g), g.defines())
+
+    with ThreadPoolExecutor(max_workers=min(len(groups), 16)) as pool:
+        return list(pool.map(one, groups))
+
+
+def bind(path, g: Group):
+    """Load the built fused-kernel library of group ``g`` and declare its C
+    entry points."""
     lib = ctypes.CDLL(str(path))
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    for fn in (lib.k2a_fused_solve_f32, lib.k2a_fused_solve_f64):
-        fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    names = ("k2a_max_v", "k2a_max_fp_v", "k2a_max_via", "k2a_params_size")
+    lib.k2a_fused_solve.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ctypes.c_void_p,
+                                    ctypes.c_int, ctypes.c_void_p]
+    lib.k2a_fused_solve.restype = ctypes.c_int
+    names = ("k2a_max_v", "k2a_max_fp_v", "k2a_max_via", "k2a_params_size", "k2a_group")
     for name in names:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
@@ -919,17 +1053,16 @@ def bind(path):
     lib.k2a_error_string.argtypes = [ctypes.c_int]
     lib.k2a_error_string.restype = ctypes.c_char_p
     limits = tuple(getattr(lib, name)() for name in names)
-    if limits != (MAX_V, MAX_FP_V, MAX_VIA, ctypes.sizeof(_Params)):
+    if limits != (MAX_V, MAX_FP_V, MAX_VIA, ctypes.sizeof(_Params), g.code()):
         raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
     return lib
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        build()
-        _lib = bind(library_path())
-    return _lib
+def _load(g: Group):
+    if g not in _libs:
+        build((g,))
+        _libs[g] = bind(library_path(g), g)
+    return _libs[g]
 
 
 _IN_NAMES = (
@@ -948,7 +1081,9 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
     slot families adding up to the spec's M) and its 15 freshly allocated
     outputs. The obstacle inputs are the point and circle slots as one
     family (``circle_slots``), then the line and the polygon slots, each
-    with its velocities; the via points and their mask come last."""
+    with its velocities; the via points and their mask come last. On the
+    non-uniform grid dt is (B, N) and mu_dt (B, 2N), the kernel's (B, N, 2)
+    of [hi, lo] rows per interval, in and out."""
     xs = init.xs
     dev, dtype = xs.device, xs.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -969,10 +1104,11 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
         scenario.via_mask,
     )
     Mv = spec.via_cap
+    dt_shape, md_shape = ((B, N), (B, 2 * N)) if spec.nonuniform_dt else ((B,), (B, 2))
     shapes = (
-        (B, N + 1, 3), (B, N, 2), (B,), (B, 3), (B, 2), (B, Mc, 2), (B, Mc), (B, Mc),
+        (B, N + 1, 3), (B, N, 2), dt_shape, (B, 3), (B, 2), (B, Mc, 2), (B, Mc), (B, Mc),
         (B, Mc, 2), (B, Ml, 2, 2), (B, Ml, 2), (B, Ml), (B, Mg, V, 2), (B, Mg), (B, Mg, 2),
-        (B, Mg), (B, N, 3), (B, 3), (B, N, M), (B, N, 4), (B, N, 4), (B, 2), (B, 1), (B,),
+        (B, Mg), (B, N, 3), (B, 3), (B, N, M), (B, N, 4), (B, N, 4), md_shape, (B, 1), (B,),
         (B, Mv, 3), (B, Mv),
     )
     for name, a, shape in zip(_IN_NAMES, ins, shapes):
@@ -995,8 +1131,9 @@ def launch(lib, spec, settings, ins, outs, stream, obstacles) -> None:
     """Run the kernel on ``ins`` into ``outs`` on ``stream``, with the
     line-search candidates as a device input in the working type and a
     fresh workspace for the step, the gain tape and the best-feasible
-    snapshot (``k2a_workspace_per_lane(N)`` values per lane, tiled by warp
-    with the lane index fastest); raises on a refused launch."""
+    snapshot (``k2a_workspace_per_lane(N)`` values per lane of the group
+    ``lib`` holds, tiled by warp with the lane index fastest); raises on a
+    refused launch."""
     params = _params(spec, settings, obstacles)
     xs = ins[0]
     B = xs.shape[0]
@@ -1005,8 +1142,7 @@ def launch(lib, spec, settings, ins, outs, stream, obstacles) -> None:
                      device=xs.device)
     in_ptrs = (ctypes.c_void_p * (len(ins) + 1))(*(a.data_ptr() for a in ins + (alphas,)))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(a.data_ptr() for a in outs))
-    fn = lib.k2a_fused_solve_f32 if xs.dtype == torch.float32 else lib.k2a_fused_solve_f64
-    rc = fn(ctypes.byref(params), in_ptrs, out_ptrs, ws.data_ptr(), B, stream)
+    rc = lib.k2a_fused_solve(ctypes.byref(params), in_ptrs, out_ptrs, ws.data_ptr(), B, stream)
     if rc != 0:
         raise RuntimeError(f"fused kernel launch failed: {lib.k2a_error_string(rc).decode()} ({rc})")
 
@@ -1030,7 +1166,7 @@ def fused_solve_cuda(spec, settings, scenario, init: Primal, duals: DualState) -
     if init.xs.device.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA tensors, got {init.xs.device}")
     ins, outs = kernel_io(spec, scenario, init, duals)
-    lib = _load()
+    lib = _load(group(spec, init.xs.dtype))
     dev = init.xs.device
     with torch.cuda.device(dev):
         launch(lib, spec, settings, ins, outs, torch.cuda.current_stream(dev).cuda_stream,
@@ -1053,9 +1189,12 @@ fused_solve_cuda.launches = 0
 # sits off the pose or the footprint is a segment or a polygon, θ; the
 # quadratic form on x, u and, integral, dt; the via attraction on the x and
 # y diagonal and, with an orientation weight, θ's; rate rows on u_prev, dt
-# and u; box rows on u).
-# tests/test_torch_fused.py and tests/test_torch_quadratic.py hold them
-# against the plain version's tensors.
+# and u; box rows on u). On the non-uniform grid the control is [u, dt_k]:
+# Fz = [[F, 0, 0], [0]], Gz = [[G | m], [I3]], the dt terms in the control
+# column 2 and, under the trapezoidal rule, dt_{k-1} in z column 5.
+# tests/test_torch_fused.py, tests/test_torch_quadratic.py and
+# tests/test_torch_nonuniform.py hold them against the plain version's
+# tensors.
 def step_structure(spec) -> dict:
     model = type(spec.model)
     m = "v" if spec.variable_dt else "0"
@@ -1071,6 +1210,21 @@ def step_structure(spec) -> dict:
     via = has_via(spec)
     xy = "v" if spec.obstacle_cap or quad or via else "0"
     th = "v" if quad or rot or (via and spec.via_orientation_weight > 0.0) else "0"
+    if spec.nonuniform_dt:
+        tr = "v" if quad and spec.integral_form and spec.cost_integration == "trapezoidal" \
+            else "0"
+        return {
+            "Fz": ("1 0 v 0 0 0", "0 1 v 0 0 0", "0 0 1 0 0 0") + ("0 0 0 0 0 0",) * 3,
+            "Gz": (f"v {g01} v", f"v {g01} v", f"{g20} v v", "1 0 0", "0 1 0", "0 0 1"),
+            "rz": ("v v v 0 0 0",),
+            "Hzz": (f"{xy} {obs} {o_th} 0 0 {tr}", f"{obs} {xy} {o_th} 0 0 {tr}",
+                    f"{o_th} {o_th} {th} 0 0 {tr}", "0 0 0 v 0 0", "0 0 0 0 v 0",
+                    f"{tr} {tr} {tr} 0 0 0"),
+            "Hzu": (f"0 0 {integ}",) * 3 + ("v 0 v", "0 v v", "0 0 0"),
+            "Huu": ("v 0 v", "0 v v", "v v v"),
+            "hz": (f"{xy} {xy} {th} v v {tr}",),
+            "hu": ("v v v",),
+        }
     return {
         "Fz": (f"1 0 v 0 0 {m}", f"0 1 v 0 0 {m}", f"0 0 1 0 0 {m}", "0 0 0 0 0 0",
                "0 0 0 0 0 0", "0 0 0 0 0 1"),
@@ -1096,7 +1250,9 @@ def step_flops(structure) -> tuple[int, int]:
     rollout on a ``step_structure``: a product or sum with a structural 0
     or 1 folds away, as the TPU kernel folds it when it is traced; every
     other product and sum counts 1. P is dense after the first stage and
-    counted dense; each entry of the symmetrized P is formed once."""
+    counted dense; each entry of the symmetrized P is formed once. Quu is
+    2×2, or 3×3 on the non-uniform grid (the adjugate over the
+    determinant)."""
     count = 0
 
     def mul(a, b):
@@ -1127,7 +1283,8 @@ def step_flops(structure) -> tuple[int, int]:
     S = {name: structure_rows(rows) for name, rows in structure.items()}
     Fz, Gz, rz, Hzz, Hzu, Huu = (S[k] for k in ("Fz", "Gz", "rz", "Hzz", "Hzu", "Huu"))
     hz, hu, rz = S["hz"][0], S["hu"][0], rz[0]
-    P, p, var2 = [[None] * 6 for _ in range(6)], [None] * 6, [[None] * 2 for _ in range(2)]
+    nv = len(hu)
+    P, p, var_inv = [[None] * 6 for _ in range(6)], [None] * 6, [[None] * nv for _ in range(nv)]
     PF = [[dot(row, c) for c in cols(Fz)] for row in P]
     PG = [[dot(row, c) for c in cols(Gz)] for row in P]
     Prp = [add(dot(row, rz), pi) for row, pi in zip(P, p)]
@@ -1140,10 +1297,12 @@ def step_flops(structure) -> tuple[int, int]:
             add(add(Huu[i][j], dot(gc, c)), None if i == j else 0.0)
     qz = [add(h, dot(fc, Prp)) for h, fc in zip(hz, cols(Fz))]
     qu = [add(h, dot(gc, Prp)) for h, gc in zip(hu, cols(Gz))]
-    count += 8  # 2x2 inverse: det (3), 1/det, four scaled entries
-    K = [[dot(qi, row) for row in Qzu] for qi in var2]  # negation is free
-    kf = [dot(qi, qu) for qi in var2]
-    v = [[add(Qzz[i][j], dot(Qzu[i], [K[0][j], K[1][j]])) for j in range(6)]
+    # 2x2 inverse: det (3), 1/det, four scaled entries; 3x3: nine cofactors
+    # (3 each), det (5), 1/det, nine scaled entries
+    count += 8 if nv == 2 else 42
+    K = [[dot(qi, row) for row in Qzu] for qi in var_inv]  # negation is free
+    kf = [dot(qi, qu) for qi in var_inv]
+    v = [[add(Qzz[i][j], dot(Qzu[i], [K[l][j] for l in range(nv)])) for j in range(6)]
          for i in range(6)]
     for i in range(6):
         for j in range(i, 6):
@@ -1151,7 +1310,7 @@ def step_flops(structure) -> tuple[int, int]:
         add(qz[i], dot(Qzu[i], kf))
     riccati, count = count, 0
     z = [None] * 6  # rollout: u = K z + kff, z' = Fz z + Gz u + rz
-    u = [add(dot(row, z), None) for row in [[None] * 6] * 2]
+    u = [add(dot(row, z), None) for row in [[None] * 6] * nv]
     for frow, grow, r in zip(Fz, Gz, rz):
         add(add(dot(frow, z), dot(grow, u)), r)
     return riccati, count
@@ -1301,11 +1460,18 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     fixed, so every lane does the same work but for its polygon edges.
     ``obstacles`` (the run's ObstacleSet) gives the slot families; without
     it every slot is a circle slot. ``via_mask`` (the run's) gives the
-    active via points (``_via_flops``)."""
+    active via points (``_via_flops``). On the non-uniform grid the dt box
+    is a stage row (in the derivatives with the ddt column's proximal
+    weight, in every candidate's merit and in the dual update), each stage
+    clips its own candidate dt (2) and applies its step (2), the trust cap
+    is taken per stage (2) and the minimum time is the sum of the stage dt."""
     N, M = spec.N, spec.obstacle_cap
     f_ops, dyn_ops, g_ops = _MODEL_FLOPS[type(spec.model)]
     quad = spec.objective == "quadratic_form"
     vdt, ball = spec.variable_dt, spec.ball_radius > 0.0
+    nonu = spec.nonuniform_dt
+    trap_nonu = nonu and trapezoidal(spec)
+    shared_dt = vdt and not nonu  # the one dt box: terminal rows
     riccati, rollout_step = step_flops(step_structure(spec))
     obs_value, obs_grad, obs_al = _geometry_flops(spec, obstacles)
     obs_deriv = obs_grad + obs_al * M
@@ -1313,40 +1479,51 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     dt_rows_merit, dt_rows_pp, dt_rows_dual = 14, 14, 6
     # terminal_Pp: equality and the dt box (30), the obstacle rows; Qf, the
     # trapezoidal tail, the ball (g, g′, its gradient and exact Hessian)
-    terminal = 30 + obs_deriv - (0 if vdt else dt_rows_pp)
+    terminal = 30 + obs_deriv - (0 if shared_dt else dt_rows_pp)
     terminal += 9 * (spec.qf_diag is not None) + 28 * trapezoidal(spec)
     terminal += (ball_g + 3 + 4 + 12 + 27) * ball
     # defect 13 (three x + dt f − x', the θ wrap), F 2
     transition = dyn_ops + 13 + 2 + g_ops
     # stage_grad_hess: rate and box rows (175), the obstacle rows; the
-    # quadratic form: plain 21, integral 52, hybrid 1
-    stage = 175 + obs_deriv
+    # quadratic form: plain 21, integral 52 (the non-uniform trapezoidal
+    # stage 12 more: ½(dt_{k-1} + dt_k), ½lx and the dt_{k-1} rows), hybrid
+    # 1; the non-uniform interval's dt box and the proximal weight
+    stage = 175 + obs_deriv + (dt_rows_pp + 1) * nonu
     if quad:
         stage += (52 if spec.integral_form else 21) + (spec.hybrid_time_weight > 0.0)
+        stage += 12 * trap_nonu
     rollout = transition + rollout_step
     # merit per stage: candidate, defect, penalties (121 with the simple
     # car's f), the obstacle rows and their penalties (10 per slot); the
-    # quadratic form's stage cost (20, integral 22, hybrid 2)
+    # quadratic form's stage cost (20, integral 22, the non-uniform
+    # trapezoidal 2 more, hybrid 2); non-uniform: the interval's dt box, its
+    # clipped candidate dt (2) and, minimum time, Σ dt (1)
     merit_stage = 121 - 7 + f_ops + obs_value + 10 * M
     if quad:
         merit_stage += (22 if spec.integral_form else 20) + 2 * (spec.hybrid_time_weight > 0.0)
+        merit_stage += 2 * trap_nonu
+    merit_stage += (dt_rows_merit + 2 + (not quad)) * nonu
     # merit's terminal part (40): equality, dt box, ball row, minimum time;
     # Qf 9, the tail 11, the ball's g
-    merit_end = 40 - (0 if vdt else dt_rows_merit) - quad
+    merit_end = 40 - (0 if shared_dt else dt_rows_merit) - quad
     merit_end += 9 * (spec.qf_diag is not None) + 11 * trapezoidal(spec) + ball_g * ball
-    free_tau_and_cap = 3 + 4 if vdt else 0
+    # the free δτ and the cap (3 + 4), or the cap per stage (2) and each
+    # stage's dt step (2)
+    free_tau_and_cap = 3 + 4 if shared_dt else 4 * N * nonu
     via_iter, via_final = _via_flops(spec, n_alpha, via_mask)
     per_iter = (
         terminal + N * (transition + stage + riccati) + free_tau_and_cap + N * rollout
         + (n_alpha + 1) * (N * merit_stage + merit_end) + 13 * N + 6 + via_iter
     )
     # dual update: the stage rows (80), the obstacle rows and their updates
-    # (6 per slot), the terminal rows and ρ (20)
+    # (6 per slot), the terminal rows and ρ (20); the non-uniform intervals'
+    # dt boxes
     per_phase = (N * (80 + obs_value + 6 * M) + 20 + (ball_g + 3) * ball
-                 - (0 if vdt else dt_rows_dual))
-    # the objective at the end: N·dt, or the stage costs and the terminal terms
-    final = 2
+                 - (0 if shared_dt else dt_rows_dual) + dt_rows_dual * N * nonu)
+    # the objective at the end: N·dt (Σ dt_k), or the stage costs and the
+    # terminal terms
+    final = N if nonu else 2
     if quad:
-        final = N * (22 if spec.integral_form else 20) + 11 * trapezoidal(spec)
+        final = N * (22 if spec.integral_form else 20) + 11 * trapezoidal(spec) + 2 * N * trap_nonu
     final += 9 * (spec.qf_diag is not None) + via_final
     return round(n_al * n_sqp * per_iter + n_al * per_phase + final)

@@ -2,7 +2,9 @@
 
 Each kernel source under ``csrc/`` is compiled at first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``_build/`` (ignored by
-git), under a name keyed by the source's hash, and loaded with ``ctypes``.
+git), under a name keyed by the source's hash, and loaded with ``ctypes``. A
+source built twice with different macros (``-D``) gives each build a name of
+its own (``variant``).
 """
 
 from __future__ import annotations
@@ -36,14 +38,15 @@ def nvcc() -> str:
     return str(path)
 
 
-def library_path(source: Path) -> Path:
+def library_path(source: Path, variant: str = "") -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    return BUILD_DIR / f"lib{source.stem}{variant}_{digest}.so"
 
 
-def build_library(source: Path, lib: Path) -> dict:
-    """Compile ``source`` into ``lib`` if it is missing. Returns the library
-    path, the build seconds (0 when it was already built) and ptxas' report."""
+def build_library(source: Path, lib: Path, defines=()) -> dict:
+    """Compile ``source`` into ``lib`` if it is missing, with the macros
+    ``defines`` ("NAME=VALUE"). Returns the library path, the build seconds
+    (0 when it was already built) and ptxas' report."""
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "ptxas": ""}
     compiler = nvcc()
@@ -51,7 +54,7 @@ def build_library(source: Path, lib: Path) -> dict:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [compiler, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [compiler, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -18,6 +18,10 @@ the Hessian of an exactly active hinge would come out ρ instead of ρ/4).
 in the fused kernel's scope (every spec ``OcpSpec`` admits) to the fused
 kernel (``ops/fused_al_sqp_cuda.py``), which runs the whole solve in one
 launch (``fused_dispatch_ok``); every other solve takes this un-fused path.
+On the non-uniform grid (``spec.nonuniform_dt``) each stage owns its dt: δdt_k
+is a third control column of the Riccati step, whose KKT solve is the plain
+``lqr_solve`` on any device, as the JAX solver runs it on the scan whatever
+``settings.kkt`` says (kernel K1 takes the uniform two-column shape only).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from mpc_local_planner_tpu_torch.ops.riccati_cuda import lqr_solve_auto
 from mpc_local_planner_tpu_torch.ops.smallmat import inv3
 from mpc_local_planner_tpu_torch.solvers.riccati import (
     build_augmented_transition,
+    build_augmented_transition_nonuniform,
     lqr_solve,
 )
 
@@ -93,11 +98,14 @@ class SolverSettings:
 
 
 class Decisions:
-    """The two comparisons of a solve that rounding can decide near a
-    solution: the line search's pick among the candidates' merits and the
-    penalty-growth test on the violation. ``solve`` takes them exactly;
-    ``solvers/agreement.py`` passes a rule that takes near-ties the other
-    way, to measure how far such a tie moves the answer."""
+    """The comparisons of a solve that rounding can decide: near a solution
+    the line search's pick among the candidates' merits and the
+    penalty-growth test on the violation, and anywhere whether a candidate's
+    dt that lands within rounding of its bound is clipped onto it (which
+    decides whether its dt-box row is then exactly at zero). ``solve`` takes
+    them exactly; ``solvers/agreement.py`` passes a rule that takes
+    near-ties the other way, to measure how far such a tie moves the
+    answer."""
 
     def pick(self, merits):
         """The winning candidate per lane of the (C, B) merits: the first
@@ -107,6 +115,10 @@ class Decisions:
     def stalled(self, viol, bound):
         """The growth test viol > viol_decrease_req · viol_prev, per lane."""
         return viol > bound
+
+    def clip_dt(self, dt, lo, hi):
+        """The line search's candidate dt clipped to [lo, hi]."""
+        return torch.clamp(dt, lo, hi)
 
 
 def _check_settings(settings: SolverSettings):
@@ -129,7 +141,7 @@ class DualState:
     mu_obs: torch.Tensor    # (..., N, M) obstacle multipliers (stages 1..N)
     mu_rate: torch.Tensor   # (..., N, 2*nu)
     mu_box: torch.Tensor    # (..., N, 2*nu)
-    mu_dt: torch.Tensor     # (..., 2)
+    mu_dt: torch.Tensor     # (..., 2); (..., 2N) [hi, lo] per interval, non-uniform grid
     mu_ball: torch.Tensor   # (..., 1)
     rho: torch.Tensor       # (...,) penalty parameter
 
@@ -145,8 +157,9 @@ class SolveResult:
 
 
 def shift_duals(duals: DualState, settings: SolverSettings, steps: int = 1) -> DualState:
-    """Shift stage-indexed multipliers with the warm-started grid; ρ restarts
-    at rho0."""
+    """Shift stage-indexed multipliers with the warm-started grid (on the
+    non-uniform grid the per-interval dt-box pairs too); ρ restarts at
+    rho0."""
     if not isinstance(steps, int):
         raise NotImplementedError(
             "per-lane (tensor) dual shifts are not ported yet (ROADMAP M10)"
@@ -157,13 +170,16 @@ def shift_duals(duals: DualState, settings: SolverSettings, steps: int = 1) -> D
         src = torch.clamp(torch.arange(n, device=a.device) + steps, max=n - 1)
         return a[..., src, :]
 
+    mu_dt = duals.mu_dt
+    if mu_dt.shape[-1] > 2:
+        mu_dt = roll(mu_dt.unflatten(-1, (-1, 2))).flatten(-2)
     return DualState(
         lam_def=roll(duals.lam_def),
         lam_term=duals.lam_term,
         mu_obs=roll(duals.mu_obs),
         mu_rate=roll(duals.mu_rate),
         mu_box=roll(duals.mu_box),
-        mu_dt=duals.mu_dt,
+        mu_dt=mu_dt,
         mu_ball=duals.mu_ball,
         rho=torch.full_like(duals.rho, settings.rho0),
     )
@@ -181,7 +197,7 @@ def init_duals(
 
     return DualState(
         lam_def=z(N, 3), lam_term=z(3), mu_obs=z(N, M), mu_rate=z(N, 2 * nu),
-        mu_box=z(N, 2 * nu), mu_dt=z(2), mu_ball=z(1),
+        mu_box=z(N, 2 * nu), mu_dt=z(2 * N) if spec.nonuniform_dt else z(2), mu_ball=z(1),
         rho=torch.full(batch, settings.rho0, dtype=dtype, device=device),
     )
 
@@ -218,6 +234,7 @@ class StageData(NamedTuple):
     iw: Optional[torch.Tensor] = None    # (1,) integration weight of the stage
     via_pts: Optional[torch.Tensor] = None  # (Mv, 3) via poses
     via_w: Optional[torch.Tensor] = None    # (Mv,) each via point's weight on this stage
+    mu_dt: Optional[torch.Tensor] = None    # (2,) the interval's dt-box multipliers (non-uniform)
 
 
 class TermData(NamedTuple):
@@ -255,7 +272,11 @@ def _obstacle_g(spec, x, obs):
 
 
 def _make_stage_fns(spec: OcpSpec):
-    """Stage-local functions over w = [x (3), u_prev (nu), u (nu), dt (1)].
+    """Stage-local functions over w = [x (3), u_prev (nu), u (nu), dt (1)];
+    on the non-uniform grid w = [x (3), u_prev (nu), dt_prev (1), u (nu),
+    dt (1)] (dt_{-1} = 0): dt_k is the stage's own decision, dt_{k-1} rides
+    along for the trapezoidal weight ½(dt_{k-1} + dt_k)·lx_k, and the
+    interval's dt box joins the stage inequalities.
 
     Returns (objective, constraints_vec, merit, hess_surrogate, gn_weights),
     as in the JAX package: the merit is the exact AL merit; the surrogate's
@@ -269,11 +290,13 @@ def _make_stage_fns(spec: OcpSpec):
     """
     nu = spec.nu
     M = spec.obstacle_cap
+    nonu = spec.nonuniform_dt
+    iu = 4 + nu if nonu else 3 + nu  # the first u column
     lo_u, hi_u = spec.control_box()
     lo_r, hi_r = spec.control_rate_box()
 
     def split(w):
-        return w[0:3], w[3 : 3 + nu], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu]
+        return w[0:3], w[3 : 3 + nu], w[iu : iu + nu], w[iu + nu]
 
     def objective(w, data: StageData):
         if spec.objective != "quadratic_form":
@@ -281,11 +304,16 @@ def _make_stage_fns(spec: OcpSpec):
             if has_via(spec):
                 c = torch.sum(_via_term(spec, w[0:3], data.via_pts, data.via_w) + c)
             return c
-        x, u, dt = w[0:3], w[3 + nu : 3 + 2 * nu], w[3 + 2 * nu :]
+        x, u, dt = w[0:3], w[iu : iu + nu], w[iu + nu :]
         dx = se2_boxminus(x, data.xref)
         x_term = torch.sum(dx * dx * const(spec.q_diag, w), dim=-1, keepdim=True)
         u_term = torch.sum(u * u * const(spec.r_diag, w), dim=-1, keepdim=True)
-        if spec.integral_form:
+        if spec.integral_form and nonu and spec.cost_integration == "trapezoidal":
+            # ½(dt_{k-1} + dt_k)·lx_k + lu_k·dt_k; the ½·dt_{N-1}·lx_N tail
+            # lives in the terminal stage
+            dtp = w[3 + nu : 4 + nu]
+            c = const((0.5,), w) * (dtp + dt) * x_term + u_term * dt
+        elif spec.integral_form:
             # data.iw: the integration rule's stage weight (trapezoidal: ½ at
             # k = 0; the ½·dt·lx_N tail lives in the terminal stage)
             c = (data.iw * x_term + u_term) * dt
@@ -305,15 +333,18 @@ def _make_stage_fns(spec: OcpSpec):
         lo_s = torch.maximum(const(lo_r, w), const((-BIG_DISTANCE,), w))
         parts.append(torch.cat([du - hi_s * dt, lo_s * dt - du]))
         parts.append(torch.cat([u - const(hi_u, w), const(lo_u, w) - u]))
+        if nonu:  # the interval's dt box
+            dtv = w[iu + nu :]
+            parts.append(torch.cat([dtv - spec.dt_max, spec.dt_min - dtv]))
         return torch.cat(parts)
 
     def stage_mu(data: StageData):
         mus = [data.mu_obs] if M > 0 else []
-        return torch.cat(mus + [data.mu_rate, data.mu_box])
+        return torch.cat(mus + [data.mu_rate, data.mu_box] + ([data.mu_dt] if nonu else []))
 
     def active_mask(data: StageData, g):
         """Active-set weight pattern; zeroes the obstacle block at k = 0."""
-        rest = torch.ones((4 * nu,), dtype=g.dtype, device=g.device)
+        rest = torch.ones((4 * nu + 2 * nonu,), dtype=g.dtype, device=g.device)
         return torch.cat([data.obs_on.expand(M), rest]) if M > 0 else rest
 
     def merit(w, data: StageData, rho):
@@ -339,7 +370,8 @@ def _make_stage_fns(spec: OcpSpec):
 
 
 def _make_terminal_fns(spec: OcpSpec):
-    """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)]; the
+    """Terminal counterparts over w = [x (3), u_prev (nu), dt (1)] (dt_{N-1}
+    on the non-uniform grid, whose dt rows live in the stages); the
     terminal objective is Qf, the ½·dt·lx(x_N) tail of the trapezoidal
     quadratic form and the via attraction of x_N, and is left out of the
     merit where the spec has none of them."""
@@ -376,9 +408,9 @@ def _make_terminal_fns(spec: OcpSpec):
             parts.append(torch.sum(dx * dx * s, dim=-1, keepdim=True) - spec.ball_radius**2)
         else:
             parts.append(torch.full((1,), -1.0, dtype=w.dtype, device=w.device))
-        if spec.variable_dt:
+        if spec.variable_dt and not spec.nonuniform_dt:
             parts.append(torch.cat([dt - spec.dt_max, spec.dt_min - dt]))
-        else:  # fixed dt: rows inactive
+        else:  # fixed dt, or the non-uniform grid's stage boxes: rows inactive
             parts.append(torch.full((2,), -1.0, dtype=w.dtype, device=w.device))
         return torch.cat(parts)
 
@@ -414,13 +446,18 @@ def _make_terminal_fns(spec: OcpSpec):
 # --------------------------------------------------------------------------- #
 def _stage_obstacles(spec, scenario, dt, n):
     """Per-stage obstacle sets (..., n, M, ...): stage i holds the field at
-    t = i·dt with dynamic obstacles (constant-velocity prediction, dt
-    detached: stage data, not decision-dependent), at t = 0 without."""
-    i = torch.arange(n, dtype=dt.dtype, device=dt.device)
-    if spec.enable_dynamic_obstacles:
-        t = i * dt.detach()[..., None]
+    t = i·dt (on the non-uniform grid t_i = Σ_{j<i} dt_j) with dynamic
+    obstacles (constant-velocity prediction, dt detached: stage data, not
+    decision-dependent), at t = 0 without."""
+    lead = dt.shape[:-1] if spec.nonuniform_dt else dt.shape
+    if not spec.enable_dynamic_obstacles:
+        t = torch.zeros(lead + (n,), dtype=dt.dtype, device=dt.device)
+    elif spec.nonuniform_dt:
+        cum = torch.cumsum(dt.detach(), dim=-1)
+        t = torch.cat([torch.zeros_like(cum[..., :1]), cum], dim=-1)[..., :n]
     else:
-        t = torch.zeros(dt.shape + (n,), dtype=dt.dtype, device=dt.device)
+        i = torch.arange(n, dtype=dt.dtype, device=dt.device)
+        t = i * dt.detach()[..., None]
     return scenario.obstacles.predict_stages(t)
 
 
@@ -476,14 +513,39 @@ def dt_clip(spec) -> Tuple[float, float]:
     return spec.dt_ref, spec.dt_ref
 
 
+def dt_trust_cap(spec, settings, dt, dtau):
+    """The relative trust region on dt, per lane: the step is scaled so that
+    no dt moves by more than ``dt_trust_frac`` of its current value. On the
+    non-uniform grid the tightest cap over the stages, each stage's scale
+    floored at dt_ref: one interval at dt_min would otherwise cap every later
+    step at frac·dt_min/|δdt| and stall the solve."""
+    dt_scale = torch.clamp(dt, min=spec.dt_ref) if spec.nonuniform_dt else dt
+    cap = torch.where(
+        torch.abs(dtau) > 0.0,
+        torch.clamp(
+            settings.dt_trust_frac * dt_scale / torch.clamp(torch.abs(dtau), min=1e-30),
+            max=1.0,
+        ),
+        1.0,
+    )
+    return cap.amin(dim=-1) if spec.nonuniform_dt else cap
+
+
 _ZI = (0, 1, 2, 3, 4, 7)  # z = [x, u_prev, dt] columns of w (nu = 2)
 _UI = (5, 6)              # u columns of w
+# the non-uniform grid: z = [x, u_prev, dt_prev] and v = [u, dt] are
+# contiguous in w
+_ZI_NONU, _UI_NONU = (0, 1, 2, 3, 4, 5), (6, 7, 8)
 
 
-def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
+def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k,
+                dt_prox: float = SolverSettings.dt_prox):
     """The Riccati inputs (Fz, Gz, rz, Hzz, Hzu, Huu, hz, hu, PN, pN) of one
-    SQP iteration, lanes in front, all contiguous."""
+    SQP iteration, lanes in front, all contiguous (on the non-uniform grid
+    with the control columns [u, dt] and ``settings.dt_prox`` on the δdt
+    diagonal of Huu)."""
     N, nx, nu = spec.N, spec.nx, spec.nu
+    nonu = spec.nonuniform_dt
     xs, us, dt = primal.xs, primal.us, primal.dt
     B = dt.shape[0]
     dtype = xs.dtype
@@ -493,7 +555,7 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
         return stage_defect(spec.model, spec.collocation, xk, uk, xk1, dtv)
 
     xk, xk1 = xs[:, :-1], xs[:, 1:]
-    dt_b = dt[:, None].expand(B, N)
+    dt_b = dt if nonu else dt[:, None].expand(B, N)
     cvals = defect(xk, us, xk1, dt_b)
     jac = vmap(jacfwd(defect, argnums=(0, 1, 2, 3)))(
         _flat2(xk), _flat2(us), _flat2(xk1), _flat2(dt_b)
@@ -506,7 +568,8 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     if not spec.variable_dt:
         mcol = torch.zeros_like(mcol)
     raff = -torch.einsum("...ij,...j->...i", Einv, cvals)
-    Fz, Gz, rz = build_augmented_transition(F, G, mcol, raff, nu=nu)
+    transition = build_augmented_transition_nonuniform if nonu else build_augmented_transition
+    Fz, Gz, rz = transition(F, G, mcol, raff, nu=nu)
 
     # ---- stage data ----------------------------------------------------- #
     M = spec.obstacle_cap
@@ -536,9 +599,14 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
         iw=iw,
         via_pts=via_pts,
         via_w=None if via_w is None else _flat2(via_w[:, :N]),
+        mu_dt=_flat2(duals.mu_dt.reshape(B, N, 2)) if nonu else None,
     )
     u_ext = torch.cat([scenario.u_prev[:, None], us], dim=1)  # (B, N+1, nu)
-    ws = _flat2(torch.cat([xk, u_ext[:, :-1], us, dt_b[..., None]], dim=-1))
+    if nonu:  # w = [x, u_prev, dt_prev, u, dt] with dt_{-1} = 0
+        dtp = torch.cat([dt.new_zeros(B, 1), dt[:, :-1]], dim=1)
+        ws = _flat2(torch.cat([xk, u_ext[:, :-1], dtp[..., None], us, dt[..., None]], dim=-1))
+    else:
+        ws = _flat2(torch.cat([xk, u_ext[:, :-1], us, dt_b[..., None]], dim=-1))
     rho_s = _flat2(duals.rho[:, None].expand(B, N))
 
     _, stage_cons, stage_merit, stage_hess, stage_gn_w = stage_fns
@@ -550,12 +618,15 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
     nw = ws.shape[-1]
     gstage = gstage.reshape(B, N, nw)
     Hstage = Hstage.reshape(B, N, nw, nw)
-    zi = const(_ZI, Hstage, dtype=torch.long)
-    ui = const(_UI, Hstage, dtype=torch.long)
+    zi = const(_ZI_NONU if nonu else _ZI, Hstage, dtype=torch.long)
+    ui = const(_UI_NONU if nonu else _UI, Hstage, dtype=torch.long)
     Hz_rows = Hstage.index_select(-2, zi)
     Hzz = Hz_rows.index_select(-1, zi)
     Hzu = Hz_rows.index_select(-1, ui)
     Huu = Hstage.index_select(-2, ui).index_select(-1, ui)
+    if nonu and dt_prox > 0.0:
+        # proximal damping of the δdt column
+        Huu = Huu + dt_prox * const((0.0,) * nu + (1.0,), Huu).diag()
     hz = gstage.index_select(-1, zi)
     hu = gstage.index_select(-1, ui)
 
@@ -564,13 +635,13 @@ def _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k):
         mu_obs=duals.mu_obs[:, N - 1],
         lam_term=duals.lam_term,
         mu_ball=duals.mu_ball,
-        mu_dt=duals.mu_dt,
+        mu_dt=duals.mu_dt.new_zeros(B, 2) if nonu else duals.mu_dt,
         obs=obs_term,
         via_pts=() if via_w is None else scenario.via_points,
         via_w=() if via_w is None else via_w[:, N],
     )
     term_cons, _, term_merit, term_hess, term_gn_w = term_fns
-    wN = torch.cat([xs[:, N], us[:, N - 1], dt[:, None]], dim=-1)
+    wN = torch.cat([xs[:, N], us[:, N - 1], dt[:, N - 1 :] if nonu else dt[:, None]], dim=-1)
     pN = vmap(grad(term_merit))(wN, tdata, duals.rho)
     gT0 = vmap(term_cons)(wN, tdata)
     awT = vmap(term_gn_w)(tdata, gT0, duals.rho)
@@ -586,7 +657,13 @@ def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, r
     dtype = xs.dtype
     B = dt.shape[0]
     kkt = kkt_system(primal, duals)
-    step = lqr(*kkt, reg, nx=spec.nx, free_tau=spec.variable_dt)
+    if spec.nonuniform_dt:
+        # δdt_k is control column nu: the plain KKT solve on any device (the
+        # JAX solver runs this shape on the scan whatever settings.kkt says)
+        step = lqr_solve(*kkt, reg, nx=spec.nx, free_tau=False)
+        step = step._replace(dus=step.dus[..., : spec.nu], dtau=step.dus[..., spec.nu])
+    else:
+        step = lqr(*kkt, reg, nx=spec.nx, free_tau=spec.variable_dt)
 
     # NaN quarantine: a non-finite KKT solve becomes a zero step — the line
     # search then rejects it and the regularization ramps up, instead of
@@ -594,33 +671,25 @@ def _sqp_iteration(spec, funcs, settings, kkt_system, primal, scenario, duals, r
     step_ok = (
         torch.isfinite(step.dxs).flatten(1).all(dim=1)
         & torch.isfinite(step.dus).flatten(1).all(dim=1)
-        & torch.isfinite(step.dtau)
+        & torch.isfinite(step.dtau).reshape(B, -1).all(dim=1)
     )
     ok3 = step_ok[:, None, None]
     dxs = torch.where(ok3, step.dxs, 0.0)
     dus = torch.where(ok3, step.dus, 0.0)
-    dtau = torch.where(step_ok, step.dtau, 0.0)
+    dtau = torch.where(step_ok.reshape((B,) + (1,) * (step.dtau.dim() - 1)), step.dtau, 0.0)
 
     # ---- parallel-candidate line search on the AL merit ------------------ #
     dt_lo, dt_hi = dt_clip(spec)
-    # relative trust region on dt: cap the step to a fraction of the current
-    # dt by scaling the whole search direction
-    alpha_cap = torch.where(
-        torch.abs(dtau) > 0.0,
-        torch.clamp(
-            settings.dt_trust_frac * dt / torch.clamp(torch.abs(dtau), min=1e-30),
-            max=1.0,
-        ),
-        1.0,
-    )
+    alpha_cap = dt_trust_cap(spec, settings, dt, dtau)
     alphas = torch.cat(
         [const(settings.alphas, dt) * alpha_cap[:, None], dt.new_zeros(B, 1)], dim=1
     )  # (B, C)
     a_c = alphas.T  # (C, B): candidates in front of the lane axis
+    a_dt = a_c[..., None] if spec.nonuniform_dt else a_c
     cands = Primal(
         xs=se2_boxplus(xs[None], a_c[..., None, None] * dxs[None]),
         us=us[None] + a_c[..., None, None] * dus[None],
-        dt=torch.clamp(dt[None] + a_c * dtau[None], dt_lo, dt_hi),
+        dt=decisions.clip_dt(dt[None] + a_dt * dtau[None], dt_lo, dt_hi),
     )
     merits = _al_merit(funcs, cands, scenario, duals)  # (C, B)
     # non-finite candidate merits lose the line search. The α = 0 candidate
@@ -728,7 +797,8 @@ def solve(
         obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
 
         def kkt_system(primal, duals):
-            return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k)
+            return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k,
+                               settings.dt_prox)
 
     lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
     dtype = init.xs.dtype

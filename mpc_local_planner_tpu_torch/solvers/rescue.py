@@ -87,7 +87,7 @@ def make_rescue(
         finite = (
             torch.isfinite(primal_k.xs).flatten(1).all(dim=1)
             & torch.isfinite(primal_k.us).flatten(1).all(dim=1)
-            & torch.isfinite(primal_k.dt)
+            & torch.isfinite(primal_k.dt).reshape(k, -1).all(dim=1)
         )
         diverged = torch.logical_not(
             (ev <= divergence_threshold) & (iv <= divergence_threshold) & finite

@@ -5,7 +5,9 @@
 (``ops/riccati_cuda.py``): the CPU path, and the yardstick the kernel is held
 against on the card. The shared dt is folded into the augmented stage state
 z_k = [δx_k, δu_{k-1}, δτ] (na = nx + nu + 1), which keeps the KKT
-block-tridiagonal. Every argument carries the same leading batch dims.
+block-tridiagonal; the non-uniform grid's per-stage δdt_k is a control
+column instead (``build_augmented_transition_nonuniform``). Every argument
+carries the same leading batch dims.
 """
 
 from __future__ import annotations
@@ -113,6 +115,32 @@ def build_augmented_transition(F, G, m, r, *, nu: int):
             G,
             torch.eye(nu, dtype=F.dtype, device=F.device).expand(lead + (nu, nu)),
             F.new_zeros(lead + (1, nu)),
+        ],
+        dim=-2,
+    )
+    rz = torch.cat([r, F.new_zeros(lead + (nu + 1,))], dim=-1)
+    return Fz, Gz, rz
+
+
+def build_augmented_transition_nonuniform(F, G, m, r, *, nu: int):
+    """Augmented transition of the non-uniform per-stage-dt grid: δdt_k is
+    control column nu of stage k, and δdt_{k-1} rides in the state so that
+    the trapezoidal stage weight ½(dt_{k-1} + dt_k) stays stage-separable;
+    na stays nx + nu + 1, the control width grows to nu + 1:
+        z_k = [δx_k, δu_{k-1}, δdt_{k-1}],  v_k = [δu_k, δdt_k]
+        δx rows:       [F, 0, 0]·z + [G | m]·v + r
+        δu_prev rows:  δu_k
+        δdt_prev row:  δdt_k
+    """
+    nx = F.shape[-2]
+    lead = F.shape[:-2]  # (..., N)
+    na = nx + nu + 1
+    top = torch.cat([F, F.new_zeros(lead + (nx, nu + 1))], dim=-1)
+    Fz = torch.cat([top, F.new_zeros(lead + (nu + 1, na))], dim=-2)
+    Gz = torch.cat(
+        [
+            torch.cat([G, m[..., None]], dim=-1),
+            torch.eye(nu + 1, dtype=F.dtype, device=F.device).expand(lead + (nu + 1, nu + 1)),
         ],
         dim=-2,
     )

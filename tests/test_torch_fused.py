@@ -303,6 +303,35 @@ def test_torch_fused_dispatch_ok(case, admitted):
     assert al_sqp.fused_dispatch_ok(spec, st, scen, dtype, device) is admitted
 
 
+@pytest.mark.parametrize(
+    "family, dtype, want",
+    [
+        ("flagship", torch.float32, (False, 1, 0, False)),
+        ("flagship", torch.float64, (True, 1, 0, False)),
+        ("via_points", torch.float32, (False, 1, 2, False)),
+        ("nonuniform", torch.float64, (True, 1, 0, True)),
+        ("config2", torch.float32, (False, 0, 1, False)),
+    ],
+)
+def test_torch_k2a_library_group_of_a_spec(family, dtype, want):
+    """A launch's library holds the five instantiations of its working type,
+    model, objective family and grid; the 48 groups have 48 names, and each
+    group's macros give the number its library reports (``k2a_group``)."""
+    from mpc_local_planner_tpu_torch.benchmarks import config2_diffdrive_obstacles, family_spec
+
+    spec = config2_diffdrive_obstacles(N=8) if family == "config2" else family_spec(family, N=8)
+    g = k2a.group(spec, dtype)
+    assert g == k2a.Group(*want) and g in k2a.GROUPS
+    assert len(set(k2a.GROUPS)) == 48 and len({k2a.library_path(h) for h in k2a.GROUPS}) == 48
+    macros = {k: int(v) for k, v in (d.split("=") for d in g.defines())}
+    assert ((macros["K2A_DOUBLE"] * 10 + macros["K2A_MODEL"]) * 10 + macros["K2A_OBJ"]) * 10 \
+        + macros["K2A_NONU"] == g.code()
+    code = "((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU"
+    assert code in k2a.SOURCE.read_text()
+    no_via = dataclasses.replace(spec, via_cap=0)
+    assert k2a.group(no_via, dtype).obj == (1 if family == "config2" else 0)
+
+
 def test_torch_make_solver_on_cpu_is_the_unfused_solve_bit_for_bit():
     spec, st, scen, init, duals = _small()
     before = k2a.fused_solve_cuda.launches
@@ -455,6 +484,44 @@ def _moved(r, lane, rel):
     r = al_sqp.tree_map(torch.clone, r)
     r.primal.xs[lane, 4, 0] += rel * max(abs(float(r.primal.xs[lane, 4, 0])), 1.0)
     return r
+
+
+def test_torch_tie_breaks_clip_a_dt_near_its_bound_either_way():
+    """A candidate's dt within rounding of a bound it is not on goes onto the
+    bound (``first``) or one ulp inside it (``last``); a dt on its bound or
+    clearly inside or beyond is clipped as the solver clips it, and a fixed
+    dt (lo == hi) has no tie."""
+    lo, hi = 1e-3, 0.5
+    up = lambda v, n: float(np.nextafter(np.float64(v), np.inf) if n == 1 else  # noqa: E731
+                            v + n * np.spacing(np.float64(v)))
+    dt = torch.tensor([up(lo, 4), lo - 3 * np.spacing(lo), lo, lo + 1e-6, 0.2,
+                       hi - 2 * np.spacing(hi), hi + 1e-3], dtype=torch.float64)
+    first, last = agreement.tie_breaks()
+    exact = al_sqp.Decisions().clip_dt(dt, lo, hi)
+    assert torch.equal(exact, torch.clamp(dt, lo, hi))
+    want_first = torch.tensor([lo, lo, lo, lo + 1e-6, 0.2, hi, hi], dtype=torch.float64)
+    want_last = torch.tensor([up(lo, 4), up(lo, 1), lo, lo + 1e-6, 0.2,
+                              hi - 2 * np.spacing(hi), hi], dtype=torch.float64)
+    assert torch.equal(first.clip_dt(dt, lo, hi), want_first)
+    assert torch.equal(last.clip_dt(dt, lo, hi), want_last)
+    for rule in (first, last):
+        assert torch.equal(rule.clip_dt(dt, 0.3, 0.3), torch.full_like(dt, 0.3))
+
+
+@pytest.mark.parametrize("rel, tie, held", [(5e-2, 1e-3, True), (0.5, 1e-3, False),
+                                            (5e-2, 0.0, False)])
+def test_torch_f64_agreement_holds_an_unconverged_lane_to_its_tie(rel, tie, held):
+    """A lane that the tie runs move has a tie shown whether or not it
+    converged: it is held to 100 times the larger of its one-ulp and tie
+    sensitivities; without the tie the same error fails it."""
+    out_p, outs_q, outs_r, outs_t, growth = _plain_f64_results()
+    assert not bool(out_p.converged.any())
+    if tie:
+        outs_t = [_moved(outs_t[0], 3, tie)] + list(outs_t[1:])
+    info, passed, _, _ = agreement.f64_agreement(
+        _moved(out_p, 3, rel), out_p, outs_q, outs_t, growth, 0.0, outs_r=outs_r)
+    assert passed is held, info
+    assert info["converged_tied"] == 0
 
 
 @pytest.mark.parametrize("every_lane", [True, False])

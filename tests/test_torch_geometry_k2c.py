@@ -498,8 +498,19 @@ def test_torch_family_spec_matches_jax(name):
 
 @pytest.mark.parametrize("name, item", [("nonuniform", "K2f")])
 def test_torch_family_spec_names_what_waits(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP M9, {item}"):
-        tb.family_spec(name, N=N)
+    """No family of the JAX package's ``FAMILY_NAMES`` waits any more: the
+    last one, the non-uniform grid (kernel branch ``item``), matches JAX's
+    spec, and a name JAX does not know raises naming it."""
+    assert name in jb.FAMILY_NAMES and item == "K2f"
+    j, t = jb.family_spec(name, N=N), tb.family_spec(name, N=N)
+    assert t.nonuniform_dt and t.variable_dt
+    for f in dataclasses.fields(OcpSpec):
+        if f.name not in ("model", "footprint", "limits"):
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    for family in jb.FAMILY_NAMES:
+        tb.family_spec(family, N=N)
+    with pytest.raises(ValueError, match="unknown family 'shooting'"):
+        tb.family_spec("shooting", N=N)
 
 
 def test_torch_wall_ensemble_has_the_jax_layout():

@@ -9,8 +9,11 @@ two discs and dynamic obstacles, the bicycle with two discs, the
 polygon-footprint family, and all four slot families moving with a line
 footprint and with a polygon footprint; via points (K2d: the via-points
 family, path D, and ordered via points with an orientation weight and
-masked slots), and what the kernel once refused: 30 obstacle slots (the
-example configs' capacity), 17 line-search candidates and N = 80.
+masked slots), what the kernel once refused: 30 obstacle slots (the
+example configs' capacity), 17 line-search candidates and N = 80, and the
+non-uniform per-stage dt grid (K2f: minimum time, all four slot families
+moving with two discs, the polygon footprint; config #2's integral
+trapezoidal form, held to 64 of 1024 lanes converged on both).
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -137,6 +140,17 @@ BEYOND = {
 }
 
 
+# the non-uniform grid (K2f): (spec, ensemble as ``_ensemble`` takes it,
+# settings)
+K2F = {
+    "min-time": lambda: (family_spec("nonuniform"), None, WARM),
+    "mixed-dynamic": lambda: (dataclasses.replace(K2C["mixed-dynamic"]()[0], nonuniform_dt=True),
+                              K2C["mixed-dynamic"]()[1], WARM),
+    "polygon-footprint": lambda: (dataclasses.replace(family_spec("polygon_footprint"),
+                                                      nonuniform_dt=True), None, WARM),
+}
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: kernel K2a has no CPU or interpret mode")
@@ -188,9 +202,10 @@ def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0, sl
     return spec, st, dataclasses.replace(scen, x0=x0n), init, duals
 
 
-def _check_f64(spec, st, scen, init, duals):
-    """agreement.f64_agreement at the whole budget and after one SQP
-    iteration, before rounding can grow on any lane."""
+def _check_f64(spec, st, scen, init, duals, floor=0.25):
+    """agreement.f64_agreement at the whole budget (at least ``floor`` of
+    the lanes converged on both) and after one SQP iteration, before
+    rounding can grow on any lane."""
     for sp, short in ((st, False), (dataclasses.replace(st, n_al=1, n_sqp=1), True)):
         before = k2a.fused_solve_cuda.launches
         out_k = k2a.fused_solve_cuda(spec, sp, scen, init, duals)
@@ -202,17 +217,17 @@ def _check_f64(spec, st, scen, init, duals):
         torch.cuda.synchronize()
         assert out_k.primal.xs.dtype == torch.float64
         info, passed, _, _ = agreement.f64_agreement(
-            out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else 0.25,
+            out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else floor,
             every_lane=short, outs_r=outs_r, outs_spread=outs_s,
         )
         assert passed, json.dumps(info)
 
 
-def _check_f32(spec, st, scen, init, duals):
+def _check_f32(spec, st, scen, init, duals, floor=0.25):
     out_k = k2a.fused_solve_cuda(spec, st, scen, init, duals)
     out_p = k2a.fused_solve_plain(spec, st, scen, init, duals)
     torch.cuda.synchronize()
-    info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp)
+    info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp, floor)
     assert passed, json.dumps(info)
     both = out_k.converged & out_p.converged
     assert bool(torch.isfinite(out_k.primal.xs[both]).all())
@@ -354,3 +369,62 @@ def test_torch_k2a_kernel_refuses_what_it_does_not_take():
     strided = dataclasses.replace(init, us=init.us.mT.contiguous().mT)
     with pytest.raises(ValueError, match="us is not contiguous"):
         k2a.fused_solve_cuda(spec, st, scen, strided, duals)
+    # a library launches its own group only: the flagship's refuses the
+    # quadratic form, which its five instantiations do not hold
+    quad = dataclasses.replace(spec, objective="quadratic_form")
+    lib = k2a._load(k2a.group(spec, torch.float32))
+    ins, outs = k2a.kernel_io(quad, scen, init, duals)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        k2a.launch(lib, quad, st, ins, outs, torch.cuda.current_stream(dev).cuda_stream,
+                   scen.obstacles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(K2F))
+def test_torch_fused_kernel_matches_plain_on_the_nonuniform_grid(case, dtype):
+    """The non-uniform grid's half of the kernel (K2f: a per-stage dt, a
+    3x3 Quu, the interval dt boxes, cumulative prediction times) from the
+    live state of two fleet cycles."""
+    spec, slots, settings = K2F[case]()
+    args = _warm_state(_card(), dtype, settings, spec=spec, cycles=2, slots=slots)
+    assert tuple(args[3].dt.shape) == (300, spec.N)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_torch_fused_kernel_matches_plain_on_the_nonuniform_trapezoidal_form(dtype):
+    """Config #2's integral trapezoidal form on the grid (the dt_{k-1}
+    coupling row). It converges few lanes at the warm 3×4, in JAX as in the
+    port (tests/test_torch_nonuniform_solves.py), so it runs at 1024 lanes
+    and is held to 64 of them converged on both versions (chip_smoke.py's
+    ``CONVERGED_FLOOR``)."""
+    spec = dataclasses.replace(
+        config2_diffdrive_obstacles(N=30, obstacle_cap=10), integral_form=True,
+        cost_integration="trapezoidal", hybrid_time_weight=0.4, variable_dt=True,
+        nonuniform_dt=True, dt_min=1e-3, dt_max=0.5)
+    args = _warm_state(_card(), dtype, WARM, batch=1024, spec=spec, cycles=2)
+    init = args[3]
+    assert bool((init.dt.max(dim=-1).values > init.dt.min(dim=-1).values).any())
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args, floor=1 / 16)
+
+
+@pytest.mark.gpu
+def test_torch_nonuniform_warm_solve_launches_the_kernel_and_never_k1():
+    """Path E's warm solve launches the fused kernel once; its un-fused
+    solve runs the plain KKT solve on the card (δdt_k a third control
+    column), not K1, which refuses that shape."""
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(dev, torch.float32, WARM, batch=64,
+                                              spec=family_spec("nonuniform"))
+    before, k1 = k2a.fused_solve_cuda.launches, riccati_cuda.lqr_solve_cuda.launches
+    out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert out.primal.dt.shape == (64, spec.N) and out.duals.mu_dt.shape == (64, 2 * spec.N)
+    off = al_sqp.make_solver(spec, dataclasses.replace(st, fused="off"), dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert riccati_cuda.lqr_solve_cuda.launches == k1
+    assert off.primal.dt.shape == (64, spec.N)

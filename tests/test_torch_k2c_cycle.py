@@ -159,17 +159,19 @@ def test_torch_k2c_fleet_cycle_with_stuck_restart_matches_jax(family):
                         _cycle_jax(family, scen, r, stuck))
 
 
-def assert_cycles_match(scen, r, stuck, torch_out, jax_out):
+def assert_cycles_match(scen, r, stuck, torch_out, jax_out, dual_slack=0.0):
     """The port's cycle against the JAX cycle from one start state: trees,
-    multipliers and counts as the module docstring says; the lanes advanced,
-    continued or restarted as the policy says."""
+    multipliers and counts as the module docstring says (the multipliers
+    with ``dual_slack`` more per lane where a caller measured JAX's own
+    rounding move); the lanes advanced, continued or restarted as the
+    policy says."""
     (ts2, tr2, tk2), (js2, jr2, jk2) = torch_out, jax_out
     advance = r["converged"]
     diverged = ~((r["eq_norm"] <= 0.5) & (r["ineq_viol"] <= 0.5))
     _assert_trees_close(ts2, js2)
     _assert_trees_close({k: v for k, v in tr2.items() if k != "duals"},
                         {k: v for k, v in jr2.items() if k != "duals"})
-    tol = ATOL + RHO_ULP * jr2["duals"]["rho"]
+    tol = ATOL + RHO_ULP * jr2["duals"]["rho"] + dual_slack
     for k, b in jr2["duals"].items():
         a = tr2["duals"][k]
         assert a.shape == b.shape and a.dtype == b.dtype, k
