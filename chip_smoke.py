@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   2. build   — nvcc builds kernel K1 (csrc/riccati_sweep.cu) and each
                group of the fused kernel's instantiations that the smoke
                launches (csrc/fused_al_sqp.cu: one library per working type,
-               model, objective family and grid, five instantiations each;
-               14 of the 48) into _build/, all at once; each build's
-               seconds and the phase's wall time
+               model, objective family, grid and collocation family, five
+               instantiations each; 16 of the 96) into _build/, all at
+               once; each build's seconds and the phase's wall time
   3. kernel  — K1 against its plain PyTorch version on the Riccati inputs of
                one real flagship SQP iteration (B=4096 and 1024, N=30, and
                B=4096 at N=96, past the cap K1 once had), in float64 and
@@ -87,12 +87,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                configs' capacity, 8 obstacles in them) and the flagship at
                N=80; and (K2f) the non-uniform grid under config #2's
                integral trapezoidal form and under the mixed-dynamic case;
+               and (K2b, K2e) the flagship with midpoint differences, on
+               the shooting_rk4 grid and on the shooting_rk7_2 grid (rk7's
+               11 stages at 2 substeps, the most the kernel takes);
                each from its own cold solve (the fused kernel's, at the
                cold preset: one launch where the un-fused solve is host-bound
                for tens of seconds) and two fused fleet cycles. The
-               fourteen cases of phases 14 and 23 run at once, each in a
-               process of its own (``chip_smoke.py --family-case NAME``);
-               then each is timed alone
+               seventeen cases of phases 14 and 23 run in the last phase,
+               each in a process of its own (``chip_smoke.py
+               --family-case NAME``); then each is timed alone
  24. path C  — the polygon-footprint family (family_spec "polygon_footprint":
                the simple car with a 0.5 × 0.3 m rectangle, 8 circle slots,
                minimum time) as bench.py's families mode runs it: cold 16×15
@@ -121,9 +124,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  31. kernel  — the fused kernel against its plain version on path E's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  32. gate    — path E's fused warm solve against the un-fused one; trace
- 33. summary — the seconds of the build, of each path and of the cases
-               (``smoke_split_s``), the kernels line, the card line, then
-               the result line
+ 33. path F  — the Crank–Nicolson flagship (the flagship's spec with
+               ``collocation="crank_nicolson_differences"``: the kernel's
+               K2b branch, the −E⁻¹ fold) as the flagship runs: cold 16×15
+               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue, the cold oracle; 20 fused launches, 480
+               of K1, none in the warm cycles; run after path E
+ 34. kernel  — the fused kernel against its plain version on path F's live
+               warm state (4096 lanes at 3×4, 1024 at 4×4)
+ 35. gate    — path F's fused warm solve against the un-fused one; trace
+ last    — the float64 checks of phases 7, 13, 18, 21, 25, 28, 31 and
+               34 at every prefix of the schedule (each of those phases
+               saves its warm inputs and runs the float32 check and the
+               times at once) and the B=1024 cases of phases 14 and 23:
+               33 processes, at most 17 at once (``last_phase``)
+ 36. summary — the seconds of the build, of each path and of the last
+               phase (``smoke_split_s``), the kernels line, the card line,
+               then the result line
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -131,8 +148,11 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -174,6 +194,31 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 
 def _fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# the fused kernel's launches by collocation rule, summed over the main paths'
+# runs (``reset_counts`` before each, ``rule_counts`` after it)
+RULE_LAUNCHES = collections.Counter()
+
+
+def reset_counts():
+    """Set every kernel's launch counts to 0, just before a main path."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    riccati_cuda.lqr_solve_cuda.launches = 0
+    k2a.fused_solve_cuda.launches = 0
+    k2a.fused_solve_cuda.launches_by_rule.clear()
+
+
+def rule_counts():
+    """The fused kernel's launches by collocation rule since ``reset_counts``,
+    just after a main path; added to RULE_LAUNCHES."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+
+    counts = dict(k2a.fused_solve_cuda.launches_by_rule)
+    RULE_LAUNCHES.update(counts)
+    return counts
 
 
 def card_line() -> str:
@@ -469,10 +514,13 @@ def k2a_f64_phase(spec, st, args64, tag, floor=0.25):
         outs_q, outs_r, outs_t = agreement.plain_runs(plain, init)
         outs_s = agreement.spread_runs(plain, init) if first else ()
         torch.cuda.synchronize()
+        respread = agreement.lane_spread(
+            lambda s, i, d, **kw: k2a.fused_solve_plain(spec, sp, s, i, d, **kw),  # noqa: B023
+            scen, init, duals)
         info, passed, err, sens = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth,
             min_converged_frac=floor if last else 0.0, every_lane=first,
-            outs_r=outs_r, outs_spread=outs_s,
+            outs_r=outs_r, outs_spread=outs_s, respread=respread,
         )
         print(f"{tag} f64 at {n_al}x{n_sqp}: {json.dumps(info)} passed={passed}")
         if not passed:
@@ -499,10 +547,15 @@ def k2a_check(spec, st, args32, tag, floor=0.25):
     float64 at every prefix of the schedule, then float32 at bench-gate
     semantics, each with at least ``floor`` of the lanes converged on both
     after the whole schedule. Returns the gate's info."""
+    k2a_f64_phase(spec, st, _double(args32), tag, floor)
+    return k2a_f32_check(spec, st, args32, tag, floor)
+
+
+def k2a_f32_check(spec, st, args32, tag, floor=0.25):
+    """``k2a_check``'s float32 part: bench.py's gate. Returns its info."""
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.solvers import agreement
 
-    k2a_f64_phase(spec, st, _double(args32), tag, floor)
     out_k = k2a.fused_solve_cuda(spec, st, *args32)
     out_p = k2a.fused_solve_plain(spec, st, *args32)
     info, passed = agreement.gate(out_k, out_p, st.n_al * st.n_sqp, floor)
@@ -542,16 +595,38 @@ def k2a_times(spec, st, args32, info, tag):
     return row
 
 
-def k2a_phase(spec, warm, rescue_set, settled, name="K2a", slots=RESCUE_SLOTS):
+class F64Checks:
+    """The main paths' float64 checks (``k2a_f64_phase``), their warm inputs
+    saved as each path makes them and run at the end, each in a process of
+    its own beside the B=1024 cases (``last_phase``): host-bound, they
+    would run one after the other here; the host has cores to spare."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.TemporaryDirectory()
+        self.jobs = []
+
+    def add(self, spec, st, args32, tag, floor=0.25):
+        import torch
+
+        path = f"{self.dir.name}/f64_{len(self.jobs)}.pt"
+        torch.save({"spec": spec, "st": st, "args": args32, "tag": tag, "floor": floor}, path)
+        self.jobs.append((tag, [sys.executable, __file__, "--f64-check", path]))
+
+
+def k2a_phase(spec, warm, rescue_set, settled, checks, name="K2a", slots=RESCUE_SLOTS):
     """The fused kernel against its plain version on the live warm state:
     the next warm solve's inputs at 4096 lanes under ``warm`` and at
-    ``slots`` lanes with the rescue's settings, in float64 and float32;
-    kernel, plain and bound times (``k2a_times``)."""
+    ``slots`` lanes with the rescue's settings, in float32 here, in float64
+    at every prefix of the schedule with ``checks`` at the end; kernel,
+    plain and bound times (``k2a_times``)."""
     report = {}
     for batch, st in ((BATCH, warm), (slots, rescue_set)):
         args32 = warm_inputs(spec, st, settled, batch)
         tag = f"{name} B={batch} {st.n_al}x{st.n_sqp}"
-        report[batch] = k2a_times(spec, st, args32, k2a_check(spec, st, args32, tag), tag)
+        checks.add(spec, st, args32, tag)
+        report[batch] = k2a_times(spec, st, args32, k2a_f32_check(spec, st, args32, tag), tag)
     return report
 
 
@@ -619,7 +694,7 @@ def family_case(name, save=None, batch=RESCUE_SLOTS):
     version on ``family_state``'s warm inputs (at least a quarter of the
     lanes converged on both, or the case's ``CONVERGED_FLOOR``); with
     ``save``, the inputs and the float32 check's info go to that file for
-    ``family_phase`` to time."""
+    ``last_phase`` to time."""
     import torch
 
     spec, warm, args32 = family_state(name, batch)
@@ -669,6 +744,27 @@ def k2f_cases():
     )
 
 
+def colloc_cases():
+    """The B=1024 cases of the other collocation rules (K2b, K2e): the
+    flagship with midpoint differences (the fold at the kernel's SE(2)
+    midpoint), on the shooting_rk4 grid, and on the shooting_rk7_2 grid
+    (11 stages at 2 substeps: 22 evaluations per stage of the grid, the
+    largest the kernel takes)."""
+    from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time
+
+    flag = config3_carlike_min_time(N=30, obstacle_cap=8)
+    return tuple((name, dataclasses.replace(flag, collocation=rule), None) for name, rule in (
+        ("midpoint-flagship", "midpoint_differences"),
+        ("shooting-rk4-flagship", "shooting_rk4"),
+        ("shooting-rk7-2-flagship", "shooting_rk7_2"),
+    ))
+
+
+def crank_nicolson_flagship():
+    """Path F's spec: the flagship with Crank–Nicolson differences."""
+    return dataclasses.replace(flagship()[0], collocation="crank_nicolson_differences")
+
+
 # The least share of the lanes converged on both versions after the whole
 # schedule, where a case's form converges fewer than the rule's quarter.
 # The trapezoidal form converges 91 of 1024 lanes at the warm 3×4 on the
@@ -678,17 +774,17 @@ CONVERGED_FLOOR = {"nonuniform-trapezoidal-quadratic": 1 / 16}
 
 
 def all_cases():
-    return model_cases() + k2c_cases() + k2d_cases() + k2f_cases()
+    return model_cases() + k2c_cases() + k2d_cases() + k2f_cases() + colloc_cases()
 
 
 def case_spec(name):
     """(spec, slot mix) of a case of ``model_cases``, ``k2c_cases``,
-    ``k2d_cases`` or ``k2f_cases``."""
+    ``k2d_cases``, ``k2f_cases`` or ``colloc_cases``."""
     return {n: (s, m) for n, s, m in all_cases()}[name]
 
 
 def family_state(name, batch=RESCUE_SLOTS, case=None):
-    """One case of ``model_cases``, ``k2c_cases`` and ``k2d_cases``, or
+    """One case of ``all_cases``, or
     ``case`` under ``name`` (a spec, and a slot mix for
     ``benchmarks.mixed_obstacles``, None for ``random_ensemble``'s circles,
     or a kind of ``benchmarks.case_ensemble``) at ``batch`` lanes: its own
@@ -697,7 +793,7 @@ def family_state(name, batch=RESCUE_SLOTS, case=None):
     same algorithm as the un-fused solve the main paths run (the plain
     version, which the kernel is held to, drives the port's own ``solve``),
     in one launch, where the un-fused one is host-bound for tens of seconds
-    and fourteen of them at once crowd the host. Returns (spec, the warm
+    and seventeen of them at once crowd the host. Returns (spec, the warm
     settings, the fleet cycle's next warm inputs)."""
     import torch
 
@@ -737,15 +833,56 @@ def family_state(name, batch=RESCUE_SLOTS, case=None):
     return spec, warm, warm_inputs(spec, warm, (scen, r), batch)
 
 
-def family_phase(names):
-    """Phases 14 and 23: each ``family_case`` in a process of its own, all at
-    once (a case's cold solve is host-bound and leaves the card idle, so the
-    cases share the card and the host's cores); prints each case's lines in
-    order and fails if any case failed. Every process is waited for, and
-    killed if this one stops early. Then each case's kernel, plain and bound
-    times (``k2a_times``), one case after the other in this process, so that
-    no other process shares the card while a case is timed; one JSON row
-    per case."""
+# processes at once in the last phase: as many as the B=1024 cases that ran
+# at once before the paths' float64 checks joined them, and the only count
+# measured (33 jobs in 142.58-148.29 s on an H100 host of 8 cores, 96 GiB);
+# the phase prints the host's cores and each job its peak resident memory,
+# the limits a larger count would meet
+MAX_PROCS = 17
+
+
+def run_processes(jobs, tmp):
+    """Run ``jobs`` ((label, argv) pairs), each in a process of its own, at
+    most MAX_PROCS at once, each one's output into a file under ``tmp``;
+    print the outputs in the order of ``jobs``; return the labels of the
+    jobs that failed. Every process is waited for, and killed if this one
+    stops early."""
+    pending, running, codes = list(enumerate(jobs)), {}, {}
+    try:
+        while pending or running:
+            while pending and len(running) < MAX_PROCS:
+                i, (_, argv) = pending.pop(0)
+                log = open(f"{tmp}/job_{i}.log", "w")
+                running[i] = (subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT), log)
+            for i, (proc, log) in list(running.items()):
+                if proc.poll() is not None:
+                    log.close()
+                    codes[i] = proc.returncode
+                    del running[i]
+            time.sleep(0.2)
+    finally:
+        for proc, log in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    failed = []
+    for i, (label, _) in enumerate(jobs):
+        with open(f"{tmp}/job_{i}.log") as log:
+            print(log.read(), end="", flush=True)
+        if codes[i] != 0:
+            failed.append(label)
+    return failed
+
+
+def last_phase(checks, names):
+    """The main paths' float64 checks (``checks``) and phases 14 and 23, each
+    ``family_case`` in a process of its own, all at once (host-bound work
+    that leaves the card idle, so they share the card and the host's
+    cores); prints each one's lines in order and fails if any failed. Then
+    each case's kernel, plain and bound times (``k2a_times``), one case
+    after the other in this process, so that no other process shares the
+    card while a case is timed; one JSON row per case. Returns each case's
+    row."""
     import tempfile
 
     import torch
@@ -753,34 +890,25 @@ def family_phase(names):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         saved = {name: f"{tmp}/{name}.pt" for name in names}
-        procs = [
-            (name, subprocess.Popen(
-                [sys.executable, __file__, "--family-case", name, saved[name]],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        jobs = checks.jobs + [
+            (name, [sys.executable, __file__, "--family-case", name, saved[name]])
             for name in names
         ]
-        failed = []
-        try:
-            for name, proc in procs:
-                out, _ = proc.communicate()
-                print(out, end="", flush=True)
-                if proc.returncode != 0:
-                    failed.append(name)
-        finally:
-            for _, proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        failed = run_processes(jobs, tmp)
         if failed:
             _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
-        print(f"family cases: {len(names)} processes done in {time.perf_counter() - t0:.2f} s")
+        print(f"checks and cases: {len(jobs)} processes, at most {MAX_PROCS} at once, done in "
+              f"{time.perf_counter() - t0:.2f} s on {os.cpu_count()} host cores")
         warm = dataclasses.replace(flagship()[2], fused="auto")
+        rows = {}
         for name in names:
             case = torch.load(saved[name], map_location="cuda:0", weights_only=False)
             args32, batch = case["args"], case["args"][0].x0.shape[0]
             tag = f"{name} B={batch} {warm.n_al}x{warm.n_sqp}"
             row = k2a_times(case_spec(name)[0], warm, args32, case["info"], tag)
             print(json.dumps({"family_case": name, "batch": batch, **row}))
+            rows[name] = row
+    return rows
 
 
 def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
@@ -794,16 +922,17 @@ def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
 
-    riccati_cuda.lqr_solve_cuda.launches = 0
-    k2a.fused_solve_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     extra, settled, secs, cycle, _, k1_before_oracle = main_path(
         spec, cold, warm_f, rescue_f, device, **kw
     )
     fused = k2a.fused_solve_cuda.launches
     k1 = riccati_cuda.lqr_solve_cuda.launches
+    by_rule = rule_counts()
     cold_iters = 0 if spec.nonuniform_dt else cold.n_al * cold.n_sqp  # K1 per cold solve
-    print(json.dumps({**extra, "path": tag, "fused_launches": fused, "k1_launches": k1,
+    print(json.dumps({**extra, "path": tag, "fused_launches": fused,
+                      "fused_launches_by_rule": by_rule, "k1_launches": k1,
                       "k1_launches_in_warm_cycles": k1_before_oracle - cold_iters,
                       "device": card, **secs, "main_path_s": time.perf_counter() - t0}))
     expected = (1 + kw.get("chain", 1)) * (SETTLE_CYCLES + TIMED_CYCLES)
@@ -864,14 +993,15 @@ PATH_FAMILIES = ("canonical_carlike", "converter_lines", "polygon_footprint", "v
 
 def fused_groups():
     """The fused kernel's library groups that the smoke launches: those of
-    the flagship, config #2, paths A-E and every case of phases 14 and 23,
+    the flagship, config #2, paths A-F and every case of phases 14 and 23,
     in float32 and float64."""
     import torch
 
     from mpc_local_planner_tpu_torch.benchmarks import family_spec
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
 
-    specs = [flagship()[0], config2()] + [family_spec(f, N=30) for f in PATH_FAMILIES]
+    specs = [flagship()[0], config2(), crank_nicolson_flagship()]
+    specs += [family_spec(f, N=30) for f in PATH_FAMILIES]
     specs += [spec for _, spec, _ in all_cases()]
     return sorted({k2a.group(s, d) for s in specs for d in (torch.float32, torch.float64)})
 
@@ -908,12 +1038,13 @@ def ptxas_rows(report):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            args = re.search(r"k2a_kernelI([fd])Li(\d)ELi(\d)ELi(\d+)ELb([01])E", name)
+            args = re.search(r"k2a_kernelI([fd])Li(\d)ELi(\d)ELi(\d+)ELb([01])ELi(\d)E", name)
             if args:
-                t, model, obj, geo, nonu = args.groups()
+                t, model, obj, geo, nonu, colloc = args.groups()
                 objective = {"0": "minimum time", "1": "quadratic", "2": "via points"}[obj]
+                rule = {"0": "", "1": ", midpoint / Crank-Nicolson / shooting"}[colloc]
                 name = (f"k2a_kernel<{'float' if t == 'f' else 'double'}, model {model}, "
-                        f"{objective}, GEO {geo}{', NONU' if nonu == '1' else ''}>")
+                        f"{objective}, GEO {geo}{', NONU' if nonu == '1' else ''}{rule}>")
             usage = {}
         for key, pat in (("stack", r"(\d+) bytes stack frame"), ("st", r"(\d+) bytes spill stores"),
                          ("ld", r"(\d+) bytes spill loads"), ("reg", r"Used (\d+) registers")):
@@ -961,8 +1092,7 @@ def main():
     lap("3_k1")
 
     # ---- 4. main path, un-fused ------------------------------------------ #
-    riccati_cuda.lqr_solve_cuda.launches = 0
-    k2a.fused_solve_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     extra, settled, secs, cycle, cold_start, _ = main_path(spec, cold, warm, rescue_set, device)
     launches = riccati_cuda.lqr_solve_cuda.launches
@@ -991,22 +1121,24 @@ def main():
     lap("4_6_unfused")
 
     # ---- 7. K2a against its plain version --------------------------------- #
+    checks = F64Checks()
     warm_f = dataclasses.replace(warm, fused="auto")
     rescue_f = dataclasses.replace(rescue_set, fused="auto")
-    k2a_rows = k2a_phase(spec, warm_f, rescue_f, settled)
+    k2a_rows = k2a_phase(spec, warm_f, rescue_f, settled, checks)
     lap("7_k2a")
 
     # ---- 8. main path, fused, from the same cold solve --------------------- #
-    riccati_cuda.lqr_solve_cuda.launches = 0
-    k2a.fused_solve_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     extra_f, settled_f, secs_f, cycle_f, _, k1_in_cycles = main_path(
         spec, cold, warm_f, rescue_f, device, cold_start=cold_start
     )
     k2a_launches = k2a.fused_solve_cuda.launches
     k1_fused = riccati_cuda.lqr_solve_cuda.launches
+    by_rule = rule_counts()
     main_f_s = time.perf_counter() - t0
     print(json.dumps({**extra_f, "path": "fused", "k2a_launches": k2a_launches,
+                      "fused_launches_by_rule": by_rule,
                       "k1_launches": k1_fused, "k1_launches_in_warm_cycles": k1_in_cycles,
                       "device": card, **secs_f, "main_path_s": main_f_s}))
     if k2a_launches != 2 * (SETTLE_CYCLES + TIMED_CYCLES):
@@ -1040,7 +1172,7 @@ def main():
     )
 
     # ---- 13. the kernel against its plain version on config #2 -------------- #
-    k2_rows = k2a_phase(spec2, warm2_f, rescue2_f, settled2, name="config2")
+    k2_rows = k2a_phase(spec2, warm2_f, rescue2_f, settled2, checks, name="config2")
 
     # ---- 15-16. config #2 fused-vs-un-fused gate, trace ---------------------- #
     gate_and_trace("config2", spec2, warm2, warm2_f, settled2, cycle2, extra2["cycle_ms"])
@@ -1056,7 +1188,7 @@ def main():
         "canonical_carlike_fused", specA, coldA, warmA_f, rescueA_f, device, card, 0.5,
         family="canonical_carlike",
     )
-    rows_a = k2a_phase(specA, warmA_f, rescueA_f, settledA, name="pathA")
+    rows_a = k2a_phase(specA, warmA_f, rescueA_f, settledA, checks, name="pathA")
     gate_and_trace("canonical_carlike", specA, warmA, warmA_f, settledA, cycleA,
                    extraA["cycle_ms"])
     lap("17_19_path_a")
@@ -1070,7 +1202,7 @@ def main():
         "converter_lines_fused", specB, coldB, warmB_f, rescueB_f, device, card, 0.25,
         family="converter_lines", slots=LINES_RESCUE_SLOTS, chain=2, stuck_restart=2,
     )
-    rows_b = k2a_phase(specB, warmB_f, rescueB_f, settledB, name="pathB",
+    rows_b = k2a_phase(specB, warmB_f, rescueB_f, settledB, checks, name="pathB",
                        slots=LINES_RESCUE_SLOTS)
     gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
                    extraB["cycle_ms"])
@@ -1084,7 +1216,7 @@ def main():
         "polygon_footprint_fused", specC, coldC, warmC_f, rescueC_f, device, card, 0.5,
         family="polygon_footprint",
     )
-    rows_c = k2a_phase(specC, warmC_f, rescueC_f, settledC, name="pathC")
+    rows_c = k2a_phase(specC, warmC_f, rescueC_f, settledC, checks, name="pathC")
     gate_and_trace("polygon_footprint", specC, warmC, warmC_f, settledC, cycleC,
                    extraC["cycle_ms"])
     lap("24_26_path_c")
@@ -1097,7 +1229,7 @@ def main():
         "via_points_fused", specD, coldD, warmD_f, rescueD_f, device, card, 0.5,
         family="via_points",
     )
-    rows_d = k2a_phase(specD, warmD_f, rescueD_f, settledD, name="pathD")
+    rows_d = k2a_phase(specD, warmD_f, rescueD_f, settledD, checks, name="pathD")
     gate_and_trace("via_points", specD, warmD, warmD_f, settledD, cycleD, extraD["cycle_ms"])
     lap("27_29_path_d")
 
@@ -1109,28 +1241,46 @@ def main():
         "nonuniform_fused", specE, coldE, warmE_f, rescueE_f, device, card, 0.5,
         family="nonuniform",
     )
-    rows_e = k2a_phase(specE, warmE_f, rescueE_f, settledE, name="pathE")
+    rows_e = k2a_phase(specE, warmE_f, rescueE_f, settledE, checks, name="pathE")
     gate_and_trace("nonuniform", specE, warmE, warmE_f, settledE, cycleE, extraE["cycle_ms"])
     lap("30_32_path_e")
+
+    # ---- 33-35. path F: the Crank–Nicolson flagship (K2b) ---------------- #
+    specF, coldF, warmF, rescueF = fleet_settings(crank_nicolson_flagship())
+    warmF_f = dataclasses.replace(warmF, fused="auto")
+    rescueF_f = dataclasses.replace(rescueF, fused="auto")
+    extraF, settledF, cycleF, fusedF = fused_path(
+        "crank_nicolson_fused", specF, coldF, warmF_f, rescueF_f, device, card, 0.5,
+    )
+    rows_f = k2a_phase(specF, warmF_f, rescueF_f, settledF, checks, name="pathF")
+    gate_and_trace("crank_nicolson", specF, warmF, warmF_f, settledF, cycleF,
+                   extraF["cycle_ms"])
+    lap("33_35_path_f")
     paths_s = time.perf_counter() - t_start - build_s
 
-    # ---- 14 and 23. the other models, config #1, the K2c, K2d, K2f cases -- #
+    # ---- the paths' f64 checks; 14 and 23: the other models, config #1, the
+    # K2c-K2f, K2b and K2e cases ------------------------------------------- #
     t_cases = time.perf_counter()
-    family_phase([name for name, _, _ in all_cases()])
+    case_rows = last_phase(checks, [name for name, _, _ in all_cases()])
     print(json.dumps({"smoke_split_s": {
-        "build": build_s, "phases_3_to_32": paths_s,
-        "family_cases": time.perf_counter() - t_cases,
+        "build": build_s, "phases_3_to_35": paths_s,
+        "f64_checks_and_cases": time.perf_counter() - t_cases,
         "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
 
-    # ---- 33. summary ---------------------------------------------------- #
+    # ---- 36. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
+    from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX
 
-    def fused_row(name, launches, r):
+    def rule_launches(*prefixes):
+        """The main paths' launches of the rules that start with one of ``prefixes``."""
+        return sum(n for rule, n in RULE_LAUNCHES.items() if rule.startswith(prefixes))
+
+    def fused_row(name, launches, r, line=264):
         return {
             "name": name,
             "route": "cuda",
             "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
-            "replaces": "mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:264",
+            "replaces": f"mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:{line}",
             "launches": launches,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -1166,6 +1316,14 @@ def main():
                   "via-points family, path D)", fusedD, rows_d[BATCH]),
         fused_row("K2 fused_al_sqp: simple car, minimum time on the non-uniform per-stage "
                   "dt grid (K2f; the non-uniform family, path E)", fusedE, rows_e[BATCH]),
+        fused_row("K2 fused_al_sqp: simple car, Crank-Nicolson differences (K2b, the "
+                  "-E^-1 fold of the Pallas defect; the Crank-Nicolson flagship, path F)",
+                  rule_launches("midpoint_differences", "crank_nicolson_differences"),
+                  rows_f[BATCH], line=552),
+        fused_row("K2 fused_al_sqp: simple car on the shooting_rk4 grid (K2e, the tableau "
+                  "walk of _shoot_phi; the B=1024 case shooting-rk4-flagship, on no main "
+                  "path)", rule_launches(SHOOTING_PREFIX), case_rows["shooting-rk4-flagship"],
+                  line=481),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1175,17 +1333,38 @@ def main():
 
 def family_worker(name, save=None):
     """``chip_smoke.py --family-case NAME [FILE]``: one case of
-    ``family_phase``, its warm inputs saved to FILE."""
+    ``last_phase``, its warm inputs saved to FILE."""
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     torch.set_num_threads(1)
     family_case(name, save)
+    print_peak_memory(name)
+
+
+def f64_worker(path):
+    """``chip_smoke.py --f64-check FILE``: one of ``F64Checks``'s checks."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    job = torch.load(path, map_location="cuda:0", weights_only=False)
+    k2a_f64_phase(job["spec"], job["st"], _double(job["args"]), job["tag"], job["floor"])
+    print_peak_memory(job["tag"])
+
+
+def print_peak_memory(tag):
+    """One job's peak resident memory on the host, for ``MAX_PROCS``."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+    print(f"{tag}: peak resident memory {peak:.2f} GiB")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--family-case"]:
         family_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--f64-check"]:
+        f64_worker(sys.argv[2])
     else:
         main()

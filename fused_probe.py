@@ -14,8 +14,12 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
   ``GEO_FP_POLYGON | GEO_SLOTS``; a line footprint, ``GEO_FP_LINE |
   GEO_SLOTS``), and the kinematic bicycle's ``GEO_FP_POLYGON`` pair
   (minimum time and quadratic, two rows that move with the library they
-  are built in), and prints ptxas' registers, stack frame and spills for
-  each; of the tree in the working directory, as ``times`` does.
+  are built in), and the flagship's launched instantiation (``GEO_NONE``)
+  under each collocation family (the template parameter ``COLLOC``:
+  forward differences; midpoint, Crank–Nicolson and shooting), and
+  prints ptxas' registers, stack frame and spills for each; of the tree in
+  the working directory, as ``times`` does (a tree from before the
+  collocation families has the forward rows only).
 - timing: the flagship's and config #2's warm solves at B=4096 from the
   straight-line seed, through the ``GEO_NONE`` instantiation and through
   ``GEO_ALL`` on the same inputs (the same spec with dynamic obstacles at zero
@@ -31,7 +35,8 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
 - times: K1 on a flagship SQP iteration's Riccati inputs, and the fused
   kernel's launches of the flagship's, config #2's and paths A's and B's
   fleet cycles (the warm solves at B=4096 and the rescues at 1024 and
-  2048) from the straight-line seed (CUDA events, median of 25 launches),
+  2048) and of path F's warm solve (the Crank–Nicolson flagship, where
+  the tree has the rule) from the straight-line seed (CUDA events, median of 25 launches),
   for the tree in the working directory: its ``chip_smoke`` and package
   come first on the path. To compare two commits on one card, unpack the
   parent with ``git archive`` into an ignored directory and run there and
@@ -73,18 +78,20 @@ def registers():
     # uniform grid, where the kernel has the template parameter NONU
     body = source[: source.index('extern "C" {')]
     nonu = ", false" if "bool NONU" in body else ""
+    families = ("COLLOC_FD", "COLLOC_OTHER") if "int COLLOC" in body else ()
     nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def build(case):
-        model, quad, part = case
-        name = f"fused_probe_{model}_{quad}_{PARTS[part]}"
+        model, quad, part, colloc = case
+        name = f"fused_probe_{model}_{quad}_{PARTS[part]}_{colloc or 'FD'}"
         probe = nvcc_build.BUILD_DIR / f"{name}.cu"
+        tail = nonu + (f", {colloc or 'COLLOC_FD'}" if families else "")
         probe.write_text(body + f"void* fused_probe_kernel = (void*)&k2a_kernel<float, {model}, "
-                                f"{quad}, {part}{nonu}>;\n")
+                                f"{quad}, {part}{tail}>;\n")
         lib = nvcc_build.BUILD_DIR / f"lib{name}.so"
         lib.unlink(missing_ok=True)
         ptxas = nvcc_build.build_library(probe, lib)["ptxas"]
-        row = {"model": model, "objective": quad, "geo": part}
+        row = {"model": model, "objective": quad, "geo": part, "colloc": colloc or "COLLOC_FD"}
         for key, pat in (("registers", r"Used (\d+) registers"),
                          ("stack_bytes", r"(\d+) bytes stack frame"),
                          ("spill_stores", r"(\d+) bytes spill stores"),
@@ -93,10 +100,11 @@ def registers():
             row[key] = int(found.group(1)) if found else None
         return row
 
-    cases = [(model, obj, part) for model, obj in (("SIMPLE_CAR", "OBJ_MIN_TIME"),
-                                                   ("UNICYCLE", "OBJ_QUADRATIC"))
-             for part in PARTS] + [("BICYCLE", obj, "GEO_FP_POLYGON")
+    cases = [(model, obj, part, None) for model, obj in (("SIMPLE_CAR", "OBJ_MIN_TIME"),
+                                                         ("UNICYCLE", "OBJ_QUADRATIC"))
+             for part in PARTS] + [("BICYCLE", obj, "GEO_FP_POLYGON", None)
                                    for obj in ("OBJ_MIN_TIME", "OBJ_QUADRATIC")]
+    cases += [("SIMPLE_CAR", "OBJ_MIN_TIME", "GEO_NONE", f) for f in families[1:]]
     with ThreadPoolExecutor(max_workers=8) as pool:
         rows = list(pool.map(build, cases))
     print(json.dumps({"registers": rows}))
@@ -209,6 +217,8 @@ def times():
         ("pathB_rescue", family_spec("converter_lines"), "converter_lines",
          dataclasses.replace(lines_warm, alphas=rescue.alphas), chip_smoke.LINES_RESCUE_SLOTS),
     )
+    if hasattr(chip_smoke, "crank_nicolson_flagship"):  # a tree with the rule
+        cases += (("pathF", chip_smoke.crank_nicolson_flagship(), None, warm, chip_smoke.BATCH),)
     for tag, sp, family, st, batch in cases:
         st = dataclasses.replace(st, fused="auto")
         scen = chip_smoke.ensemble(sp, batch, device, family=family)

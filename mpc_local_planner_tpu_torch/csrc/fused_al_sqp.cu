@@ -5,7 +5,12 @@
 // mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel on the
 // scope the port admits: the models "unicycle", "simple_car",
 // "front_wheel" and the kinematic bicycle (template parameter MODEL; the
-// Pallas dyn branches), forward differences, a footprint of one or two
+// Pallas dyn branches), forward, midpoint or Crank-Nicolson differences or
+// a shooting grid (template parameter COLLOC: forward differences, or the
+// other rules read at run time; the Pallas defect, its
+// midpoint and Crank-Nicolson branches with the closed -E^-1 fold, and
+// _dyn_jvp, _axpy_jvp and _shoot_phi, the tableau read at run time), a
+// footprint of one or two
 // discs on the body axis, a body-frame segment or a body-frame polygon of
 // at most 8 vertices, point, circle, line and polygon obstacle slots,
 // static or moving (the Pallas obs_terms with fp_points, fp_segment,
@@ -21,10 +26,12 @@
 // prediction times the cumulative sums of the stage dt). K2a (simple car,
 // minimum time, variable dt, no ball, one disc at the pose, static circle
 // slots) is the instantiation <T, SIMPLE_CAR, OBJ_MIN_TIME, GEO_NONE,
-// false>. Per scenario it computes:
+// false, COLLOC_FD>. Per scenario it computes:
 //   per SQP iteration: the via points' stage assignment at the current
-//     states (via points only), the closed-form forward-difference linearization, the
-//     terminal P/p, the stage AL gradients and Hessians streamed into the
+//     states (via points only), the closed-form linearization of the
+//     collocation defect (the Riccati residual r = -E^-1 c, c in the merit
+//     and the duals), the terminal P/p, the stage AL gradients and
+//     Hessians streamed into the
 //     backward Riccati sweep (2x2 Quu inverse, 3x3 on the non-uniform grid,
 //     K/kff tape), the free dtau stage (variable uniform dt only), the
 //     forward rollout, the NaN quarantine, the dt trust cap (the least over
@@ -71,11 +78,11 @@
 // vertices stay in the launch's parameters (the constant bank, read in
 // place through a __grid_constant__ parameter); each world edge is formed
 // where it is needed from one cos / sin per pose. Five instantiations per
-// (type, model, objective family, grid): 240 in all. One build compiles the
-// five of one such group, named by the macros K2A_DOUBLE, K2A_MODEL,
-// K2A_OBJ and K2A_NONU: the wrapper builds each group it needs into a
-// library of its own (48 at most), many at once, and loads the one a
-// launch needs.
+// (type, model, objective family, grid, collocation family): 480 in all.
+// One build compiles the five of one such group, named by the macros
+// K2A_DOUBLE, K2A_MODEL, K2A_OBJ, K2A_NONU and K2A_COLLOC: the wrapper
+// builds each group it needs into a library of its own (96 at most), many
+// at once, and loads the one a launch needs.
 // Each thread walks its whole solve: P and p in registers, the K/kff tape,
 // the step (dxs, dus) and the best-feasible snapshot in the workspace, the
 // via points' stage indices (at most 8) in a per-thread array, the primal and
@@ -113,6 +120,7 @@
 // working type (K2A_DOUBLE: 0 float, 1 double), the model (K2A_MODEL, a
 // ModelId), the objective family (K2A_OBJ, an Objective) and the grid
 // (K2A_NONU: 0 the uniform grid, 1 the non-uniform grid of a per-stage dt)
+// and the collocation family (K2A_COLLOC, a CollocFamily)
 #ifndef K2A_DOUBLE
 #define K2A_DOUBLE 0
 #endif
@@ -124,6 +132,9 @@
 #endif
 #ifndef K2A_NONU
 #define K2A_NONU 0
+#endif
+#ifndef K2A_COLLOC
+#define K2A_COLLOC 0
 #endif
 
 namespace {
@@ -182,6 +193,25 @@ enum GeoParts {
 enum FootprintKind { FP_DISCS = 0, FP_LINE = 1, FP_POLYGON = 2 };
 constexpr int MAX_FP_V = 8;  // polygon footprint vertices (JAX fused_supported)
 
+// the COLLOC template parameter: the collocation family
+// (ops/fused_al_sqp_cuda.py COLLOC_FAMILY): forward differences, or the
+// other rules (the -E^-1 fold of midpoint and Crank-Nicolson, the shooting
+// grids' tableau walk), the rule and the tableau read at run time, so that
+// one library holds them all
+enum CollocFamily { COLLOC_FD = 0, COLLOC_OTHER = 1 };
+// the rules of K2aParams::colloc (ops/fused_al_sqp_cuda.py COLLOC_IDS)
+enum CollocRule { RULE_FORWARD = 0, RULE_MIDPOINT = 1, RULE_CRANK_NICOLSON = 2, RULE_SHOOTING = 3 };
+// a shooting grid's integrator (JAX fused_supported): at most MAX_RK
+// tableau stages (rk7), MAX_SUBSTEPS substeps, MAX_RK_EVALS dynamics
+// evaluations per stage of the grid
+constexpr int MAX_RK = 11;
+constexpr int MAX_SUBSTEPS = 4;
+constexpr int MAX_RK_EVALS = 28;
+// the entries of one RK stage's tangent that can be nonzero: rows 0-1 at
+// columns theta0, u0, u1, dt (jx_i times the state's theta row, plus Ju),
+// row 2 at u0, u1 (Ju)
+constexpr int KT = 10;
+
 }  // namespace
 
 // Static problem and solver constants, by value (doubles; the kernel rounds
@@ -213,6 +243,10 @@ struct K2aParams {
   // trust cap's floor dt_ref and the ddt column's proximal weight
   int nonu;
   double dt_ref, dt_prox;
+  // the collocation rule (a CollocRule); a shooting grid's tableau: rk_a[s]
+  // holds stage s's a entries (s = 1 .. rk_stages - 1), rk_b the weights
+  int colloc, rk_stages, rk_substeps;
+  double rk_a[MAX_RK][MAX_RK], rk_b[MAX_RK];
 };
 
 namespace {
@@ -311,8 +345,20 @@ struct NonuState {
 template <typename T>
 struct NonuState<T, false> {};
 
-template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
-struct Lane : NonuState<T, NONU> {
+// the collocation family's per-lane state: the rule (a CollocRule) and a
+// shooting grid's tableau in the launch's parameters (COLLOC_OTHER); empty
+// under forward differences
+template <int COLLOC>
+struct CollocState {};
+template <>
+struct CollocState<COLLOC_OTHER> {
+  int rule, rk_stages, rk_substeps;
+  const double (*rk_a)[MAX_RK];  // read in place, as fp_v
+  const double* rk_b;
+};
+
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU, int COLLOC>
+struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
   static constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
   static constexpr bool VIA = OBJ == OBJ_VIA;
   static constexpr int NV = NONU ? NV3 : NU;          // the step's control width
@@ -511,9 +557,183 @@ struct Lane : NonuState<T, NONU> {
     return g;
   }
 
-  // forward-difference defect c = wrap(x_k + dt f(x_k, u_k) - x_{k+1})
+  // ---- the collocation rules other than forward differences (the Pallas
+  // defect's midpoint, Crank-Nicolson and shooting branches)
+
+  // midpoint: f, Jx and Ju at the SE(2) midpoint ((x_k + x_{k+1}) / 2,
+  // wrap(theta_k + wrap(theta_{k+1} - theta_k) / 2)), so ja = je;
+  // Crank-Nicolson: f = (f(x_k) + f(x_{k+1})) / 2, ja at x_k, je at x_{k+1},
+  // bu = (Ju(x_k) + Ju(x_{k+1})) / 2
+  __device__ __forceinline__ void fold_dyn(const T xk[NX], const T uk[NU], const T xk1[NX],
+                                           T f[NX], T ja[2], T je[2], T bu[NX][NU]) const {
+    if (this->rule == RULE_MIDPOINT) {
+      const T xm[NX] = {T(0.5) * (xk[0] + xk1[0]), T(0.5) * (xk[1] + xk1[1]),
+                        wrap(xk[2] + T(0.5) * wrap(xk1[2] - xk[2]))};
+      dyn(xm, uk, f, ja, bu);
+      je[0] = ja[0];
+      je[1] = ja[1];
+    } else {
+      T fb[NX], jub[NX][NU];
+      dyn(xk, uk, f, ja, bu);
+      dyn(xk1, uk, fb, je, jub);
+      for (int i = 0; i < NX; ++i) {
+        f[i] = T(0.5) * (f[i] + fb[i]);
+        for (int j = 0; j < NU; ++j) bu[i][j] = T(0.5) * (bu[i][j] + jub[i][j]);
+      }
+    }
+  }
+
+  // one stage's k = f(y, u) and, TANGENT, the nonzero entries of its
+  // tangent (KT): rows 0-1 jx_i (1, t3, t4, t5) + (0, Ju_i0, Ju_i1, 0) at
+  // columns theta0, u0, u1, dt, row 2 (Ju_20, Ju_21) at u0, u1, where yt =
+  // (t3, t4, t5) is the theta row of y's tangent (every model's Jx has only
+  // a theta column, so rows 0-1 of y's tangent do not enter)
+  template <bool TANGENT>
+  __device__ __forceinline__ void rk_stage(const T y[NX], const T yt[3], const T uk[NU], T k[NX],
+                                           T kt[KT]) const {
+    T jx[2], ju[NX][NU];
+    dyn(y, uk, k, jx, ju);
+    if constexpr (TANGENT) {
+      for (int i = 0; i < 2; ++i) {
+        kt[4 * i] = jx[i];
+        kt[4 * i + 1] = jx[i] * yt[0] + ju[i][0];
+        kt[4 * i + 2] = jx[i] * yt[1] + ju[i][1];
+        kt[4 * i + 3] = jx[i] * yt[2];
+      }
+      kt[8] = ju[2][0];
+      kt[9] = ju[2][1];
+    }
+  }
+
+  // y += (c h) k and, TANGENT, its tangent: rows 0-1 (ys: columns theta0,
+  // u0, u1, dt) += (c h) kt + (c / substeps) k_i at dt, the theta row yt
+  // (u0, u1, dt) likewise
+  template <bool TANGENT>
+  __device__ __forceinline__ void rk_axpy(T ch, T cdh, const T k[NX], const T kt[KT], T y[NX],
+                                          T ys[2][4], T yt[3]) const {
+    for (int i = 0; i < NX; ++i) y[i] = y[i] + ch * k[i];
+    if constexpr (TANGENT) {
+      for (int i = 0; i < 2; ++i) {
+        for (int j = 0; j < 3; ++j) ys[i][j] = ys[i][j] + ch * kt[4 * i + j];
+        ys[i][3] = ys[i][3] + (ch * kt[4 * i + 3] + cdh * k[i]);
+      }
+      yt[0] = yt[0] + ch * kt[8];
+      yt[1] = yt[1] + ch * kt[9];
+      yt[2] = yt[2] + cdh * k[2];
+    }
+  }
+
+  // the shooting prediction Phi(x_k, u_k, dt) by the walk of the tableau (h
+  // = dt / substeps; per nonzero entry c of a row or of b, y += (c h) k;
+  // the plain version's shoot) and, TANGENT, its tangent over w = [x_k,
+  // u_k, dt] on its structure: rows 0-1 are [I | xs_t_i], row 2 is [0, 0,
+  // 1 | xt]; the stages' k and tangents live in per-thread arrays (local
+  // memory: the stage count is a runtime value)
+  template <bool TANGENT>
+  __device__ void shoot(const T xk[NX], const T uk[NU], T dtv, T xv[NX], T xs_t[2][4],
+                        T xt[3]) const {
+    const int ns = this->rk_stages, nsub = this->rk_substeps;
+    const T h = nsub > 1 ? dtv / T(nsub) : dtv;
+    const double dh = 1.0 / nsub;
+    T kv[MAX_RK][NX], kt[MAX_RK][KT], zt[3] = {T(0), T(0), T(0)};
+    T* const xtp = TANGENT ? xt : zt;
+    for (int i = 0; i < NX; ++i) xv[i] = xk[i];
+    if constexpr (TANGENT) {
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 4; ++j) xs_t[i][j] = T(0);
+      for (int j = 0; j < 3; ++j) xt[j] = T(0);
+    }
+#pragma unroll 1
+    for (int sub = 0; sub < nsub; ++sub) {
+#pragma unroll 1
+      for (int st = 0; st < ns; ++st) {
+        T y[NX], ys[2][4], yt[3];
+        for (int i = 0; i < NX; ++i) y[i] = xv[i];
+        for (int j = 0; j < 3; ++j) yt[j] = xtp[j];
+        if constexpr (TANGENT)
+          for (int i = 0; i < 2; ++i)
+            for (int j = 0; j < 4; ++j) ys[i][j] = xs_t[i][j];
+#pragma unroll 1
+        for (int j = 0; j < st; ++j) {
+          const double c = this->rk_a[st][j];
+          if (c != 0.0) rk_axpy<TANGENT>(T(c) * h, T(c * dh), kv[j], kt[j], y, ys, yt);
+        }
+        rk_stage<TANGENT>(y, yt, uk, kv[st], kt[st]);
+      }
+#pragma unroll 1
+      for (int j = 0; j < ns; ++j) {
+        const double c = this->rk_b[j];
+        if (c != 0.0) rk_axpy<TANGENT>(T(c) * h, T(c * dh), kv[j], kt[j], xv, xs_t, xtp);
+      }
+    }
+  }
+
+  // the defect c and its transition form dx_{k+1} = F dx_k + G du_k + m
+  // ddt + r (the Pallas defect's five values; F = I but for its theta
+  // column f02): under the fold E = -I + (dt/2) Jx_e has only a theta
+  // column (P, Q), so -E^-1 = [[1, 0, P], [0, 1, Q], [0, 0, 1]]: F's theta
+  // column (dt/2) ja + (P, Q), G = -E^-1 dt bu, m = -E^-1 f, r = -E^-1 c;
+  // shooting: F, G, m the tangent of Phi, r = c (E = -I)
+  __device__ __forceinline__ void linearize(const T xk[NX], const T uk[NU], const T xk1[NX],
+                                            T dk, T c[NX], T f02[2], T G[NX][NU], T m[NX],
+                                            T r[NX]) const {
+    if (this->rule == RULE_SHOOTING) {
+      T xv[NX], xs_t[2][4], xt[3];
+      shoot<true>(xk, uk, dk, xv, xs_t, xt);
+      c[0] = xv[0] - xk1[0];
+      c[1] = xv[1] - xk1[1];
+      c[2] = wrap(xv[2] - xk1[2]);
+      for (int i = 0; i < 2; ++i) {
+        f02[i] = xs_t[i][0];
+        G[i][0] = xs_t[i][1];
+        G[i][1] = xs_t[i][2];
+        m[i] = xs_t[i][3];
+      }
+      G[2][0] = xt[0];
+      G[2][1] = xt[1];
+      m[2] = xt[2];
+      for (int i = 0; i < NX; ++i) r[i] = c[i];
+    } else {
+      T f[NX], ja[2], je[2], bu[NX][NU];
+      fold_dyn(xk, uk, xk1, f, ja, je, bu);
+      c[0] = xk[0] + dk * f[0] - xk1[0];
+      c[1] = xk[1] + dk * f[1] - xk1[1];
+      c[2] = wrap(xk[2] + dk * f[2] - xk1[2]);
+      const T hdt = T(0.5) * dk;
+      const T pq[2] = {hdt * je[0], hdt * je[1]};
+      for (int i = 0; i < 2; ++i) {
+        f02[i] = hdt * ja[i] + pq[i];
+        for (int j = 0; j < NU; ++j) G[i][j] = dk * bu[i][j] + pq[i] * (dk * bu[2][j]);
+        m[i] = f[i] + pq[i] * f[2];
+        r[i] = c[i] + pq[i] * c[2];
+      }
+      for (int j = 0; j < NU; ++j) G[2][j] = dk * bu[2][j];
+      m[2] = f[2];
+      r[2] = c[2];
+    }
+  }
+
+  // the defect c = wrap(pred - x_{k+1}): forward differences pred = x_k + dt
+  // f(x_k, u_k); midpoint and Crank-Nicolson x_k + dt f of fold_dyn; a
+  // shooting grid Phi(x_k, u_k, dt), its value walked as in linearize
   __device__ __forceinline__ void defect_value(const T xk[NX], const T uk[NU],
                                                const T xk1[NX], T dtv, T c[NX]) const {
+    if constexpr (COLLOC == COLLOC_OTHER) {
+      if (this->rule == RULE_SHOOTING) {
+        T xv[NX];
+        shoot<false>(xk, uk, dtv, xv, nullptr, nullptr);
+        c[0] = xv[0] - xk1[0];
+        c[1] = xv[1] - xk1[1];
+        c[2] = wrap(xv[2] - xk1[2]);
+      } else {
+        T f[NX], ja[2], je[2], bu[NX][NU];
+        fold_dyn(xk, uk, xk1, f, ja, je, bu);
+        c[0] = xk[0] + dtv * f[0] - xk1[0];
+        c[1] = xk[1] + dtv * f[1] - xk1[1];
+        c[2] = wrap(xk[2] + dtv * f[2] - xk1[2]);
+      }
+      return;
+    }
     T f[NX], jx[2], ju[NX][NU];
     dyn(xk, uk, f, jx, ju);
     c[0] = xk[0] + dtv * f[0] - xk1[0];
@@ -525,9 +745,40 @@ struct Lane : NonuState<T, NONU> {
   //   Fz = [[F, 0, m], [0, 0, 0], [0, 0, 1]], Gz = [[G], [I], [0]], rz = [c; 0]
   // with F = I + dt Jx, G = dt Ju, m = f (0 on a fixed dt), c the defect
   // (E = -I exactly); on the non-uniform grid (ddt_k the control column 2,
-  // ddt_{k-1} in z[5]) Fz = [[F, 0, 0], [0, 0, 0]], Gz = [[G | m], [I3]]
+  // ddt_{k-1} in z[5]) Fz = [[F, 0, 0], [0, 0, 0]], Gz = [[G | m], [I3]].
+  // The other rules put linearize's F, G, m and r = -E^-1 c in their places.
   __device__ __forceinline__ void transition(int k, T Fz[NA][NA], T Gz[NA][NV],
                                              T rz[NA]) const {
+    if constexpr (COLLOC != COLLOC_FD) {
+      T xk[NX], uk[NU], xk1[NX], c[NX], f02[2], G[NX][NU], m[NX];
+      x_at(k, xk);
+      u_at(k, uk);
+      x_at(k + 1, xk1);
+      linearize(xk, uk, xk1, dt_at(k), c, f02, G, m, rz);
+      rz[3] = rz[4] = rz[5] = T(0);
+      for (int i = 0; i < NA; ++i)
+        for (int j = 0; j < NA; ++j) Fz[i][j] = T(0);
+      for (int i = 0; i < NX; ++i) {
+        Fz[i][i] = T(1);
+        for (int j = 0; j < NU; ++j) Gz[i][j] = G[i][j];
+      }
+      Fz[0][2] = f02[0];
+      Fz[1][2] = f02[1];
+      if constexpr (NONU) {
+        for (int i = 0; i < NX; ++i) Gz[i][NU] = m[i];
+        for (int i = 0; i < NV3; ++i)
+          for (int j = 0; j < NV3; ++j) Gz[NX + i][j] = i == j ? T(1) : T(0);
+      } else {
+        for (int i = 0; i < NX; ++i) Fz[i][NA - 1] = vdt ? m[i] : T(0);
+        Fz[NA - 1][NA - 1] = T(1);
+        Gz[3][0] = T(1);
+        Gz[3][1] = T(0);
+        Gz[4][0] = T(0);
+        Gz[4][1] = T(1);
+        Gz[5][0] = Gz[5][1] = T(0);
+      }
+      return;
+    }
     T xk[NX], uk[NU], xk1[NX], f[NX], jx[2], ju[NX][NU];
     x_at(k, xk);
     u_at(k, uk);
@@ -1752,25 +2003,27 @@ struct Lane : NonuState<T, NONU> {
 // geometry's spill under ptxas' own choice, none at 168); double is left to
 // ptxas. One warp per SM runs at the batches of the fleet cycle, so the
 // count costs no occupancy there. The non-uniform grid's float launches
-// (the 3-column step, a 3x3 Quu) get 168.
-template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
+// (the 3-column step, a 3x3 Quu) and those of the other collocation
+// families (Crank-Nicolson's second dyn and the fold, the shooting walk)
+// get 168.
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU, int COLLOC>
 struct MinBlocks {
-  static constexpr int value =
-      sizeof(T) == 8 ? 1
-                     : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE && !NONU
-                            ? 16
-                            : 12);
+  static constexpr int value = sizeof(T) == 8 ? 1
+                               : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE &&
+                                          !NONU && COLLOC == COLLOC_FD
+                                      ? 16
+                                      : 12);
 };
 
-template <typename T, int MODEL, int OBJ, int GEO, bool NONU>
-__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU>::value))
+template <typename T, int MODEL, int OBJ, int GEO, bool NONU, int COLLOC>
+__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, COLLOC>::value))
     k2a_kernel(const K2aArgs<T> a, const __grid_constant__ K2aParams prm) {
   constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
   constexpr bool VIA = OBJ == OBJ_VIA;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const int N = prm.N, M = prm.M;
-  Lane<T, MODEL, OBJ, GEO, NONU> L;
+  Lane<T, MODEL, OBJ, GEO, NONU, COLLOC> L;
   L.N = N;
   L.M = M;
   L.Mc = prm.Mc;
@@ -1843,6 +2096,13 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU>:
     L.dts = a.dt + bb * N;
     L.dt_ref = T(prm.dt_ref);
     L.dt_prox = T(prm.dt_prox);
+  }
+  if constexpr (COLLOC == COLLOC_OTHER) {
+    L.rule = prm.colloc;
+    L.rk_stages = prm.rk_stages;
+    L.rk_substeps = prm.rk_substeps;
+    L.rk_a = prm.rk_a;
+    L.rk_b = prm.rk_b;
   }
   if constexpr (VIA) {
     L.mv = prm.mv;
@@ -2092,22 +2352,22 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU>:
   a.conv[b] = (final_ok || found) ? 1 : 0;
 }
 
-template <typename T, int MODEL, int OBJ, bool NONU>
+template <typename T, int MODEL, int OBJ, bool NONU, int COLLOC>
 void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
   const int blocks = (a.B + THREADS - 1) / THREADS;
   const bool plain_slots = prm.Ml == 0 && prm.Mg == 0 && prm.dynamic == 0;
   if (prm.fp_kind == FP_LINE)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS, NONU><<<blocks, THREADS, 0, stream>>>(
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(
         a, prm);
   else if (prm.fp_kind == FP_POLYGON && plain_slots)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
   else if (prm.fp_kind == FP_POLYGON)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS, NONU><<<blocks, THREADS, 0, stream>>>(
+    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(
         a, prm);
   else if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
-    k2a_kernel<T, MODEL, OBJ, GEO_NONE, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_NONE, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
   else
-    k2a_kernel<T, MODEL, OBJ, GEO_ALL, NONU><<<blocks, THREADS, 0, stream>>>(a, prm);
+    k2a_kernel<T, MODEL, OBJ, GEO_ALL, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
 }
 
 template <typename T>
@@ -2122,7 +2382,12 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
       (prm->fp_kind == FP_LINE && prm->fp_nv != 2) ||
       (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 3 || prm->fp_nv > MAX_FP_V)) ||
       prm->nonu != K2A_NONU || (prm->nonu && !prm->variable_dt) || prm->model != K2A_MODEL ||
-      (prm->quadratic ? OBJ_QUADRATIC : prm->mv > 0 ? OBJ_VIA : OBJ_MIN_TIME) != K2A_OBJ)
+      (prm->quadratic ? OBJ_QUADRATIC : prm->mv > 0 ? OBJ_VIA : OBJ_MIN_TIME) != K2A_OBJ ||
+      prm->colloc < RULE_FORWARD || prm->colloc > RULE_SHOOTING ||
+      (prm->colloc == RULE_FORWARD ? COLLOC_FD : COLLOC_OTHER) != K2A_COLLOC ||
+      (prm->colloc == RULE_SHOOTING &&
+       (prm->rk_stages < 1 || prm->rk_stages > MAX_RK || prm->rk_substeps < 1 ||
+        prm->rk_substeps > MAX_SUBSTEPS || prm->rk_stages * prm->rk_substeps > MAX_RK_EVALS)))
     return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
@@ -2170,7 +2435,7 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
   a.conv = static_cast<unsigned char*>(out[14]);
   a.B = B;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_as<T, K2A_MODEL, K2A_OBJ, K2A_NONU != 0>(a, *prm, s);
+  launch_as<T, K2A_MODEL, K2A_OBJ, K2A_NONU != 0, K2A_COLLOC>(a, *prm, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2181,9 +2446,11 @@ extern "C" {
 int k2a_max_v() { return MAX_V; }
 int k2a_max_fp_v() { return MAX_FP_V; }
 int k2a_max_via() { return MAX_VIA; }
-// this build's group: K2A_DOUBLE, K2A_MODEL, K2A_OBJ, K2A_NONU as the digits
-// of one number
-int k2a_group() { return ((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU; }
+// this build's group: K2A_DOUBLE, K2A_MODEL, K2A_OBJ, K2A_NONU, K2A_COLLOC
+// as the digits of one number
+int k2a_group() {
+  return (((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU) * 10 + K2A_COLLOC;
+}
 int k2a_workspace_per_lane(int N) { return workspace_per_lane(N, K2A_NONU != 0); }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 

@@ -2,16 +2,18 @@
 ``mpc_local_planner_tpu.ocp.spec``).
 
 ``OcpSpec`` takes the JAX package's constructor arguments. The port runs the
-unicycle, both Ackermann cars and the kinematic bicycle with forward
-differences, every footprint of the JAX package (point, disc, line, two
-discs, polygon), point, circle, line and polygon obstacle slots, static or
-dynamic (constant velocity), minimum time, minimum time with via points
-(ordered or unordered, with an optional orientation weight) or the
-quadratic form (plain or integral, left-sum or trapezoidal, with the hybrid
-time weight), the terminal quadratic cost and the terminal ball, on a
-uniform grid with a fixed or variable dt or on the non-uniform grid of a
-per-stage dt. It raises ``NotImplementedError`` naming the ROADMAP item for
-anything else.
+unicycle, both Ackermann cars and the kinematic bicycle with forward,
+midpoint or Crank–Nicolson differences or on a shooting grid
+("shooting_<integrator>[_<substeps>]"), every footprint of the JAX package
+(point, disc, line, two discs, polygon), point, circle, line and polygon
+obstacle slots, static or dynamic (constant velocity), minimum time,
+minimum time with via points (ordered or unordered, with an optional
+orientation weight) or the quadratic form (plain or integral, left-sum or
+trapezoidal, with the hybrid time weight), the terminal quadratic cost and
+the terminal ball, on a uniform grid with a fixed or variable dt or on the
+non-uniform grid of a per-stage dt. It raises ``ValueError`` for an unknown
+collocation rule, as the JAX spec does, and ``NotImplementedError`` naming
+the ROADMAP item for a model or footprint outside the port.
 """
 
 from __future__ import annotations
@@ -85,8 +87,12 @@ class OcpSpec:
             _not_ported(f"model {type(self.model).__name__}")
         if type(self.footprint) not in FOOTPRINT_TYPES.values():
             _not_ported(f"footprint {type(self.footprint).__name__}")
-        if self.collocation != "forward_differences":
-            _not_ported(f"collocation {self.collocation!r}", "M9, K2b and K2e")
+        if self.collocation not in (
+            "forward_differences",
+            "midpoint_differences",
+            "crank_nicolson_differences",
+        ) and not self.collocation.startswith("shooting_"):
+            raise ValueError(f"unknown collocation {self.collocation!r}")
         if self.objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {self.objective!r}")
         if self.cost_integration not in ("left_sum", "trapezoidal"):

@@ -3,9 +3,14 @@ hand-written CUDA kernel, with its plain PyTorch version.
 
 Replaces the TPU kernel
 ``mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel``
-(launched by ``fused_solve``) on the scope that ``OcpSpec`` admits: the
+(launched by ``fused_solve``) on the scope of JAX ``fused_supported``: the
 unicycle, both Ackermann cars and the kinematic bicycle (template parameter
-of the kernel), forward differences, a point, disc, two-disc, line or
+of the kernel), forward, midpoint or Crank–Nicolson differences (the
+latter two with the −E⁻¹ fold in closed form, K2b) or a shooting grid of a
+tableau of at most 11 stages, 4 substeps and 28 stages × substeps (K2e; a
+template parameter tells forward differences from the other rules, which
+the kernel reads at run time with the tableau), a
+point, disc, two-disc, line or
 polygon footprint (at most 8 vertices), point, circle, line and polygon
 obstacle slots, static or dynamic (runtime values of the launch; the kernel
 compiles them away for a launch with one disc at the pose and static point
@@ -19,8 +24,7 @@ non-uniform grid of a per-stage dt (K2f: δdt_k a third control column of
 the step, the interval's dt box a stage row; the template parameter NONU),
 any number of obstacle slots and of
 line-search candidates. K2a, the first specialization ported (simple car,
-minimum time, variable dt), is one instantiation. Still to port: the
-midpoint and Crank–Nicolson rules (K2b) and shooting (K2e). The
+minimum time, variable dt), is one instantiation. The
 source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
 n_al × n_sqp schedule to its end — closed-form derivatives streamed into
 the Riccati sweep, the rollout, the NaN quarantine, the candidate line
@@ -28,8 +32,9 @@ search, the dual updates, the best-feasible snapshot and the final
 selection — for float and double, in the port's (B, N, ...) layout. The
 step, the gain tape and the snapshot live in a workspace the wrapper
 allocates, tiled by warp with the lane index fastest; the candidates are a
-device input. Each (working type, model, objective family, grid) is a
-group of five instantiations built into a library of its own (``Group``),
+device input. Each (working type, model, objective family, grid,
+collocation family) is a group of five instantiations built into a library
+of its own (``Group``),
 when a launch first needs it or all at once beforehand (``build``).
 
 What bounds it on an H100 is arithmetic: the flagship solve needs about
@@ -54,6 +59,7 @@ back.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -61,7 +67,12 @@ from typing import NamedTuple
 
 import torch
 
-from mpc_local_planner_tpu_torch.core.so2 import _wrap_theta, angle_diff, se2_boxminus
+from mpc_local_planner_tpu_torch.core.so2 import (
+    _wrap_theta,
+    angle_diff,
+    normalize_angle,
+    se2_boxminus,
+)
 from mpc_local_planner_tpu_torch.core.tree import tree_map
 from mpc_local_planner_tpu_torch.geometry.distances import _EPS, _polygon_edges
 from mpc_local_planner_tpu_torch.device import const
@@ -75,7 +86,10 @@ from mpc_local_planner_tpu_torch.geometry.footprints import (
 )
 from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE
 from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal
+from mpc_local_planner_tpu_torch.numerics.integrators import RK_TABLEAUS
+from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX, _parse_shooting
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
+from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions
 from mpc_local_planner_tpu_torch.ocp.spec import MODELS
 from mpc_local_planner_tpu_torch.ops import nvcc_build
 from mpc_local_planner_tpu_torch.solvers.al_sqp import (
@@ -104,6 +118,10 @@ SOURCE = nvcc_build.CSRC / "fused_al_sqp.cu"
 # vertices, polygon footprint vertices and via points (JAX
 # ``fused_obstacles_supported`` and ``fused_supported``)
 MAX_V, MAX_FP_V, MAX_VIA = 16, 8, 8
+# a shooting grid's integrator (JAX ``fused_supported``): a tableau of at
+# most MAX_RK stages, at most MAX_SUBSTEPS substeps and MAX_RK_EVALS
+# dynamics evaluations per stage of the grid
+MAX_RK, MAX_SUBSTEPS, MAX_RK_EVALS = 11, 4, 28
 WARP = 32  # the workspace's tile (csrc/fused_al_sqp.cu)
 
 _libs = {}  # the loaded library of each ``Group``
@@ -129,8 +147,8 @@ FOOTPRINT_KINDS = {
 
 
 def _spec_scope_error(spec):
-    """Why the kernel cannot run ``spec`` (None when it can), with the
-    ROADMAP item that ports it."""
+    """Why the kernel cannot run ``spec`` (None when it can): what the TPU
+    kernel does not take either (JAX ``fused_supported``)."""
     if type(spec.model) not in MODELS:
         return f"model {type(spec.model).__name__}"
     fp = spec.footprint
@@ -138,8 +156,12 @@ def _spec_scope_error(spec):
         return f"footprint {type(fp).__name__}"
     if isinstance(fp, PolygonFootprint) and len(fp.vertices) > MAX_FP_V:
         return f"a polygon footprint of {len(fp.vertices)} vertices (at most {MAX_FP_V})"
-    if spec.collocation != "forward_differences":
-        return f"collocation {spec.collocation!r} (K2b, K2e)"
+    if spec.collocation.startswith(SHOOTING_PREFIX):
+        integ, substeps = _parse_shooting(spec.collocation)
+        if (integ not in RK_TABLEAUS or substeps > MAX_SUBSTEPS
+                or len(RK_TABLEAUS[integ][1]) * substeps > MAX_RK_EVALS):
+            return (f"collocation {spec.collocation!r} (a tableau of RK_TABLEAUS, at most "
+                    f"{MAX_SUBSTEPS} substeps and {MAX_RK_EVALS} stages × substeps)")
     if spec.via_cap > MAX_VIA:
         return f"via_cap={spec.via_cap} (at most {MAX_VIA})"
     return None
@@ -204,18 +226,158 @@ def _bicycle_a(model) -> float:
     return model.lr / (model.lf + model.lr)
 
 
+# the kernel's collocation rules (csrc/fused_al_sqp.cu K2aParams::colloc)
+# and the library family of each (the template parameter COLLOC, the macro
+# K2A_COLLOC, ``Group.colloc``): forward differences, or the other rules
+# (the −E⁻¹ fold of midpoint and Crank–Nicolson, the shooting grids'
+# tableau walk) in one family, the rule and the tableau read at run time
+COLLOC_IDS = {"forward_differences": 0, "midpoint_differences": 1,
+              "crank_nicolson_differences": 2}
+SHOOTING = 3
+COLLOC_FAMILY = {0: 0, 1: 1, 2: 1, SHOOTING: 1}
+
+
+def colloc_id(spec) -> int:
+    if spec.collocation.startswith(SHOOTING_PREFIX):
+        return SHOOTING
+    return COLLOC_IDS[spec.collocation]
+
+
+def shooting_tableau(spec):
+    """(a rows for stages 2..S, b, substeps) of a shooting grid."""
+    integ, substeps = _parse_shooting(spec.collocation)
+    a_rows, b = RK_TABLEAUS[integ]
+    return a_rows, b, substeps
+
+
+def kernel_midpoint(xk, xk1):
+    """The kernel's SE(2) midpoint ((x_k + x_{k+1})/2, wrap(θ_k + ½ wrap(θ_{k+1}
+    − θ_k))): the JAX ``se2_interpolate`` at ½, rounded the kernel's way."""
+    th = normalize_angle(xk[..., 2] + 0.5 * normalize_angle(xk1[..., 2] - xk[..., 2]))
+    return torch.stack([0.5 * (xk[..., 0] + xk1[..., 0]), 0.5 * (xk[..., 1] + xk1[..., 1]), th],
+                       dim=-1)
+
+
+def shoot(spec, xk, uk, dt, tangent=True):
+    """The shooting prediction Φ(x_k, u_k, dt) by the kernel's walk of the
+    tableau (h = dt / substeps; per nonzero entry c: y += (c h) k) and, with
+    ``tangent``, its 3×6 tangent over w = [x_k, u_k, dt] (the JAX
+    ``_shoot_phi``'s forward mode: each k pushes the θ row of the tangent
+    through Jx's θ column and adds Ju; the dt column carries (c/substeps) k).
+    dt has the leading shape. Returns (Φ, tangent or None)."""
+    a_rows, b, substeps = shooting_tableau(spec)
+    h = (dt / substeps if substeps > 1 else dt)[..., None]
+    dh = 1.0 / substeps
+    x, X = xk, None
+    if tangent:
+        X = torch.eye(3, 6, dtype=xk.dtype, device=xk.device).expand(xk.shape + (6,))
+
+    def jvp(y, Y):
+        f, jx, ju = dyn(spec, y, uk)
+        if Y is None:
+            return f, None
+        K = torch.zeros_like(Y)
+        K[..., 0:2, :] = jx[..., :, None] * Y[..., 2:3, :]
+        K[..., :, 3:5] = K[..., :, 3:5] + ju
+        return f, K
+
+    def axpy(y, Y, c, k, K):
+        ch = c * h
+        y = y + ch * k
+        if Y is not None:
+            D = ch[..., None] * K
+            D[..., 5] = D[..., 5] + (c * dh) * k
+            Y = Y + D
+        return y, Y
+
+    for _ in range(substeps):
+        ks = [jvp(x, X)]
+        for row in a_rows:
+            y, Y = x, X
+            for c, (k, K) in zip(row, ks):
+                if c != 0.0:
+                    y, Y = axpy(y, Y, c, k, K)
+            ks.append(jvp(y, Y))
+        for c, (k, K) in zip(b, ks):
+            if c != 0.0:
+                x, X = axpy(x, X, c, k, K)
+    return x, X
+
+
+def defect_value(spec, xk, uk, xk1, dt):
+    """The defect c = wrap(pred − x_{k+1}) as the kernel rounds it: forward
+    differences x_k + dt f(x_k); midpoint x_k + dt f at ``kernel_midpoint``;
+    Crank–Nicolson x_k + dt ½(f(x_k) + f(x_{k+1})); a shooting grid
+    ``shoot``. dt has the leading shape."""
+    rule = colloc_id(spec)
+    if rule == SHOOTING:
+        return _wrap_theta(shoot(spec, xk, uk, dt, tangent=False)[0] - xk1)
+    if rule == 0:
+        f = dyn(spec, xk, uk)[0]
+    elif rule == 1:
+        f = dyn(spec, kernel_midpoint(xk, xk1), uk)[0]
+    else:
+        f = 0.5 * (dyn(spec, xk, uk)[0] + dyn(spec, xk1, uk)[0])
+    return _wrap_theta(xk + dt[..., None] * f - xk1)
+
+
 def defect_linearization(spec, xk, uk, xk1, dt):
-    """Forward-difference defect c = wrap(x_k + dt f − x_{k+1}) and its
-    transition form dx_{k+1} = F dx_k + G du_k + m ddt + r: F = I + dt Jx,
-    G = dt Ju, m = f, r = c (E = −I exactly; the caller zeroes m on a fixed
-    dt). dt has the leading shape."""
-    f, jx, ju = dyn(spec, xk, uk)
+    """The defect c and its transition form dx_{k+1} = F dx_k + G du_k + m
+    ddt + r (the Pallas ``defect``'s five values; the caller zeroes m on a
+    fixed dt). dt has the leading shape.
+
+    Forward differences: F = I + dt Jx, G = dt Ju, m = f, r = c (E = −I).
+    Midpoint and Crank–Nicolson: E = −I + (dt/2) Jx_e has only a θ column
+    (P, Q), so −E⁻¹ = [[1, 0, P], [0, 1, Q], [0, 0, 1]] folds in closed form:
+    F = I + the θ column (dt/2) Jx_a + (P, Q), rows 0-1 of G, m and r gain
+    (P, Q) times row 2 (G = −E⁻¹ dt Ju_b, m = −E⁻¹ f, r = −E⁻¹ c). Midpoint
+    takes Jx and Ju at ``kernel_midpoint``, Crank–Nicolson Jx_a at x_k, Jx_e
+    at x_{k+1} and ½(Ju(x_k) + Ju(x_{k+1})). Shooting: F, G and m are the
+    tangent of ``shoot``, r = c (E = −I)."""
+    rule = colloc_id(spec)
     d = dt[..., None]
+    if rule == SHOOTING:
+        x, X = shoot(spec, xk, uk, dt)
+        c = _wrap_theta(x - xk1)
+        return c, X[..., :3].contiguous(), X[..., 3:5].contiguous(), X[..., 5].contiguous(), c
+    if rule == 0:
+        f, jx, ju = dyn(spec, xk, uk)
+        c = _wrap_theta(xk + d * f - xk1)
+        F = torch.eye(3, dtype=xk.dtype, device=xk.device).expand(dt.shape + (3, 3)).clone()
+        F[..., 0:2, 2] = d * jx
+        G = d[..., None] * ju
+        return c, F, G, f, c
+    if rule == 1:
+        f, ja, bu = dyn(spec, kernel_midpoint(xk, xk1), uk)
+        je = ja
+    else:
+        fa, ja, jua = dyn(spec, xk, uk)
+        fb, je, jub = dyn(spec, xk1, uk)
+        f = 0.5 * (fa + fb)
+        bu = 0.5 * (jua + jub)
     c = _wrap_theta(xk + d * f - xk1)
+    hdt = 0.5 * d
+    pq = hdt * je  # (P, Q): −E⁻¹'s θ column
     F = torch.eye(3, dtype=xk.dtype, device=xk.device).expand(dt.shape + (3, 3)).clone()
-    F[..., 0:2, 2] = d * jx
-    G = d[..., None] * ju
-    return c, F, G, f
+    F[..., 0:2, 2] = hdt * ja + pq
+    G = d[..., None] * bu
+    G[..., 0:2, :] = G[..., 0:2, :] + pq[..., :, None] * G[..., 2:3, :]
+    m, r = f.clone(), c.clone()
+    m[..., 0:2] = f[..., 0:2] + pq * f[..., 2:3]
+    r[..., 0:2] = c[..., 0:2] + pq * c[..., 2:3]
+    return c, F, G, m, r
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelFunctions(OcpFunctions):
+    """The OCP's evaluators with the kernel's defect values
+    (``defect_value``), for the plain version's merit and dual update."""
+
+    def defects(self, primal: Primal) -> torch.Tensor:
+        xs, dt = primal.xs, primal.dt
+        xk, xk1 = xs[..., :-1, :], xs[..., 1:, :]
+        dtb = dt if dt.dim() == xs.dim() - 1 else dt[..., None].expand(xk.shape[:-1])
+        return defect_value(self.spec, xk, primal.us, xk1, dtb)
 
 
 def circle_slots(obstacles):
@@ -826,11 +988,11 @@ def fused_kkt_system(spec, primal: Primal, scenario, duals: DualState, obs_k,
     xs, us, dt = primal.xs, primal.us, primal.dt
     B = dt.shape[0]
     dt_b = dt if nonu else dt[:, None].expand(B, N)
-    c, F, G, m = defect_linearization(spec, xs[:, :-1], us, xs[:, 1:], dt_b)
+    _, F, G, m, r = defect_linearization(spec, xs[:, :-1], us, xs[:, 1:], dt_b)
     if not spec.variable_dt:
         m = torch.zeros_like(m)
     transition = build_augmented_transition_nonuniform if nonu else build_augmented_transition
-    Fz, Gz, rz = transition(F, G, m, c, nu=spec.nu)
+    Fz, Gz, rz = transition(F, G, m, r, nu=spec.nu)
     up = torch.cat([scenario.u_prev[:, None], us[:, :-1]], dim=1)
     # obstacle multiplier rows: stage k uses mu_obs[k-1]; k = 0 inactive
     mu_obs = torch.cat([duals.mu_obs.new_zeros(B, 1, M), duals.mu_obs[:, : N - 1]], dim=1)
@@ -869,8 +1031,8 @@ def _check_scope(spec, settings, scenario):
                  f"(at most {MAX_V})"
     if reason is not None:
         raise NotImplementedError(
-            f"the fused kernel does not take {reason}; still to port (ROADMAP §2): the "
-            "midpoint and Crank-Nicolson rules (K2b), shooting (K2e)"
+            f"the fused kernel does not take {reason}, nor does the TPU kernel "
+            "(JAX fused_supported)"
         )
 
 
@@ -891,7 +1053,7 @@ def fused_solve_plain(spec, settings, scenario, init: Primal, duals: DualState,
 
     plain = dataclasses.replace(settings, kkt="scan", fused="off")
     return solve(spec, plain, scenario, init, duals, kkt_system=kkt_system,
-                 decisions=decisions)
+                 decisions=decisions, funcs=KernelFunctions(spec))
 
 
 # --------------------------------------------------------------------------- #
@@ -931,6 +1093,8 @@ class _Params(ctypes.Structure):
         ("viol_decrease_req", ctypes.c_double), ("tol_eq", ctypes.c_double),
         ("tol_ineq", ctypes.c_double),
         ("nonu", ctypes.c_int), ("dt_ref", ctypes.c_double), ("dt_prox", ctypes.c_double),
+        ("colloc", ctypes.c_int), ("rk_stages", ctypes.c_int), ("rk_substeps", ctypes.c_int),
+        ("rk_a", ctypes.c_double * (MAX_RK * MAX_RK)), ("rk_b", ctypes.c_double * MAX_RK),
     ]
 
 
@@ -950,6 +1114,14 @@ def _params(spec, settings, obstacles) -> _Params:
         kind, lambda: ())()
     fp_v = [c for v in points for c in v]
     o = obstacles
+    rule = colloc_id(spec)
+    rk_a, rk_b, stages, substeps = [0.0] * (MAX_RK * MAX_RK), [0.0] * MAX_RK, 0, 1
+    if rule == SHOOTING:  # the tableau, row s holding stage s's a entries
+        a_rows, b, substeps = shooting_tableau(spec)
+        stages = len(b)
+        for i, row in enumerate(a_rows):
+            rk_a[(i + 1) * MAX_RK : (i + 1) * MAX_RK + len(row)] = row
+        rk_b[: len(b)] = b
     return _Params(
         N=spec.N, M=spec.obstacle_cap, n_al=settings.n_al, n_sqp=settings.n_sqp,
         n_alpha=len(settings.alphas), xf_fixed=(ctypes.c_int * 3)(*(int(b) for b in spec.xf_fixed)),
@@ -979,49 +1151,56 @@ def _params(spec, settings, obstacles) -> _Params:
         tol_ineq=settings.tol_ineq,
         nonu=int(spec.nonuniform_dt), dt_ref=spec.dt_ref,
         dt_prox=settings.dt_prox if spec.nonuniform_dt else 0.0,
+        colloc=rule, rk_stages=stages, rk_substeps=substeps,
+        rk_a=(ctypes.c_double * (MAX_RK * MAX_RK))(*rk_a), rk_b=(ctypes.c_double * MAX_RK)(*rk_b),
     )
 
 
 class Group(NamedTuple):
     """The template arguments one library of the kernel holds (its five
     ``GEO`` instantiations): the working type, the model (``MODEL_IDS``),
-    the objective family (``OBJ_IDS``) and the grid."""
+    the objective family (``OBJ_IDS``), the grid and the collocation family
+    (``COLLOC_FAMILY``)."""
 
     double: bool
     model: int
     obj: int
     nonu: bool
+    colloc: int
 
     def defines(self):
         return (f"K2A_DOUBLE={int(self.double)}", f"K2A_MODEL={self.model}",
-                f"K2A_OBJ={self.obj}", f"K2A_NONU={int(self.nonu)}")
+                f"K2A_OBJ={self.obj}", f"K2A_NONU={int(self.nonu)}",
+                f"K2A_COLLOC={self.colloc}")
 
     def code(self) -> int:
         """``k2a_group()`` of the library built for this group."""
-        return ((int(self.double) * 10 + self.model) * 10 + self.obj) * 10 + int(self.nonu)
+        return (((int(self.double) * 10 + self.model) * 10 + self.obj) * 10
+                + int(self.nonu)) * 10 + self.colloc
 
 
 # the kernel's objective template parameter (csrc/fused_al_sqp.cu Objective)
 OBJ_IDS = {"minimum_time": 0, "quadratic_form": 1, "minimum_time_via_points": 2}
-GROUPS = tuple(Group(d, m, o, n) for n in (False, True) for d in (False, True)
+GROUPS = tuple(Group(d, m, o, n, c) for c in sorted(set(COLLOC_FAMILY.values()))
+               for n in (False, True) for d in (False, True)
                for m in sorted(set(MODEL_IDS.values())) for o in sorted(OBJ_IDS.values()))
 
 
 def group(spec, dtype) -> Group:
     """The library group that launches ``spec`` in ``dtype``: its model, its
     objective family (via points only where it has some, as ``_params``
-    passes them) and its grid."""
+    passes them), its grid and its collocation family."""
     obj = OBJ_IDS["quadratic_form"] if spec.objective == "quadratic_form" else (
         OBJ_IDS["minimum_time_via_points"] if has_via(spec) else OBJ_IDS["minimum_time"])
     return Group(dtype == torch.float64, MODEL_IDS[type(spec.model)], obj,
-                 bool(spec.nonuniform_dt))
+                 bool(spec.nonuniform_dt), COLLOC_FAMILY[colloc_id(spec)])
 
 
 def library_path(g: Group):
     """The library of one group, built from the one source with the group's
     macros, under a name of its own."""
     variant = (f"_{'f64' if g.double else 'f32'}_m{g.model}_o{g.obj}"
-               f"{'_nonu' if g.nonu else ''}")
+               f"{'_nonu' if g.nonu else ''}{f'_c{g.colloc}' if g.colloc else ''}")
     return nvcc_build.library_path(SOURCE, variant)
 
 
@@ -1172,10 +1351,12 @@ def fused_solve_cuda(spec, settings, scenario, init: Primal, duals: DualState) -
         launch(lib, spec, settings, ins, outs, torch.cuda.current_stream(dev).cuda_stream,
                scenario.obstacles)
     fused_solve_cuda.launches += 1
+    fused_solve_cuda.launches_by_rule[spec.collocation] += 1
     return result_of(outs)
 
 
 fused_solve_cuda.launches = 0
+fused_solve_cuda.launches_by_rule = collections.Counter()  # by spec.collocation
 
 
 # --------------------------------------------------------------------------- #
@@ -1184,7 +1365,9 @@ fused_solve_cuda.launches = 0
 # The structure of one stage's step inputs for a spec: "0" and "1" are the
 # same constant at every stage and iterate, "v" varies. Fz, Gz and rz are the
 # augmented transition (F = I + dt Jx with Jx's θ column only, G = dt Ju,
-# the dt column m = f only on a variable dt); Hzz, Hzu, Huu, hz and hu are
+# the dt column m = f only on a variable dt; under the midpoint and
+# Crank–Nicolson fold and on a shooting grid F keeps that structure and G
+# its row 2's, rows 0-1 live in both columns); Hzz, Hzu, Huu, hz and hu are
 # ``stage_grad_hess``'s blocks (obstacles on x, y and, where a footprint disc
 # sits off the pose or the footprint is a segment or a polygon, θ; the
 # quadratic form on x, u and, integral, dt; the via attraction on the x and
@@ -1198,7 +1381,13 @@ fused_solve_cuda.launches = 0
 def step_structure(spec) -> dict:
     model = type(spec.model)
     m = "v" if spec.variable_dt else "0"
-    g01 = "0" if model in (UnicycleModel, SimpleCarModel) else "v"  # Gz[0:2, 1]
+    # Gz[0:2, 1]: dt Ju's, zero for the unicycle and the simple car, until
+    # the −E⁻¹ fold or a shooting step past its first evaluation brings in
+    # G's row 2
+    rule = colloc_id(spec)
+    one_eval = rule == SHOOTING and len(shooting_tableau(spec)[1]) * shooting_tableau(spec)[2] == 1
+    coupled = rule in (1, 2) or (rule == SHOOTING and not one_eval)
+    g01 = "0" if model in (UnicycleModel, SimpleCarModel) and not coupled else "v"
     g20 = "0" if model is UnicycleModel else "v"                    # Gz[2, 0]
     quad = spec.objective == "quadratic_form"
     integ = "v" if quad and spec.integral_form else "0"
@@ -1319,13 +1508,51 @@ def step_flops(structure) -> tuple[int, int]:
 # Operations of the closed forms, counted from csrc/fused_al_sqp.cu as
 # ``k2a_flops`` counts them. f: the model's f alone (the merit's defect);
 # dyn: f, Jx and Ju (cos, sin, tan, atan 1 each); G: the varying entries of
-# dt·Ju.
-_MODEL_FLOPS = {  # model: (f, dyn, G)
-    UnicycleModel: (4, 4, 2),
-    SimpleCarModel: (7, 12, 4),
-    SimpleCarFrontWheelDrivingModel: (9, 15, 6),
-    KinematicBicycleModelVelocityInput: (11, 23, 6),
+# dt·Ju; G fold: the −E⁻¹ fold's (P, Q) times G's row 2 into rows 0-1
+# (``linearize``); RK tangent: one tableau stage's tangent (rows 0-1: jx_i
+# times the θ row, plus Ju); RK axpy: one nonzero tableau entry's y +=
+# (c h) k with its tangent (c h once, the value 6, rows 0-1 20, row 2 at
+# Ju's nonzero row-2 entries and dt).
+_MODEL_FLOPS = {  # model: (f, dyn, G, G fold, RK tangent, RK axpy)
+    UnicycleModel: (4, 4, 2, 2, 8, 31),
+    SimpleCarModel: (7, 12, 4, 6, 8, 33),
+    SimpleCarFrontWheelDrivingModel: (9, 15, 6, 8, 10, 33),
+    KinematicBicycleModelVelocityInput: (11, 23, 6, 8, 10, 33),
 }
+# the defect's value: three x + dt f − x' and the θ wrap (13); the midpoint
+# state (15: x and y 2 each, θ two wraps, a difference, a half and a sum);
+# Crank–Nicolson's average of f (6); the fold: dt/2, P and Q, F's θ column
+# (4), m and r (4 each) beside G's; a shooting grid's value Φ − x' (7) and
+# a nonzero entry's value update ((c h) and y += (c h) k, 7)
+_DEFECT, _MIDPOINT_X, _CN_AVG, _FOLD, _SHOOT_C, _RK_AXPY_VALUE = 13, 15, 6, 15, 7, 7
+
+
+def _defect_flops(spec) -> tuple[int, int]:
+    """(the defect's value, its linearization) operations per stage of the
+    grid under ``spec``'s rule, counted from csrc/fused_al_sqp.cu
+    (``defect_value``, ``transition``) on the structure: forward
+    differences f or dyn, the defect and F = I + dt Jx (2); midpoint and
+    Crank–Nicolson their f (at the midpoint state, or averaged over both
+    ends with Ju) and the fold; a shooting grid stages × substeps of f or of
+    dyn with its tangent (the first stage's tangent is Ju alone) and a
+    value or tangent update per nonzero tableau entry, h = dt / substeps."""
+    f_ops, dyn_ops, g_ops, g_fold, rk_tangent, rk_axpy = _MODEL_FLOPS[type(spec.model)]
+    rule = colloc_id(spec)
+    if rule == 0:
+        return f_ops + _DEFECT, dyn_ops + _DEFECT + 2 + g_ops
+    if rule == 1:
+        fold = _MIDPOINT_X + dyn_ops + _DEFECT + _FOLD + g_ops + g_fold
+        return _MIDPOINT_X + f_ops + _DEFECT, fold
+    if rule == 2:
+        fold = 2 * dyn_ops + _CN_AVG + 2 * g_ops + _DEFECT + _FOLD + g_ops + g_fold
+        return 2 * f_ops + _CN_AVG + _DEFECT, fold
+    a_rows, b, substeps = shooting_tableau(spec)
+    entries = sum(c != 0.0 for row in a_rows for c in row) + sum(c != 0.0 for c in b)
+    stages = len(b)
+    h = int(substeps > 1)
+    value = h + substeps * (stages * f_ops + entries * _RK_AXPY_VALUE) + _SHOOT_C
+    walk = substeps * (stages * (dyn_ops + rk_tangent) + entries * rk_axpy) - rk_tangent
+    return value, h + walk + _SHOOT_C
 _GOAL_DX = 6     # x ⊖ xf: three differences and the θ wrap
 _QUAD_FORM = 8   # Σ q_i d_i² (and 5 for Σ r_j u_j²)
 # The via points, counted from csrc/fused_al_sqp.cu (``via_sweep``,
@@ -1464,9 +1691,14 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     is a stage row (in the derivatives with the ddt column's proximal
     weight, in every candidate's merit and in the dual update), each stage
     clips its own candidate dt (2) and applies its step (2), the trust cap
-    is taken per stage (2) and the minimum time is the sum of the stage dt."""
+    is taken per stage (2) and the minimum time is the sum of the stage dt.
+    The defect's value (every candidate's merit, the dual update) and its
+    linearization (the derivatives, the rollout) per stage follow the
+    collocation rule (``_defect_flops``)."""
     N, M = spec.N, spec.obstacle_cap
-    f_ops, dyn_ops, g_ops = _MODEL_FLOPS[type(spec.model)]
+    f_ops = _MODEL_FLOPS[type(spec.model)][0]
+    value_ops, transition = _defect_flops(spec)
+    value_extra = value_ops - (f_ops + _DEFECT)  # beyond forward differences' value
     quad = spec.objective == "quadratic_form"
     vdt, ball = spec.variable_dt, spec.ball_radius > 0.0
     nonu = spec.nonuniform_dt
@@ -1482,8 +1714,6 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     terminal = 30 + obs_deriv - (0 if shared_dt else dt_rows_pp)
     terminal += 9 * (spec.qf_diag is not None) + 28 * trapezoidal(spec)
     terminal += (ball_g + 3 + 4 + 12 + 27) * ball
-    # defect 13 (three x + dt f − x', the θ wrap), F 2
-    transition = dyn_ops + 13 + 2 + g_ops
     # stage_grad_hess: rate and box rows (175), the obstacle rows; the
     # quadratic form: plain 21, integral 52 (the non-uniform trapezoidal
     # stage 12 more: ½(dt_{k-1} + dt_k), ½lx and the dt_{k-1} rows), hybrid
@@ -1498,7 +1728,7 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     # quadratic form's stage cost (20, integral 22, the non-uniform
     # trapezoidal 2 more, hybrid 2); non-uniform: the interval's dt box, its
     # clipped candidate dt (2) and, minimum time, Σ dt (1)
-    merit_stage = 121 - 7 + f_ops + obs_value + 10 * M
+    merit_stage = 121 - 7 + f_ops + value_extra + obs_value + 10 * M
     if quad:
         merit_stage += (22 if spec.integral_form else 20) + 2 * (spec.hybrid_time_weight > 0.0)
         merit_stage += 2 * trap_nonu
@@ -1518,7 +1748,7 @@ def k2a_flops(spec, n_al: int, n_sqp: int, n_alpha: int, obstacles=None, via_mas
     # dual update: the stage rows (80), the obstacle rows and their updates
     # (6 per slot), the terminal rows and ρ (20); the non-uniform intervals'
     # dt boxes
-    per_phase = (N * (80 + obs_value + 6 * M) + 20 + (ball_g + 3) * ball
+    per_phase = (N * (80 + value_extra + obs_value + 6 * M) + 20 + (ball_g + 3) * ball
                  - (0 if shared_dt else dt_rows_dual) + dt_rows_dual * N * nonu)
     # the objective at the end: N·dt (Σ dt_k), or the stage costs and the
     # terminal terms

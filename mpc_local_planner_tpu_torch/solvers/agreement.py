@@ -27,7 +27,15 @@ card tests hold the kernels to these checks.
   largest move of the plain version under SPREAD_PATTERNS sign patterns of
   KKT-input rounding (``spread_runs``): a lane that one ulp moves by 2e-2
   after one iteration cannot be held to 1e-4, and is held to the spread of
-  the rounding measured on it.
+  the rounding measured on it. Two rounding runs can miss a lane's chaos:
+  at any prefix a lane over its bound is measured again under the
+  SPREAD_PATTERNS patterns on that lane alone (``lane_spread``), and if
+  the plain version's largest move there passes CHAOTIC the lane is
+  chaotic, held to SPREAD_FACTOR times that move (on the card, lane 332 of
+  the Crank–Nicolson flagship at 3×4: the kernel 3.3e3 away, the two runs
+  6.8e-7, four of the 32 patterns 396-3290, the kernel built without
+  FMA 8e-8); a check that finds more than RESPREAD_MAX_LANES such lanes
+  fails.
 
   Three comparisons of the solver are decided by rounding. Near a
   solution the line search picks among candidates whose merits differ by a
@@ -56,6 +64,7 @@ import math
 
 import torch
 
+from mpc_local_planner_tpu_torch.core.tree import tree_map
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
 from mpc_local_planner_tpu_torch.solvers.al_sqp import Decisions
 
@@ -73,6 +82,10 @@ CHAOTIC = 1e-6  # sensitivity beyond which a lane's answer is undetermined
 EVERY_LANE_CAP = 1e-4  # ULP_FACTOR * CHAOTIC
 SPREAD_PATTERNS = 32
 SPREAD_FACTOR = 2.0
+# lanes of one check that the second measurement (``lane_spread``) may show
+# chaotic: more fail the check, so that a fault in the kernel cannot pass as
+# chaos spread over many lanes (on an H100 one lane in 174 checks)
+RESPREAD_MAX_LANES = 4
 # near-ties: candidate merits within TIE_RTOL · max(|least|, 1) of the least
 # (the merit sums about 25 rows over 30 stages; summed in another order its
 # rounding is a few ulps, 1e-14 relative); growth-test violations within
@@ -182,6 +195,18 @@ def spread_runs(plain, init: Primal):
     return [plain(init, kkt_rounding=KktRounding(seed)) for seed in range(2, SPREAD_PATTERNS)]
 
 
+def lane_spread(plain, scenario, init: Primal, duals):
+    """``f64_agreement``'s ``respread``: ``respread(lanes)`` runs
+    ``plain(scenario, init, duals, kkt_rounding=...)`` on those lanes alone
+    under the SPREAD_PATTERNS KKT-rounding patterns."""
+    def respread(lanes):
+        sub = lambda t: tree_map(lambda a: a[lanes], t)  # noqa: E731
+        s, i, d = sub(scenario), sub(init), sub(duals)
+        return [plain(s, i, d, kkt_rounding=KktRounding(seed)) for seed in range(SPREAD_PATTERNS)]
+
+    return respread
+
+
 def plain_runs(plain, init: Primal):
     """The plain version's runs that ``f64_agreement`` holds a kernel's lane
     against, from ``plain(init, decisions=None, kkt_rounding=None)``: from
@@ -217,7 +242,7 @@ def gate(out_k, out_p, iters: int, min_converged_frac: float = 0.25):
 
 def f64_agreement(out_k, out_p, outs_q, outs_t, rho_growth: float,
                   min_converged_frac: float = 0.25, every_lane: bool = False, outs_r=(),
-                  outs_spread=()):
+                  outs_spread=(), respread=None):
     """Float64 agreement of ``out_k`` with ``out_p`` on the same inputs;
     ``outs_q`` are the plain version from the ``ulp_perturbed`` inputs,
     ``outs_r`` under the ``kkt_roundings`` and ``outs_t`` under the
@@ -234,7 +259,11 @@ def f64_agreement(out_k, out_p, outs_q, outs_t, rho_growth: float,
     with ``every_lane`` none is left out: no lane's bound exceeds
     EVERY_LANE_CAP, but a lane beyond CHAOTIC is held
     to SPREAD_FACTOR times its largest move under ``outs_q``, ``outs_r``
-    and ``outs_spread`` (``spread_runs``) where that is larger. A NaN
+    and ``outs_spread`` (``spread_runs``) where that is larger. A lane over
+    its bound is measured again with ``respread(lanes)`` (``lane_spread``),
+    where given: if the plain version's largest move there passes CHAOTIC,
+    the lane is chaotic and held to SPREAD_FACTOR times that move; more
+    than RESPREAD_MAX_LANES such lanes fail the check. A NaN
     error fails its lane. Returns (info,
     passed, per-lane errors, per-lane one-ulp sensitivities)."""
     both = out_k.converged & out_p.converged
@@ -258,6 +287,19 @@ def f64_agreement(out_k, out_p, outs_q, outs_t, rho_growth: float,
     within = torch.where(tied, (err_v <= bound) & (rho_steps <= 1.0 + 1e-9), err <= bound)
     held = ~chaotic | every_lane
     over = ~within & held
+    respread_lanes = torch.zeros_like(chaotic)
+    if respread is not None and bool(over.any()):
+        lanes = torch.nonzero(over).flatten()
+        sub = tree_map(lambda a: a[lanes], out_p)
+        move = torch.stack([_rel_errs(q, sub).amax(dim=0) for q in respread(lanes)]).amax(dim=0)
+        respread_lanes[lanes] = move > CHAOTIC
+        spread = spread.clone()
+        spread[lanes] = torch.maximum(spread[lanes], move)
+        bound = torch.where(respread_lanes,
+                            torch.maximum(bound, SPREAD_FACTOR * torch.maximum(spread, ref)), bound)
+        within = torch.where(respread_lanes, err <= bound, within)
+        chaotic = chaotic | respread_lanes
+        over = ~within & held
     n, n_both, n_untied = len(err), int(torch.sum(both)), int(torch.sum(untied))
     beyond = ~(err <= F64_RTOL)
     frac = 1.0 - int(torch.sum(untied & beyond)) / max(n_untied, 1)
@@ -280,11 +322,13 @@ def f64_agreement(out_k, out_p, outs_q, outs_t, rho_growth: float,
         "lanes_over_ulp_bound": int(torch.sum(over)),
         "lanes_chaotic": int(torch.sum(chaotic)),
         "max_chaotic_err_over_spread": float(torch.max(torch.where(chaotic, err / spread, 0.0))),
+        "lanes_chaotic_by_respread": int(torch.sum(respread_lanes)),
     }
     passed = (
         info["conv_identical"]
         and n_both >= min_converged_frac * n
         and frac >= F64_LANE_FRAC
         and info["lanes_over_ulp_bound"] == 0
+        and info["lanes_chaotic_by_respread"] <= RESPREAD_MAX_LANES
     )
     return info, passed, err, sens

@@ -774,20 +774,23 @@ def solve(
     duals: DualState,
     kkt_system=None,
     decisions: Optional[Decisions] = None,
+    funcs: Optional[OcpFunctions] = None,
 ) -> SolveResult:
     """Solve a batch of OCPs (one leading lane axis on every argument) on the
     device the tensors lie on, with the fixed n_al × n_sqp schedule.
 
     ``kkt_system(primal, duals)`` returns the Riccati inputs of one SQP
     iteration; by default the AD derivatives of ``_kkt_system``. The fused
-    kernel's plain version passes its closed forms. ``decisions`` takes the
-    line search's pick and the growth test (exact by default).
+    kernel's plain version passes its closed forms, and ``funcs`` with the
+    kernel's defect values (the merit's and the dual update's; by default
+    ``make_ocp_functions(spec)``). ``decisions`` takes the line search's
+    pick and the growth test (exact by default).
     """
     _check_settings(settings)
     decisions = decisions or Decisions()
     if init.xs.dim() != 3:
         raise ValueError("solve takes one leading lane axis: xs (B, N+1, 3)")
-    funcs = make_ocp_functions(spec)
+    funcs = funcs or make_ocp_functions(spec)
     if kkt_system is None:
         stage_fns = _make_stage_fns(spec)
         term_fns = _make_terminal_fns(spec)

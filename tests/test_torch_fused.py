@@ -130,7 +130,8 @@ def test_torch_k2a_defect_linearization_matches_jacfwd():
     spec, _, _, primal, _ = _iterate(1)
     xk, uk, xk1 = primal.xs[:, :-1], primal.us, primal.xs[:, 1:]
     dt = primal.dt[:, None].expand(xk.shape[:2])
-    c, F, G, m = k2a.defect_linearization(spec, xk, uk, xk1, dt)
+    c, F, G, m, r = k2a.defect_linearization(spec, xk, uk, xk1, dt)
+    np.testing.assert_array_equal(r.numpy(), c.numpy())  # E = −I: r = c
 
     def defect(a, b, c1, d):
         return stage_defect(spec.model, spec.collocation, a, b, c1, d)
@@ -306,27 +307,28 @@ def test_torch_fused_dispatch_ok(case, admitted):
 @pytest.mark.parametrize(
     "family, dtype, want",
     [
-        ("flagship", torch.float32, (False, 1, 0, False)),
-        ("flagship", torch.float64, (True, 1, 0, False)),
-        ("via_points", torch.float32, (False, 1, 2, False)),
-        ("nonuniform", torch.float64, (True, 1, 0, True)),
-        ("config2", torch.float32, (False, 0, 1, False)),
+        ("flagship", torch.float32, (False, 1, 0, False, 0)),
+        ("flagship", torch.float64, (True, 1, 0, False, 0)),
+        ("via_points", torch.float32, (False, 1, 2, False, 0)),
+        ("nonuniform", torch.float64, (True, 1, 0, True, 0)),
+        ("config2", torch.float32, (False, 0, 1, False, 0)),
     ],
 )
 def test_torch_k2a_library_group_of_a_spec(family, dtype, want):
     """A launch's library holds the five instantiations of its working type,
-    model, objective family and grid; the 48 groups have 48 names, and each
-    group's macros give the number its library reports (``k2a_group``)."""
+    model, objective family, grid and collocation family (forward
+    differences here); the 96 groups have 96 names, and each group's
+    macros give the number its library reports (``k2a_group``)."""
     from mpc_local_planner_tpu_torch.benchmarks import config2_diffdrive_obstacles, family_spec
 
     spec = config2_diffdrive_obstacles(N=8) if family == "config2" else family_spec(family, N=8)
     g = k2a.group(spec, dtype)
     assert g == k2a.Group(*want) and g in k2a.GROUPS
-    assert len(set(k2a.GROUPS)) == 48 and len({k2a.library_path(h) for h in k2a.GROUPS}) == 48
+    assert len(set(k2a.GROUPS)) == 96 and len({k2a.library_path(h) for h in k2a.GROUPS}) == 96
     macros = {k: int(v) for k, v in (d.split("=") for d in g.defines())}
-    assert ((macros["K2A_DOUBLE"] * 10 + macros["K2A_MODEL"]) * 10 + macros["K2A_OBJ"]) * 10 \
-        + macros["K2A_NONU"] == g.code()
-    code = "((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU"
+    assert (((macros["K2A_DOUBLE"] * 10 + macros["K2A_MODEL"]) * 10 + macros["K2A_OBJ"]) * 10
+            + macros["K2A_NONU"]) * 10 + macros["K2A_COLLOC"] == g.code()
+    code = "(((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU) * 10 + K2A_COLLOC"
     assert code in k2a.SOURCE.read_text()
     no_via = dataclasses.replace(spec, via_cap=0)
     assert k2a.group(no_via, dtype).obj == (1 if family == "config2" else 0)
@@ -335,9 +337,11 @@ def test_torch_k2a_library_group_of_a_spec(family, dtype, want):
 def test_torch_make_solver_on_cpu_is_the_unfused_solve_bit_for_bit():
     spec, st, scen, init, duals = _small()
     before = k2a.fused_solve_cuda.launches
+    by_rule = dict(k2a.fused_solve_cuda.launches_by_rule)
     auto = al_sqp.make_solver(spec, st, device="cpu")(scen, init, duals)
     off = al_sqp.solve(spec, dataclasses.replace(st, fused="off"), scen, init, duals)
     assert k2a.fused_solve_cuda.launches == before
+    assert k2a.fused_solve_cuda.launches_by_rule == by_rule
     for a, b in zip(_leaves(auto), _leaves(off)):
         assert torch.equal(a, b)
 

@@ -152,13 +152,6 @@ def test_torch_simple_car_dynamics_bounds_and_linearization():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(collocation="midpoint_differences"),
-        dict(collocation="shooting_euler"),
-        dict(collocation="crank_nicolson_differences"),
-        dict(collocation="shooting_rk4_2"),
-        dict(nonuniform_dt=True, collocation="midpoint_differences"),
-        dict(nonuniform_dt=True, collocation="shooting_rk4", objective="minimum_time_via_points"),
-        dict(collocation="shooting_rk4"),
         dict(model=object()),
         dict(footprint=object()),
     ],

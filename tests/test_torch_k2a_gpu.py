@@ -13,7 +13,12 @@ masked slots), what the kernel once refused: 30 obstacle slots (the
 example configs' capacity), 17 line-search candidates and N = 80, and the
 non-uniform per-stage dt grid (K2f: minimum time, all four slot families
 moving with two discs, the polygon footprint; config #2's integral
-trapezoidal form, held to 64 of 1024 lanes converged on both).
+trapezoidal form, held to 64 of 1024 lanes converged on both), and the
+other collocation rules (K2b: the flagship with Crank–Nicolson and with
+midpoint differences, config #2 with Crank–Nicolson, midpoint on the
+non-uniform grid; K2e: the flagship on the shooting_rk4 and shooting_rk7_2
+grids, shooting_rk2_heun under all four slot families moving with two
+discs).
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -151,6 +156,31 @@ K2F = {
 }
 
 
+# the other collocation rules (K2b, K2e): (spec, ensemble as ``_ensemble``
+# takes it)
+def _rule(spec, rule):
+    return dataclasses.replace(spec, collocation=rule)
+
+
+COLLOC = {
+    "crank-nicolson-flagship": lambda: (_rule(config3_carlike_min_time(N=30, obstacle_cap=8),
+                                              "crank_nicolson_differences"), None),
+    "midpoint-flagship": lambda: (_rule(config3_carlike_min_time(N=30, obstacle_cap=8),
+                                        "midpoint_differences"), None),
+    "shooting-rk4-flagship": lambda: (_rule(config3_carlike_min_time(N=30, obstacle_cap=8),
+                                            "shooting_rk4"), None),
+    "shooting-rk7-2-flagship": lambda: (_rule(config3_carlike_min_time(N=30, obstacle_cap=8),
+                                              "shooting_rk7_2"), None),
+    "crank-nicolson-config2": lambda: (_rule(FAMILY["config2"](), "crank_nicolson_differences"),
+                                       None),
+    "midpoint-nonuniform": lambda: (_rule(family_spec("nonuniform"), "midpoint_differences"),
+                                    None),
+    "shooting-rk2-heun-mixed-dynamic": lambda: (_rule(K2C["mixed-dynamic"]()[0],
+                                                      "shooting_rk2_heun"),
+                                                K2C["mixed-dynamic"]()[1]),
+}
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: kernel K2a has no CPU or interpret mode")
@@ -216,9 +246,12 @@ def _check_f64(spec, st, scen, init, duals, floor=0.25):
         outs_s = agreement.spread_runs(plain, init) if short else ()
         torch.cuda.synchronize()
         assert out_k.primal.xs.dtype == torch.float64
+        respread = agreement.lane_spread(
+            lambda s, i, d, **kw: k2a.fused_solve_plain(spec, sp, s, i, d, **kw),  # noqa: B023
+            scen, init, duals)
         info, passed, _, _ = agreement.f64_agreement(
             out_k, out_p, outs_q, outs_t, sp.rho_growth, 0.0 if short else floor,
-            every_lane=short, outs_r=outs_r, outs_spread=outs_s,
+            every_lane=short, outs_r=outs_r, outs_spread=outs_s, respread=respread,
         )
         assert passed, json.dumps(info)
 
@@ -428,3 +461,35 @@ def test_torch_nonuniform_warm_solve_launches_the_kernel_and_never_k1():
     assert k2a.fused_solve_cuda.launches == before + 1
     assert riccati_cuda.lqr_solve_cuda.launches == k1
     assert off.primal.dt.shape == (64, spec.N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(COLLOC))
+def test_torch_fused_kernel_matches_plain_under_the_collocation_rules(case, dtype):
+    """The fold of midpoint and Crank–Nicolson (r = −E⁻¹c in the step, c in
+    the merit and the duals) and the shooting grids' tableau walk, from the
+    live state of two fleet cycles."""
+    spec, slots = COLLOC[case]()
+    args = _warm_state(_card(), dtype, WARM, spec=spec, cycles=2, slots=slots)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args)
+
+
+@pytest.mark.gpu
+def test_torch_crank_nicolson_warm_solve_launches_the_kernel_and_never_k1():
+    """Path F's warm solve launches the fused kernel once, counted under its
+    rule, and K1 never; its un-fused solve takes K1 once per SQP iteration."""
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(dev, torch.float32, WARM, batch=64,
+                                              spec=COLLOC["crank-nicolson-flagship"]()[0])
+    before, k1 = k2a.fused_solve_cuda.launches, riccati_cuda.lqr_solve_cuda.launches
+    rule = k2a.fused_solve_cuda.launches_by_rule[spec.collocation]
+    al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert k2a.fused_solve_cuda.launches_by_rule[spec.collocation] == rule + 1
+    assert riccati_cuda.lqr_solve_cuda.launches == k1
+    al_sqp.make_solver(spec, dataclasses.replace(st, fused="off"), dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == before + 1
+    assert riccati_cuda.lqr_solve_cuda.launches == k1 + st.n_al * st.n_sqp

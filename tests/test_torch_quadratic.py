@@ -292,10 +292,10 @@ def test_torch_spec_admits_the_quadratic_family_and_refuses_the_rest():
         dataclasses.replace(c2, hybrid_time_weight=-1.0)
     with pytest.raises(ValueError, match="cost_integration"):
         dataclasses.replace(c2, cost_integration="simpson")
-    for kw, item in ((dict(collocation="midpoint_differences"), "K2b"),
-                     (dict(collocation="crank_nicolson_differences"), "K2b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP M9, {item}"):
-            dataclasses.replace(c2, **kw)
+    # the midpoint and Crank–Nicolson rules (K2b) are admitted, and in the
+    # kernel's scope
+    for rule in ("midpoint_differences", "crank_nicolson_differences"):
+        assert k2a.fused_supported(dataclasses.replace(c2, collocation=rule))
     # the non-uniform grid (K2f) is admitted, and in the kernel's scope
     assert k2a.fused_supported(dataclasses.replace(c2, nonuniform_dt=True, variable_dt=True))
     assert isinstance(c2, OcpSpec) and c2.ball_radius == 0.2 and not c2.variable_dt
@@ -464,7 +464,7 @@ def test_torch_quadratic_dispatch_admits_the_family(case):
         k2a.fused_solve_cuda(spec, st, scen, init, duals)
     assert k2a.fused_supported(dataclasses.replace(spec, N=65))  # no horizon cap
     wide = dataclasses.replace(spec, via_cap=9)
-    with pytest.raises(NotImplementedError, match="via_cap=9.*still to port"):
+    with pytest.raises(NotImplementedError, match="via_cap=9.*JAX fused_supported"):
         k2a.fused_solve_cuda(wide, st, scen, init, duals)
     ins, outs = k2a.kernel_io(spec, scen, init, duals)
     assert len(ins) == 26 and len(outs) == 15
