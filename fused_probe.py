@@ -2,7 +2,7 @@
 """Measurements of the fused kernel (``csrc/fused_al_sqp.cu``) and of K1 on
 one NVIDIA GPU, beside ``chip_smoke.py``:
 
-    python3 fused_probe.py [registers] [timing] [rounding[=CASE]] [times]
+    python3 fused_probe.py [registers] [timing] [rounding[=CASE]] [times] [teams]
     (the first three by default)
 
 - registers: builds the kernel's ``<float, simple car, OBJ_MIN_TIME>`` and
@@ -19,7 +19,10 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
   forward differences; midpoint, Crank–Nicolson and shooting), and
   prints ptxas' registers, stack frame and spills for each; of the tree in
   the working directory, as ``times`` does (a tree from before the
-  collocation families has the forward rows only).
+  collocation families has the forward rows only). Where the tree has the
+  team layout, also each main path's launched instantiation in float and
+  double: its registers, stack and spills, a team's shared bytes and the
+  teams per SM (``main_path_registers``).
 - timing: the flagship's and config #2's warm solves at B=4096 from the
   straight-line seed, through the ``GEO_NONE`` instantiation and through
   ``GEO_ALL`` on the same inputs (the same spec with dynamic obstacles at zero
@@ -33,15 +36,17 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
   ``rounding=CASE`` runs another case of ``chip_smoke.family_state``, or
   ``polygon-footprint``: path C's family at B=1024 from its own ensemble.
 - times: K1 on a flagship SQP iteration's Riccati inputs, and the fused
-  kernel's launches of the flagship's, config #2's and paths A's and B's
-  fleet cycles (the warm solves at B=4096 and the rescues at 1024 and
-  2048) and of path F's warm solve (the Crank–Nicolson flagship, where
-  the tree has the rule) from the straight-line seed (CUDA events, median of 25 launches),
-  for the tree in the working directory: its ``chip_smoke`` and package
-  come first on the path. To compare two commits on one card, unpack the
-  parent with ``git archive`` into an ignored directory and run there and
-  here in turns (parent, change, change, parent):
+  kernel's launch of every main path's warm solve (B=4096) and rescue
+  (1024; path B's 2048) from the straight-line seed (``main_path_cases``:
+  the flagship, config #2, paths A-F; CUDA events, median of 25 launches),
+  with each launch's team layout where the tree has one, for the tree in
+  the working directory: its ``chip_smoke`` and package come first on the
+  path. To compare two commits on one card, unpack the parent with
+  ``git archive`` into an ignored directory and run there and here in
+  turns (parent, change, change, parent):
   ``(cd DIR && python3 ../fused_probe.py times)``.
+- teams: the team size and a team's shared budget, measured on the
+  simple-car group (``TEAM_VARIANTS``).
 
 Prints one JSON line per measurement. Needs a CUDA card.
 """
@@ -108,6 +113,70 @@ def registers():
     with ThreadPoolExecutor(max_workers=8) as pool:
         rows = list(pool.map(build, cases))
     print(json.dumps({"registers": rows}))
+    if hasattr(k2a, "launch_geometry"):
+        print(json.dumps({"main_path_registers": main_path_registers()}))
+
+
+def _ptxas_rows(ptxas):
+    """ptxas' registers, stack frame and spills of each k2a_kernel
+    instantiation in one build's report, by its template arguments."""
+    rows = {}
+    for part in ptxas.split("Compiling entry function")[1:]:
+        name = re.search(r"k2a_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])ELi(\d+)E", part)
+        if not name:
+            continue
+        row = {}
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            found = re.search(pat, part)
+            row[key] = int(found.group(1)) if found else None
+        rows[int(name.group(4))] = row  # by GEO
+    return rows
+
+
+def main_path_registers():
+    """Each main path's launched instantiation in float and double: ptxas'
+    registers, stack and spills, the team's shared bytes and the teams per
+    SM at the path's N and M (the CUDA occupancy calculator), from its
+    group's library built here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import nvcc_build
+
+    device = torch.device("cuda", 0)
+    cases = [c for c in main_path_cases(device) if not c[0].endswith("_rescue")]
+    groups = sorted({k2a.group(sp, dt) for _, sp, _, _, _ in cases
+                     for dt in (torch.float32, torch.float64)})
+
+    def build(g):
+        lib = nvcc_build.BUILD_DIR / f"libfused_probe_group_{g.code()}.so"
+        lib.unlink(missing_ok=True)
+        return g, lib, nvcc_build.build_library(k2a.SOURCE, lib, g.defines())["ptxas"]
+
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        built = {g: (lib, _ptxas_rows(ptxas)) for g, lib, ptxas in pool.map(build, groups)}
+    rows = []
+    for tag, sp, family, st, _ in cases:
+        for dt in (torch.float32, torch.float64):
+            g = k2a.group(sp, dt)
+            path, ptx = built[g]
+            lib = k2a.bind(path, g)
+            scen = chip_smoke.ensemble(sp, 8, device, family=family)
+            geo = k2a.library_geometry(lib, sp.N, sp.obstacle_cap)
+            params = k2a._params(sp, st, scen.obstacles)
+            blocks = k2a.occupancy(lib, sp, st, scen.obstacles)
+            geo_id = k2a.launched_geo(params)
+            rows.append({"path": tag, "dtype": str(dt).removeprefix("torch."), "geo": geo_id,
+                         **ptx.get(geo_id, {}), "team": geo.team,
+                         "shared_bytes_per_team": geo.shared_bytes // geo.teams_per_block,
+                         "workspace_per_scenario": geo.workspace,
+                         "teams_per_sm": blocks * geo.teams_per_block})
+    return rows
 
 
 def timing():
@@ -184,48 +253,137 @@ def rounding(case="mixed-dynamic"):
                           "lanes": lanes}))
 
 
+def main_path_cases(device):
+    """The fused kernel's launches of every main path's fleet cycle, from the
+    straight-line seed: (tag, spec, family, settings, batch). The warm
+    solves at B=4096 (paths B's at 4×4) and each path's rescue, at 1024
+    slots (path B's at 2048, with the rescue's 8 candidates at 4×4)."""
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
+
+    spec, _, warm, rescue = chip_smoke.flagship()
+    lines_warm = dataclasses.replace(warm, n_al=4)
+    lines_rescue = dataclasses.replace(lines_warm, alphas=rescue.alphas)
+    paths = [("k2a", spec, None), ("config2", chip_smoke.config2(), None)]
+    paths += [(tag, family_spec(fam), fam) for tag, fam in (
+        ("pathA", "canonical_carlike"), ("pathB", "converter_lines"),
+        ("pathC", "polygon_footprint"), ("pathD", "via_points"), ("pathE", "nonuniform"))]
+    if hasattr(chip_smoke, "crank_nicolson_flagship"):  # a tree with the rule
+        paths.append(("pathF", chip_smoke.crank_nicolson_flagship(), None))
+    cases = []
+    for tag, sp, fam in paths:
+        lines = tag == "pathB"
+        cases.append((tag, sp, fam, lines_warm if lines else warm, chip_smoke.BATCH))
+        cases.append((f"{tag}_rescue", sp, fam, lines_rescue if lines else rescue,
+                      chip_smoke.LINES_RESCUE_SLOTS if lines else chip_smoke.RESCUE_SLOTS))
+    return cases
+
+
 def times():
-    """K1 and the fused kernel's launches of the fleet cycles from the seed,
-    in the working directory's tree (its ``chip_smoke`` and package): the
-    warm 3×4 solves of the flagship, config #2 and path A at B=4096, path
-    A's 4×4 rescue with 8 candidates at 1024, path B's warm 4×4 at 4096 and
-    its rescue (4×4, 8 candidates) at 2048."""
+    """K1 and the fused kernel's launches of every main path's fleet cycle
+    from the seed (``main_path_cases``: the warm solves at B=4096 and the
+    rescues at 1024 and 2048), in the working directory's tree (its
+    ``chip_smoke`` and package); where the tree has the team layout, each
+    launch's team, teams per block, shared bytes per team and teams per SM
+    (the CUDA occupancy calculator) beside its time."""
     import torch
 
-    from mpc_local_planner_tpu_torch.benchmarks import family_spec
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
     from mpc_local_planner_tpu_torch.solvers import al_sqp
 
-    for kernel in (riccati_cuda, k2a):
-        kernel.build()
     device = torch.device("cuda", 0)
-    spec, _, warm, rescue = chip_smoke.flagship()
+    cases = main_path_cases(device)
+    riccati_cuda.build()
+    k2a.build(tuple(sorted({k2a.group(sp, torch.float32) for _, sp, _, _, _ in cases})))
+    spec, _, warm, _ = chip_smoke.flagship()
     scen = chip_smoke.ensemble(spec, chip_smoke.BATCH, device)
     args = chip_smoke.riccati_inputs(spec, warm, scen)
     out = {"tree": os.getcwd(), "k1_ms": chip_smoke._cuda_ms(
         lambda: riccati_cuda.lqr_solve_cuda(*args, nx=3, free_tau=True), 25)}
-    lines_warm = dataclasses.replace(warm, n_al=4)
-    cases = (
-        ("k2a", spec, None, warm, chip_smoke.BATCH),
-        ("config2", chip_smoke.config2(), None, warm, chip_smoke.BATCH),
-        ("pathA", family_spec("canonical_carlike"), "canonical_carlike", warm, chip_smoke.BATCH),
-        ("pathA_rescue", family_spec("canonical_carlike"), "canonical_carlike", rescue,
-         chip_smoke.RESCUE_SLOTS),
-        ("pathB", family_spec("converter_lines"), "converter_lines", lines_warm,
-         chip_smoke.BATCH),
-        ("pathB_rescue", family_spec("converter_lines"), "converter_lines",
-         dataclasses.replace(lines_warm, alphas=rescue.alphas), chip_smoke.LINES_RESCUE_SLOTS),
-    )
-    if hasattr(chip_smoke, "crank_nicolson_flagship"):  # a tree with the rule
-        cases += (("pathF", chip_smoke.crank_nicolson_flagship(), None, warm, chip_smoke.BATCH),)
+    layout = {}
     for tag, sp, family, st, batch in cases:
         st = dataclasses.replace(st, fused="auto")
         scen = chip_smoke.ensemble(sp, batch, device, family=family)
         init, duals = al_sqp.default_init(sp, st, scen)
         out[f"{tag}_ms"] = chip_smoke._cuda_ms(
             lambda: k2a.fused_solve_cuda(sp, st, scen, init, duals), 25)  # noqa: B023
-    print(json.dumps({"times": out, "card": chip_smoke.card_line()}))
+        if hasattr(k2a, "launch_geometry"):
+            lib = k2a._load(k2a.group(sp, torch.float32))
+            geo = k2a.library_geometry(lib, sp.N, sp.obstacle_cap)
+            layout[tag] = {"team": geo.team, "teams_per_block": geo.teams_per_block,
+                           "shared_bytes_per_team": geo.shared_bytes // geo.teams_per_block,
+                           "workspace_per_scenario": geo.workspace,
+                           "teams_per_sm": geo.teams_per_block * k2a.occupancy(
+                               lib, sp, st, scen.obstacles)}
+    print(json.dumps({"times": out, "layout": layout or None, "card": chip_smoke.card_line()}))
+
+
+# the team sizes and shared budgets ``teams`` builds: (lanes, float bytes)
+TEAM_VARIANTS = ((32, 18944), (32, 20480), (16, 11264), (8, 6144))
+
+
+def teams():
+    """The kernel's team size and a team's shared budget, measured: the
+    simple-car minimum-time group (the flagship's, paths A's, B's and C's
+    instantiations) built from this tree's source with the two constants
+    set to each of ``TEAM_VARIANTS``, those launches of the main paths
+    timed in turns (CUDA events, median of 15 each, the variants in order
+    and then in reverse), with each variant's ptxas rows and teams per SM
+    and whether its converged flags agree with the first variant's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import nvcc_build
+    from mpc_local_planner_tpu_torch.solvers import al_sqp
+
+    device = torch.device("cuda", 0)
+    g = k2a.Group(False, 1, 0, False, 0)
+    cases = [c for c in main_path_cases(device) if k2a.group(c[1], torch.float32) == g]
+    source = k2a.SOURCE.read_text()
+    nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build(variant):
+        team, budget = variant
+        text = re.sub(r"constexpr int TEAM = \d+;", f"constexpr int TEAM = {team};", source)
+        text = re.sub(r"constexpr int SMEM_TEAM_F32 = \d+;",
+                      f"constexpr int SMEM_TEAM_F32 = {budget};", text)
+        src = nvcc_build.BUILD_DIR / f"fused_probe_team{team}_{budget}.cu"
+        src.write_text(text)
+        lib = src.with_name(f"lib{src.stem}.so")
+        lib.unlink(missing_ok=True)
+        report = nvcc_build.build_library(src, lib, g.defines())
+        return variant, k2a.bind(lib, g), _ptxas_rows(report["ptxas"])
+
+    with ThreadPoolExecutor(max_workers=len(TEAM_VARIANTS)) as pool:
+        built = {v: (lib, ptx) for v, lib, ptx in pool.map(build, TEAM_VARIANTS)}
+    inputs = []
+    for tag, sp, family, st, batch in cases:
+        st = dataclasses.replace(st, fused="auto")
+        scen = chip_smoke.ensemble(sp, batch, device, family=family)
+        inputs.append((tag, sp, st, scen) + al_sqp.default_init(sp, st, scen))
+    default_budget, first = k2a.SMEM_TEAM_F32, {}
+    rows = {f"{t}x{b}": {"ptxas": built[(t, b)][1], "cases": {}} for t, b in TEAM_VARIANTS}
+    try:
+        for team, budget in TEAM_VARIANTS + TEAM_VARIANTS[::-1]:
+            lib = built[(team, budget)][0]
+            k2a._libs[g], k2a.SMEM_TEAM_F32 = lib, budget
+            for tag, sp, st, scen, init, duals in inputs:
+                assert k2a.library_geometry(lib, sp.N, sp.obstacle_cap) == k2a.launch_geometry(
+                    g, sp.N, sp.obstacle_cap, team)
+                out = k2a.fused_solve_cuda(sp, st, scen, init, duals)
+                first.setdefault(tag, out.converged)
+                row = rows[f"{team}x{budget}"]["cases"].setdefault(tag, {
+                    "ms": [], "teams_per_sm": k2a.occupancy(lib, sp, st, scen.obstacles)
+                    * k2a.BLOCK // team,
+                    "conv_agrees": bool(torch.equal(out.converged, first[tag]))})
+                row["ms"].append(chip_smoke._cuda_ms(
+                    lambda: k2a.fused_solve_cuda(sp, st, scen, init, duals), 15))  # noqa: B023
+    finally:
+        k2a.SMEM_TEAM_F32 = default_budget
+        k2a._libs.pop(g, None)
+    print(json.dumps({"teams": rows, "card": chip_smoke.card_line()}))
 
 
 def main(names):
@@ -237,7 +395,7 @@ def main(names):
     for name in names or ("registers", "timing", "rounding"):
         name, _, case = name.partition("=")
         probe = {"registers": registers, "timing": timing, "rounding": rounding,
-                 "times": times}[name]
+                 "times": times, "teams": teams}[name]
         probe(case) if case else probe()
 
 

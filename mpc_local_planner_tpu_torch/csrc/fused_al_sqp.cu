@@ -60,11 +60,32 @@
 // zeros and ones (about four times the step's operations, 1.7 times the
 // whole solve's); folding them as the TPU kernel does is left for later.
 //
-// Design: one thread per scenario, the simplest layout that is right. The
-// model and the objective family are template parameters, so the inner
+// Design: a team of TEAM lanes of one warp (a whole warp, 32 lanes) solves
+// one scenario; TEAMS teams share a block of
+// BLOCK = 64 threads, so that the fleet cycle's batches put several warps on
+// every SM (a batch of 1024 fills 512 blocks). The lanes take the stages in
+// turn (lane l the stages k = l mod TEAM) wherever the stages are
+// independent: the stage terms of the backward sweep (transition and
+// stage_grad_hess, the whole geometry gradient), each candidate's merit
+// (summed over the team by a butterfly of shuffles), the step's
+// application, the dual update with its violation maxima (vmax and vmin
+// over the team, which keep a NaN), the best-feasible snapshot, the final
+// selection and the cost; the via points' assignment is an argmin over the
+// team, the ordered cursor serial over the slots. Only the Riccati
+// recursion and the rollout carry a dependence from stage to stage: the
+// backward sweep walks chunks of TEAM items from the last (item k < N stage
+// k's terms, computed by its lane into the chunk's slot; item N the terminal
+// P, p), and each stage of the recursion spreads the entries of its 6x6
+// (6xNV) products over the lanes, each a dot product of length 6 read from
+// shared memory, in three phases between team barriers (riccati_stage); the
+// rollout forms a chunk's transitions on the lanes, then lanes 0-5 each
+// carry one row of z, one barrier per stage. The NaN quarantine is a team
+// vote. Every team barrier is a __syncwarp over the team's lanes, and every
+// lane of a team runs the same sequence of them.
+// The model and the objective family are template parameters, so the inner
 // loops carry no branch on them; the objective's forms (integral,
 // trapezoidal, hybrid), Qf, the ball and a fixed dt are runtime flags that
-// every thread of a launch shares. The geometry (disc count and offsets,
+// every team of a launch shares. The geometry (disc count and offsets,
 // slot-family counts, vertex pad, dynamic flag, the footprint's body-frame
 // points) is runtime too, but the template parameter GEO compiles away what
 // a launch needs none of and makes the footprint's kind compile-time:
@@ -82,36 +103,29 @@
 // One build compiles the five of one such group, named by the macros
 // K2A_DOUBLE, K2A_MODEL, K2A_OBJ, K2A_NONU and K2A_COLLOC: the wrapper
 // builds each group it needs into a library of its own (96 at most), many
-// at once, and loads the one a launch needs.
-// Each thread walks its whole solve: P and p in registers, the K/kff tape,
-// the step (dxs, dus) and the best-feasible snapshot in the workspace, the
-// via points' stage indices (at most 8) in a per-thread array, the primal and
-// the duals updated in place in the output tensors after a first copy from
-// the inputs. Inputs and outputs keep the wrapper's (B, N, ...) layout, so
-// neighbouring threads read about 6 KB apart and the loads are not
-// coalesced. Blocks are one warp (32 threads), so a batch of 4096 spreads
-// over 128 of the 132 SMs; with one warp per SM nothing hides the latency of
-// the dependent chain, so the kernel runs far above its bound. A
-// warp-cooperative or stage-parallel design is the next step. The kernel is
-// a template over float and double, so that the card can check the
-// algorithm in f64, free of f32 noise.
+// at once, and loads the one a launch needs. The kernel is a template over
+// float and double, so that the card can check the algorithm in f64, free
+// of f32 noise.
 //
 // N, M and the number of line-search candidates are runtime arguments with
-// no cap, as in the TPU kernel: the step (dxs, dus), the K/kff gain tape
-// and the best-feasible snapshot (on the non-uniform grid also the step's
-// per-stage dt, the snapshot's and the N+1 prediction times) live in a
-// workspace that the wrapper allocates, workspace_per_lane(N, nonu) values
-// per lane, tiled by warp as the
-// hardware interleaves local memory: value i of lane b at
-// ws[((b / 32) * workspace_per_lane(N) + i) * 32 + b % 32], so that a warp's
-// loads and stores coalesce and each thread reaches its values at constant
-// offsets from one pointer; the candidates are a device input of n_alpha
-// values in the working type.
+// no cap, as in the TPU kernel. A team copies its scenario's contiguous
+// input rows into its working state with neighbouring lanes on
+// neighbouring values, and writes the outputs back the same way. The
+// working state (Layout): the via points' stage indices and the scratch of
+// the Riccati step always in the team's slice of the block's shared memory;
+// then the primal, the chunk of stage terms, the gain tape, the step, the
+// duals, the best-feasible snapshot and the prediction times, each in the
+// slice while the team's budget (SMEM_TEAM_F32 bytes in float, twice that in
+// double) holds it, else in its output tensor (the primal and the duals,
+// worked on in place) or in a workspace the wrapper allocates, ws values per
+// scenario, scenario-major, so that a team's accesses coalesce. The
+// candidates are a device input of n_alpha values in the working type.
 //
 // Plain C interface for ctypes: each entry point launches on the given
 // stream and returns cudaGetLastError() (0 on success).
 
 #include <cfloat>
+#include <climits>
 #include <cmath>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -137,6 +151,9 @@
 #define K2A_COLLOC 0
 #endif
 
+// the block's shared memory: one slice per team (Layout)
+extern __shared__ __align__(16) unsigned char k2a_smem[];
+
 namespace {
 
 constexpr int NX = 3;
@@ -147,8 +164,6 @@ constexpr int MAX_VIA = 8;  // via points (JAX fused_supported)
 constexpr int TAPE = NU * NA + NU;  // one stage of the gain tape: K (2x6), kff (2)
 constexpr int NV3 = NU + 1;  // the non-uniform grid's control width: [du, ddt]
 constexpr int TAPE3 = NV3 * NA + NV3;  // its gain tape: K (3x6), kff (3)
-constexpr int THREADS = 32;
-constexpr int WARP = 32;  // the workspace's tile: one warp's lanes
 constexpr double BIG = 1.0e6;   // geometry.obstacles.BIG_DISTANCE
 constexpr double EPS = 1.0e-12; // geometry.distances._EPS (safe norm)
 constexpr double PI = 3.141592653589793;
@@ -160,13 +175,107 @@ enum ModelId { UNICYCLE = 0, SIMPLE_CAR = 1, FRONT_WHEEL = 2, BICYCLE = 3 };
 // the OBJ template parameter: the objective family
 enum Objective { OBJ_MIN_TIME = 0, OBJ_QUADRATIC = 1, OBJ_VIA = 2 };
 
-// values of the workspace per lane: the step dxs ((N+1) x 3) and dus
-// (N x 2), the gain tape (N x TAPE), the snapshot bxs and bus; on the
-// non-uniform grid the tape is N x TAPE3, then the step's ddt (N), the
-// snapshot's dt (N) and the prediction times (N + 1)
-__host__ __device__ constexpr int workspace_per_lane(int N, bool nonu) {
-  return nonu ? 2 * ((N + 1) * NX + N * NU) + N * TAPE3 + 3 * N + 1
-              : 2 * ((N + 1) * NX + N * NU) + N * TAPE;
+// ---- the launch: teams of TEAM lanes, TEAMS teams in a block of BLOCK
+// threads, each team's working state in a slice of the block's shared
+// memory (Layout). The team size and the team's shared budget in float
+// (twice that in double) were measured (fused_probe.py teams, which builds
+// this source with other values of the two): a team of 32 lanes at 18,944
+// bytes puts 12 teams on an SM, the most that 168 registers a thread allow
+constexpr int TEAM = 32;
+static_assert(TEAM == 8 || TEAM == 16 || TEAM == 32, "a team is 8, 16 or 32 lanes of a warp");
+constexpr int SMEM_TEAM_F32 = 18944;
+constexpr int BLOCK = 64;
+constexpr int TEAMS = BLOCK / TEAM;
+constexpr int SMEM_BLOCK = 232448;  // the most shared memory a block can have (227 KB)
+constexpr int SMEM_SM = 233472;     // an SM's shared memory (228 KB), 1 KB of it kept per block
+constexpr int VKS_BYTES = 32;         // the via points' stage indices (MAX_VIA ints)
+
+// the team's scratch (values of the working type, after the vks): the
+// Riccati step's blocks (P, p; PF, PG, Prp; Qzz, Qzu, qz, Quu, qu: at the
+// widths of the non-uniform grid's three control columns), the rollout's z
+// (twice), the terminal multipliers lam_term and mu_ball
+constexpr int S_P = 0, S_PV = 36, S_PF = 42, S_PG = 78, S_PRP = 96, S_QZZ = 102, S_QZU = 138,
+              S_QZ = 156, S_QUU = 162, S_QU = 171, S_Z = 174, S_LT = 186, S_MBALL = 189,
+              SCRATCH = 192;
+
+// one stage's terms in a chunk slot: Fz (6x6), Gz (6xNV), rz (6), Hzz
+// (6x6), Hzu (6xNV), Huu (NVxNV), hz (6), hu (NV), the slot's stride odd
+__host__ __device__ constexpr int slot_values(bool nonu) {
+  const int nv = nonu ? NV3 : NU;
+  return (NA * NA * 2 + NA * 2 + 2 * NA * nv + nv * nv + nv) | 1;
+}
+
+// the arrays of a team's working state, in the order they claim shared
+// memory: the primal, then what the serial recursion and rollout read (the
+// chunk of stage terms, the gain tape), the step, the duals, the
+// best-feasible snapshot, the prediction times
+enum Arr {
+  A_XS, A_US, A_DTS, A_CHUNK, A_TAPE, A_DXS, A_DUS, A_DTAUS, A_LD, A_MR, A_MB, A_MD, A_MO,
+  A_BXS, A_BUS, A_BDTS, A_TV, N_ARR
+};
+
+// values of each array: xs and the snapshot (N+1) x 3, us N x 2, the
+// non-uniform grid's per-stage dt N (its step's and its snapshot's too),
+// a chunk TEAM slots, the gain tape N x TAPE (TAPE3 on the non-uniform
+// grid), lam_def N x 3, mu_rate and mu_box N x 4, mu_dt 2 (2N on the
+// non-uniform grid), mu_obs N x M, the prediction times N + 1
+inline int arr_values(int arr, int N, int M, bool nonu) {
+  switch (arr) {
+    case A_XS: case A_DXS: case A_BXS: return (N + 1) * NX;
+    case A_US: case A_DUS: case A_BUS: return N * NU;
+    case A_DTS: case A_DTAUS: case A_BDTS: return nonu ? N : 0;
+    case A_CHUNK: return TEAM * slot_values(nonu);
+    case A_TAPE: return N * (nonu ? TAPE3 : TAPE);
+    case A_LD: return N * NX;
+    case A_MR: case A_MB: return N * 4;
+    case A_MD: return nonu ? 2 * N : 2;
+    case A_MO: return N * M;
+    default: return nonu ? N + 1 : 0;  // A_TV
+  }
+}
+// the arrays with an output tensor: where they do not fit in shared
+// memory, the kernel works on them in place there
+inline bool has_output(int arr) {
+  return arr == A_XS || arr == A_US || arr == A_DTS || arr == A_LD || arr == A_MR ||
+         arr == A_MB || arr == A_MD || arr == A_MO;
+}
+
+// Where a team's working state lives: the vks and the scratch always in
+// its shared slice; then each array, in the order of Arr, in the slice
+// while the team's budget holds it, else in its output tensor or, for the
+// step, the chunk, the tape, the snapshot and the prediction times, in the
+// scenario's workspace (ws values per scenario, scenario-major)
+struct Layout {
+  int team_bytes;   // the team's shared bytes
+  int ws;           // workspace values per scenario
+  int shared;       // bit a: array a lives in shared memory
+  int off[N_ARR];   // its offset in values: in the slice (after the vks), or in the workspace
+};
+
+// a team's shared budget in bytes: SMEM_TEAM_F32 in float, twice that in
+// double, at most a block's share
+__host__ __device__ constexpr int team_budget(int tsize) {
+  return SMEM_TEAM_F32 * tsize / 4 < SMEM_BLOCK / TEAMS ? SMEM_TEAM_F32 * tsize / 4
+                                                        : SMEM_BLOCK / TEAMS;
+}
+
+inline Layout make_layout(int N, int M, bool nonu, int tsize) {
+  Layout lay = {};
+  const int budget = team_budget(tsize);
+  long used = SCRATCH;
+  for (int arr = 0; arr < N_ARR; ++arr) {
+    const long n = arr_values(arr, N, M, nonu);
+    if (VKS_BYTES + (used + n) * tsize <= budget) {
+      lay.shared |= 1 << arr;
+      lay.off[arr] = static_cast<int>(used);
+      used += n;
+    } else if (!has_output(arr)) {
+      lay.off[arr] = lay.ws;
+      lay.ws += static_cast<int>(n);
+    }
+  }
+  lay.team_bytes = static_cast<int>((VKS_BYTES + used * tsize + 15) / 16 * 16);
+  return lay;
 }
 
 // the GEO template parameter: the parts of the geometry an instantiation
@@ -266,7 +375,7 @@ struct K2aArgs {
   const T* vp;                      // via points (B,mv,3)
   const unsigned char* vmask;       // (B,mv) bool
   const T* alphas;                  // the line-search candidates (n_alpha)
-  T* ws;                            // the workspace (B / 32, workspace_per_lane(N), 32)
+  T* ws;                            // the workspace (B, Layout::ws), scenario-major
   // outputs: the working state, updated in place
   T *xs, *us, *dt, *ld, *lt, *mo, *mr, *mb, *md, *mball, *rho;
   T *cost, *eq, *ineq;
@@ -334,9 +443,9 @@ struct Seg {
   T ax, ay, bx, by, tax, tay, tbx, tby;
 };
 
-// the non-uniform grid's per-lane state: the working per-stage dt (in the
-// output tensor), the trust cap's floor, the ddt column's proximal weight;
-// empty on the uniform grid, so that a uniform lane is laid out as before
+// the non-uniform grid's per-lane state: the working per-stage dt (where
+// Layout puts it), the trust cap's floor, the ddt column's proximal weight;
+// empty on the uniform grid
 template <typename T, bool NONU>
 struct NonuState {
   T* dts;
@@ -383,37 +492,33 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
   T via_pw, via_ow;
   const T* vp;
   const unsigned char* vm;
-  mutable int vks[MAX_VIA];
-  // the workspace: this lane's value i at ws[i * WARP]; the step, the gain
-  // tape and the best-feasible snapshot (workspace_per_lane)
-  T* ws;
+  int* vks;  // (in the team's shared slice)
+  // the team: this lane's index in it and the team's lanes in the warp; the
+  // scratch (the Riccati step's blocks), the chunk of stage terms, the step
+  // (dxs, dus, on the non-uniform grid dtaus), the gain tape, the snapshot
+  // (bxs, bus, bdts) and the prediction times tv, where Layout puts them
+  int lane;
+  unsigned mask;
+  T *sc, *chunk, *dxs_p, *dus_p, *dtaus_p, *tape, *bxs_p, *bus_p, *bdts_p, *tv_p;
+  // a chunk slot's blocks (slot_values)
+  static constexpr int O_FZ = 0, O_GZ = NA * NA, O_RZ = O_GZ + NA * NV, O_HZZ = O_RZ + NA,
+                       O_HZU = O_HZZ + NA * NA, O_HUU = O_HZU + NA * NV, O_HZ = O_HUU + NV * NV,
+                       O_HU = O_HZ + NA, SVP = slot_values(NONU);
+  static_assert(O_HU + NV <= SVP, "a chunk slot holds one stage's terms");
 
-  __device__ __forceinline__ T& wsv(int i) const { return ws[i * WARP]; }
-  __device__ __forceinline__ T& dxs(int k, int i) const { return wsv(k * NX + i); }
-  __device__ __forceinline__ T& dus(int k, int i) const { return wsv((N + 1) * NX + k * NU + i); }
+  __device__ __forceinline__ T& dxs(int k, int i) const { return dxs_p[k * NX + i]; }
+  __device__ __forceinline__ T& dus(int k, int i) const { return dus_p[k * NU + i]; }
   __device__ __forceinline__ T& Kt(int k, int i, int j) const {
-    return wsv((N + 1) * NX + N * NU + k * TAPE_L + i * NA + j);
+    return tape[k * TAPE_L + i * NA + j];
   }
-  __device__ __forceinline__ T& kft(int k, int i) const {
-    return wsv((N + 1) * NX + N * NU + k * TAPE_L + NV * NA + i);
-  }
-  __device__ __forceinline__ T& bxs(int k, int i) const {
-    return wsv((N + 1) * NX + N * NU + N * TAPE_L + k * NX + i);
-  }
-  __device__ __forceinline__ T& bus(int k, int i) const {
-    return wsv(2 * (N + 1) * NX + N * NU + N * TAPE_L + k * NU + i);
-  }
+  __device__ __forceinline__ T& kft(int k, int i) const { return tape[k * TAPE_L + NV * NA + i]; }
+  __device__ __forceinline__ T& bxs(int k, int i) const { return bxs_p[k * NX + i]; }
+  __device__ __forceinline__ T& bus(int k, int i) const { return bus_p[k * NU + i]; }
   // the non-uniform grid: the step's ddt_k, the snapshot's dt_k, the
   // prediction time of pose i at the solve's initial dt (sum_{j<i} dt_j)
-  __device__ __forceinline__ T& dtaus(int k) const {
-    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + k);
-  }
-  __device__ __forceinline__ T& bdts(int k) const {
-    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + N + k);
-  }
-  __device__ __forceinline__ T& tv(int i) const {
-    return wsv(2 * ((N + 1) * NX + N * NU) + N * TAPE_L + 2 * N + i);
-  }
+  __device__ __forceinline__ T& dtaus(int k) const { return dtaus_p[k]; }
+  __device__ __forceinline__ T& bdts(int k) const { return bdts_p[k]; }
+  __device__ __forceinline__ T& tv(int i) const { return tv_p[i]; }
 
   // the dt of stage k: the shared dt, or the stage's own on the non-uniform
   // grid
@@ -627,7 +732,7 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
   // = dt / substeps; per nonzero entry c of a row or of b, y += (c h) k;
   // the plain version's shoot) and, TANGENT, its tangent over w = [x_k,
   // u_k, dt] on its structure: rows 0-1 are [I | xs_t_i], row 2 is [0, 0,
-  // 1 | xt]; the stages' k and tangents live in per-thread arrays (local
+  // 1 | xt]; the stages' k and tangents live in per-lane arrays (local
   // memory: the stage count is a runtime value)
   template <bool TANGENT>
   __device__ void shoot(const T xk[NX], const T uk[NU], T dtv, T xv[NX], T xs_t[2][4],
@@ -1619,112 +1724,229 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
     }
   }
 
-  // the Riccati sweep, the free dtau stage and the rollout: the step of one
-  // SQP iteration into dxs, dus, dtau (the algebra of kernel K1); on the
-  // non-uniform grid the control is [du, ddt_k] (ddt_k into dtaus, a 3x3 Quu
-  // inverted by its adjugate over its determinant, as the Pallas kernel
-  // does) and no free dtau
-  __device__ __forceinline__ void kkt_step(T reg) {
-    T P[NA][NA], p[NA];
-    terminal_Pp(P, p);
-    for (int k = N - 1; k >= 0; --k) {
-      T Fz[NA][NA], Gz[NA][NV], rz[NA];
-      transition(k, Fz, Gz, rz);
-      T hz[NA], hu[NV], Hzz[NA][NA], Hzu[NA][NV], Huu[NV][NV];
-      stage_grad_hess(k, hz, hu, Hzz, Hzu, Huu);
+  // ---- the team: TEAM lanes of one warp solve the scenario together ------ //
 
-      // PF = P Fz ; PG = P Gz ; Prp = P rz + p
-      T PF[NA][NA], PG[NA][NV], Prp[NA];
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+  // sums, maxima and minima over the team, the same on every lane (a
+  // butterfly: both lanes of a pair form a + b, which is b + a); vmax and
+  // vmin keep a NaN
+  __device__ __forceinline__ T team_sum(T v) const {
 #pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        T acc_r = T(0);
+    for (int o = TEAM / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+    return v;
+  }
+  __device__ __forceinline__ T team_vmax(T v) const {
 #pragma unroll
-        for (int l = 0; l < NA; ++l) acc_r += P[i][l] * rz[l];
-        Prp[i] = acc_r + p[i];
+    for (int o = TEAM / 2; o > 0; o >>= 1) v = vmax(v, __shfl_xor_sync(mask, v, o));
+    return v;
+  }
+  __device__ __forceinline__ T team_vmin(T v) const {
 #pragma unroll
-        for (int j = 0; j < NA; ++j) {
-          T acc = T(0);
+    for (int o = TEAM / 2; o > 0; o >>= 1) v = vmin(v, __shfl_xor_sync(mask, v, o));
+    return v;
+  }
+  __device__ __forceinline__ bool team_any(bool p) const { return __any_sync(mask, p) != 0; }
+
+  // stage k's terms into the chunk slot s: the transition (Fz, Gz, rz) and
+  // the stage's AL gradient and Hessian blocks, laid out as O_FZ .. O_HU
+  __device__ __forceinline__ void stage_transition(int k, T* s) const {
+    T Fz[NA][NA], Gz[NA][NV], rz[NA];
+    transition(k, Fz, Gz, rz);
+    for (int i = 0; i < NA; ++i) {
+      for (int j = 0; j < NA; ++j) s[O_FZ + i * NA + j] = Fz[i][j];
+      for (int j = 0; j < NV; ++j) s[O_GZ + i * NV + j] = Gz[i][j];
+      s[O_RZ + i] = rz[i];
+    }
+  }
+  __device__ __forceinline__ void stage_terms(int k, T* s) const {
+    stage_transition(k, s);
+    T hz[NA], hu[NV], Hzz[NA][NA], Hzu[NA][NV], Huu[NV][NV];
+    stage_grad_hess(k, hz, hu, Hzz, Hzu, Huu);
+    for (int i = 0; i < NA; ++i) {
+      for (int j = 0; j < NA; ++j) s[O_HZZ + i * NA + j] = Hzz[i][j];
+      for (int j = 0; j < NV; ++j) s[O_HZU + i * NV + j] = Hzu[i][j];
+      s[O_HZ + i] = hz[i];
+    }
+    for (int i = 0; i < NV; ++i) {
+      for (int j = 0; j < NV; ++j) s[O_HUU + i * NV + j] = Huu[i][j];
+      s[O_HU + i] = hu[i];
+    }
+  }
+
+  // Quu^-1 from the scratch: the closed-form 2x2 inverse, or on the
+  // non-uniform grid the 3x3 adjugate over the determinant (the Pallas
+  // kernel's cofactor order); every lane forms the same
+  __device__ __forceinline__ void quu_inverse(T Qi[NV][NV]) const {
+    const T* Q = sc + S_QUU;
+    if constexpr (NONU) {
+      const T a00 = Q[0], a01 = Q[1], a02 = Q[2];
+      const T a10 = Q[3], a11 = Q[4], a12 = Q[5];
+      const T a20 = Q[6], a21 = Q[7], a22 = Q[8];
+      const T c00 = a11 * a22 - a12 * a21, c01 = a02 * a21 - a01 * a22, c02 = a01 * a12 - a02 * a11;
+      const T c10 = a12 * a20 - a10 * a22, c11 = a00 * a22 - a02 * a20, c12 = a02 * a10 - a00 * a12;
+      const T c20 = a10 * a21 - a11 * a20, c21 = a01 * a20 - a00 * a21, c22 = a00 * a11 - a01 * a10;
+      const T inv_det = T(1) / (a00 * c00 + a01 * c10 + a02 * c20);
+      const T c[3][3] = {{c00, c01, c02}, {c10, c11, c12}, {c20, c21, c22}};
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) Qi[i][j] = c[i][j] * inv_det;
+    } else {
+      const T inv_det = T(1) / (Q[0] * Q[3] - Q[1] * Q[2]);
+      Qi[0][0] = Q[3] * inv_det;
+      Qi[0][1] = -Q[1] * inv_det;
+      Qi[1][0] = -Q[2] * inv_det;
+      Qi[1][1] = Q[0] * inv_det;
+    }
+  }
+  // K[r][j] = -(Quu^-1 Qzu')[r][j] and kff[r] = -(Quu^-1 qu)[r]
+  __device__ __forceinline__ T gain_K(const T Qi[NV][NV], int r, int j) const {
+    const T* Qzu = sc + S_QZU;
+    T acc = Qi[r][0] * Qzu[j * NV] + Qi[r][1] * Qzu[j * NV + 1];
+    if constexpr (NONU) acc = acc + Qi[r][2] * Qzu[j * NV + 2];
+    return -acc;
+  }
+  __device__ __forceinline__ T gain_k(const T Qi[NV][NV], int r) const {
+    const T* qu = sc + S_QU;
+    T acc = Qi[r][0] * qu[0] + Qi[r][1] * qu[1];
+    if constexpr (NONU) acc = acc + Qi[r][2] * qu[2];
+    return -acc;
+  }
+
+  // one stage of the backward Riccati recursion on the stage terms in s,
+  // cooperative: each of three phases spreads its entries over the lanes,
+  // each entry a dot product of length 6 over the scratch (P, p and the
+  // products in shared memory), each phase ended by a team barrier
+  //   A: PF = P Fz, PG = P Gz, Prp = P rz + p
+  //   B: Qzz = Hzz + Fz' PF, Qzu = Hzu + Fz' PG, qz = hz + Fz' Prp,
+  //      Quu = Huu + Gz' PG + reg I, qu = hu + Gz' Prp
+  //   C: K = -Quu^-1 Qzu', kff = -Quu^-1 qu into the tape; P <- Qzz + Qzu K
+  //      (symmetrized), p <- qz + Qzu kff
+  __device__ __forceinline__ void riccati_stage(int k, const T* s, T reg) {
+    const T* Fz = s + O_FZ;
+    const T* Gz = s + O_GZ;
+    const T* rz = s + O_RZ;
+    T* P = sc + S_P;
+    T* p = sc + S_PV;
+    T* PF = sc + S_PF;
+    T* PG = sc + S_PG;
+    T* Prp = sc + S_PRP;
+    T* Qzz = sc + S_QZZ;
+    T* Qzu = sc + S_QZU;
+    T* qz = sc + S_QZ;
+    T* Quu = sc + S_QUU;
+    T* qu = sc + S_QU;
+    constexpr int NA_A = NA * NA + NA * NV + NA;
+    for (int w = lane; w < NA_A; w += TEAM) {
+      T acc = T(0);
+      if (w < NA * NA) {
+        const int i = w / NA, j = w % NA;
 #pragma unroll
-          for (int l = 0; l < NA; ++l) acc += P[i][l] * Fz[l][j];
-          PF[i][j] = acc;
+        for (int l = 0; l < NA; ++l) acc += P[i * NA + l] * Fz[l * NA + j];
+        PF[w] = acc;
+      } else if (w < NA * NA + NA * NV) {
+        const int e = w - NA * NA, i = e / NV, j = e % NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += P[i * NA + l] * Gz[l * NV + j];
+        PG[e] = acc;
+      } else {
+        const int i = w - NA * NA - NA * NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += P[i * NA + l] * rz[l];
+        Prp[i] = acc + p[i];
+      }
+    }
+    sync();
+    constexpr int NB_Z = NA * NA + NA * NV + NA, NB_A = NB_Z + NV * NV + NV;
+    for (int w = lane; w < NB_A; w += TEAM) {
+      T acc = T(0);
+      if (w < NA * NA) {
+        const int i = w / NA, j = w % NA;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += Fz[l * NA + i] * PF[l * NA + j];
+        Qzz[w] = s[O_HZZ + w] + acc;
+      } else if (w < NA * NA + NA * NV) {
+        const int e = w - NA * NA, i = e / NV, j = e % NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += Fz[l * NA + i] * PG[l * NV + j];
+        Qzu[e] = s[O_HZU + e] + acc;
+      } else if (w < NB_Z) {
+        const int i = w - NA * NA - NA * NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += Fz[l * NA + i] * Prp[l];
+        qz[i] = s[O_HZ + i] + acc;
+      } else if (w < NB_Z + NV * NV) {
+        const int e = w - NB_Z, i = e / NV, j = e % NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += Gz[l * NV + i] * PG[l * NV + j];
+        Quu[e] = s[O_HUU + e] + acc + (i == j ? reg : T(0));
+      } else {
+        const int i = w - NB_Z - NV * NV;
+#pragma unroll
+        for (int l = 0; l < NA; ++l) acc += Gz[l * NV + i] * Prp[l];
+        qu[i] = s[O_HU + i] + acc;
+      }
+    }
+    sync();
+    T Qi[NV][NV];
+    quu_inverse(Qi);
+    constexpr int NC_P = NA * NA + NA, NC_A = NC_P + NV * NA + NV;
+    for (int w = lane; w < NC_A; w += TEAM) {
+      if (w < NA * NA) {
+        const int i = w / NA, j = w % NA;
+        T ki[NV], kj[NV];
+#pragma unroll
+        for (int r = 0; r < NV; ++r) {
+          kj[r] = gain_K(Qi, r, j);
+          ki[r] = gain_K(Qi, r, i);
         }
-#pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          T acc = T(0);
-#pragma unroll
-          for (int l = 0; l < NA; ++l) acc += P[i][l] * Gz[l][j];
-          PG[i][j] = acc;
+        T sv = Qzu[i * NV] * kj[0] + Qzu[i * NV + 1] * kj[1];
+        T sT = Qzu[j * NV] * ki[0] + Qzu[j * NV + 1] * ki[1];
+        if constexpr (NONU) {
+          sv = sv + Qzu[i * NV + 2] * kj[2];
+          sT = sT + Qzu[j * NV + 2] * ki[2];
+        }
+        const T v = Qzz[i * NA + j] + sv;
+        const T vT = Qzz[j * NA + i] + sT;
+        P[w] = T(0.5) * (v + vT);
+      } else if (w < NC_P) {
+        const int i = w - NA * NA;
+        T sv = Qzu[i * NV] * gain_k(Qi, 0) + Qzu[i * NV + 1] * gain_k(Qi, 1);
+        if constexpr (NONU) sv = sv + Qzu[i * NV + 2] * gain_k(Qi, 2);
+        p[i] = qz[i] + sv;
+      } else if (w < NC_P + NV * NA) {
+        const int e = w - NC_P, r = e / NA, j = e % NA;
+        Kt(k, r, j) = gain_K(Qi, r, j);
+      } else {
+        const int r = w - NC_P - NV * NA;
+        kft(k, r) = gain_k(Qi, r);
+      }
+    }
+    sync();
+  }
+
+  // the step of one SQP iteration into dxs, dus, dtau (the algebra of kernel
+  // K1; on the non-uniform grid the control is [du, ddt_k], ddt_k into dtaus,
+  // and no free dtau). The backward sweep walks chunks of TEAM items from the
+  // last: item k < N is stage k's terms, computed by lane k % TEAM into its
+  // chunk slot, item N the terminal P, p; then the recursion runs over the
+  // chunk's stages. The rollout walks the chunks forward: the lanes form the
+  // chunk's transitions, then lanes 0-5 each carry one row of z.
+  __device__ __forceinline__ void kkt_step(T reg) {
+    const int nq = (N + TEAM) / TEAM;
+    for (int q = nq - 1; q >= 0; --q) {
+      const int k0 = q * TEAM, k = k0 + lane;
+      if (k < N) {
+        stage_terms(k, chunk + lane * SVP);
+      } else if (k == N) {
+        T P[NA][NA], p[NA];
+        terminal_Pp(P, p);
+        for (int i = 0; i < NA; ++i) {
+          for (int j = 0; j < NA; ++j) sc[S_P + i * NA + j] = P[i][j];
+          sc[S_PV + i] = p[i];
         }
       }
-      // Qzz = Hzz + Fz' PF ; Qzu = Hzu + Fz' PG ; Quu = Huu + Gz' PG + reg I
-      T Qzz[NA][NA], Qzu[NA][NV], Quu[NV][NV], qz[NA], qu[NV];
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-#pragma unroll
-        for (int j = 0; j < NA; ++j) {
-          T acc = T(0);
-#pragma unroll
-          for (int l = 0; l < NA; ++l) acc += Fz[l][i] * PF[l][j];
-          Qzz[i][j] = Hzz[i][j] + acc;
-        }
-#pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          T acc = T(0);
-#pragma unroll
-          for (int l = 0; l < NA; ++l) acc += Fz[l][i] * PG[l][j];
-          Qzu[i][j] = Hzu[i][j] + acc;
-        }
-        T acc = T(0);
-#pragma unroll
-        for (int l = 0; l < NA; ++l) acc += Fz[l][i] * Prp[l];
-        qz[i] = hz[i] + acc;
-      }
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-#pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          T acc = T(0);
-#pragma unroll
-          for (int l = 0; l < NA; ++l) acc += Gz[l][i] * PG[l][j];
-          Quu[i][j] = Huu[i][j] + acc + (i == j ? reg : T(0));
-        }
-        T acc = T(0);
-#pragma unroll
-        for (int l = 0; l < NA; ++l) acc += Gz[l][i] * Prp[l];
-        qu[i] = hu[i] + acc;
-      }
-      if constexpr (NONU) {
-        gains3(k, Qzz, Qzu, Quu, qz, qu, P, p);
-        continue;
-      }
-      // closed-form 2x2 inverse; K = -Quu^-1 Qzu' ; kff = -Quu^-1 qu
-      const T inv_det = T(1) / (Quu[0][0] * Quu[1][1] - Quu[0][1] * Quu[1][0]);
-      const T Qi[NU][NU] = {{Quu[1][1] * inv_det, -Quu[0][1] * inv_det},
-                            {-Quu[1][0] * inv_det, Quu[0][0] * inv_det}};
-      T Km[NU][NA], kf[NU];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-#pragma unroll
-        for (int j = 0; j < NA; ++j) Km[i][j] = -(Qi[i][0] * Qzu[j][0] + Qi[i][1] * Qzu[j][1]);
-        kf[i] = -(Qi[i][0] * qu[0] + Qi[i][1] * qu[1]);
-      }
-      // P <- Qzz + Qzu K (symmetrized) ; p <- qz + Qzu kff
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-#pragma unroll
-        for (int j = 0; j < NA; ++j) {
-          const T v = Qzz[i][j] + (Qzu[i][0] * Km[0][j] + Qzu[i][1] * Km[1][j]);
-          const T vT = Qzz[j][i] + (Qzu[j][0] * Km[0][i] + Qzu[j][1] * Km[1][i]);
-          P[i][j] = T(0.5) * (v + vT);
-        }
-        p[i] = qz[i] + (Qzu[i][0] * kf[0] + Qzu[i][1] * kf[1]);
-      }
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        kft(k, i) = kf[i];
-#pragma unroll
-        for (int j = 0; j < NA; ++j) Kt(k, i, j) = Km[i][j];
-      }
+      sync();
+      const int k1 = k0 + TEAM < N ? k0 + TEAM : N;
+      for (int kk = k1 - 1; kk >= k0; --kk) riccati_stage(kk, chunk + (kk - k0) * SVP, reg);
     }
 
     // free dtau (variable uniform dt only): max(P_tau, tiny) that keeps a
@@ -1732,148 +1954,139 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
     if constexpr (NONU) {
       dtau = T(0);
     } else {
-      const T Ptau = P[NA - 1][NA - 1] + reg;
+      const T Ptau = sc[S_P + NA * NA - 1] + reg;
       const T den = Ptau < tiny<T>() ? tiny<T>() : Ptau;
-      dtau = vdt ? -p[NA - 1] / den : T(0);
+      dtau = vdt ? -sc[S_PV + NA - 1] / den : T(0);
     }
 
     // forward rollout from z_0 = [0, 0, dtau] (ddt_{-1} = 0 on the
-    // non-uniform grid)
-    T z[NA];
-    for (int i = 0; i < NA; ++i) z[i] = T(0);
-    z[NA - 1] = dtau;
-    for (int i = 0; i < NX; ++i) dxs(0, i) = T(0);
-    for (int k = 0; k < N; ++k) {
-      T Fz[NA][NA], Gz[NA][NV], rz[NA];
-      transition(k, Fz, Gz, rz);
-      T u[NV];
+    // non-uniform grid); z double-buffered in the scratch
+    T* z = sc + S_Z;
+    if (lane < NA) z[lane] = lane == NA - 1 ? dtau : T(0);
+    if (lane < NX) dxs(0, lane) = T(0);
+    int cur = 0;
+    for (int k0 = 0; k0 < N; k0 += TEAM) {
+      if (k0 + lane < N) stage_transition(k0 + lane, chunk + lane * SVP);
+      sync();
+      const int k1 = k0 + TEAM < N ? k0 + TEAM : N;
+      for (int k = k0; k < k1; ++k) {
+        if (lane < NA) {
+          const T* s = chunk + (k - k0) * SVP;
+          const T* zc = z + cur * NA;
+          T u[NV];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        T acc = T(0);
+          for (int i = 0; i < NV; ++i) {
+            T acc = T(0);
 #pragma unroll
-        for (int j = 0; j < NA; ++j) acc += Kt(k, i, j) * z[j];
-        u[i] = acc + kft(k, i);
+            for (int j = 0; j < NA; ++j) acc += Kt(k, i, j) * zc[j];
+            u[i] = acc + kft(k, i);
+          }
+          T acc = T(0);
+#pragma unroll
+          for (int j = 0; j < NA; ++j) acc += s[O_FZ + lane * NA + j] * zc[j];
+          T accu = T(0);
+#pragma unroll
+          for (int l = 0; l < NV; ++l) accu += s[O_GZ + lane * NV + l] * u[l];
+          const T zn = acc + accu + s[O_RZ + lane];
+          z[(cur ^ 1) * NA + lane] = zn;
+          if (lane < NU) dus(k, lane) = u[lane];
+          if (NONU && lane == NU) dtaus(k) = u[NU];
+          if (lane < NX) dxs(k + 1, lane) = zn;
+        }
+        cur ^= 1;
+        sync();
       }
-      T zn[NA];
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        T acc = T(0);
-#pragma unroll
-        for (int j = 0; j < NA; ++j) acc += Fz[i][j] * z[j];
-        T accu = T(0);
-#pragma unroll
-        for (int l = 0; l < NV; ++l) accu += Gz[i][l] * u[l];
-        zn[i] = acc + accu + rz[i];
-      }
-      for (int i = 0; i < NU; ++i) dus(k, i) = u[i];
-      if constexpr (NONU) dtaus(k) = u[NU];
-      for (int i = 0; i < NX; ++i) dxs(k + 1, i) = zn[i];
-      for (int i = 0; i < NA; ++i) z[i] = zn[i];
     }
 
-    // NaN quarantine: a non-finite step becomes a zero step, whole
-    bool ok = isfinite(dtau);
-    for (int k = 0; k < N; ++k) {
-      for (int i = 0; i < NX; ++i) ok = ok && isfinite(dxs(k + 1, i));
-      for (int i = 0; i < NU; ++i) ok = ok && isfinite(dus(k, i));
-      if constexpr (NONU) ok = ok && isfinite(dtaus(k));
+    // NaN quarantine: a non-finite step becomes a zero step, whole (a team
+    // vote)
+    bool bad = !isfinite(dtau);
+    for (int k = lane; k < N; k += TEAM) {
+      for (int i = 0; i < NX; ++i) bad = bad || !isfinite(dxs(k + 1, i));
+      for (int i = 0; i < NU; ++i) bad = bad || !isfinite(dus(k, i));
+      if constexpr (NONU) bad = bad || !isfinite(dtaus(k));
     }
-    if (!ok) {
+    if (team_any(bad)) {
       dtau = T(0);
-      for (int k = 0; k <= N; ++k)
+      for (int k = lane; k <= N; k += TEAM)
         for (int i = 0; i < NX; ++i) dxs(k, i) = T(0);
-      for (int k = 0; k < N; ++k)
+      for (int k = lane; k < N; k += TEAM) {
         for (int i = 0; i < NU; ++i) dus(k, i) = T(0);
-      if constexpr (NONU)
-        for (int k = 0; k < N; ++k) dtaus(k) = T(0);
-    }
-  }
-
-  // the gains of stage k on the non-uniform grid: the closed-form 3x3 inverse
-  // of Quu (adjugate over determinant, the Pallas kernel's cofactor order),
-  // K = -Quu^-1 Qzu', kff = -Quu^-1 qu into the tape, then
-  // P <- Qzz + Qzu K (symmetrized), p <- qz + Qzu kff
-  __device__ __forceinline__ void gains3(int k, const T Qzz[NA][NA], const T Qzu[NA][NV],
-                                         const T Quu[NV][NV], const T qz[NA], const T qu[NV],
-                                         T P[NA][NA], T p[NA]) const {
-    const T a00 = Quu[0][0], a01 = Quu[0][1], a02 = Quu[0][2];
-    const T a10 = Quu[1][0], a11 = Quu[1][1], a12 = Quu[1][2];
-    const T a20 = Quu[2][0], a21 = Quu[2][1], a22 = Quu[2][2];
-    const T c00 = a11 * a22 - a12 * a21, c01 = a02 * a21 - a01 * a22, c02 = a01 * a12 - a02 * a11;
-    const T c10 = a12 * a20 - a10 * a22, c11 = a00 * a22 - a02 * a20, c12 = a02 * a10 - a00 * a12;
-    const T c20 = a10 * a21 - a11 * a20, c21 = a01 * a20 - a00 * a21, c22 = a00 * a11 - a01 * a10;
-    const T inv_det = T(1) / (a00 * c00 + a01 * c10 + a02 * c20);
-    const T Qi[NV][NV] = {{c00 * inv_det, c01 * inv_det, c02 * inv_det},
-                          {c10 * inv_det, c11 * inv_det, c12 * inv_det},
-                          {c20 * inv_det, c21 * inv_det, c22 * inv_det}};
-    T Km[NV][NA], kf[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-        Km[i][j] = -(Qi[i][0] * Qzu[j][0] + Qi[i][1] * Qzu[j][1] + Qi[i][2] * Qzu[j][2]);
-      kf[i] = -(Qi[i][0] * qu[0] + Qi[i][1] * qu[1] + Qi[i][2] * qu[2]);
-    }
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        const T v = Qzz[i][j] + (Qzu[i][0] * Km[0][j] + Qzu[i][1] * Km[1][j] +
-                                 Qzu[i][2] * Km[2][j]);
-        const T vT = Qzz[j][i] + (Qzu[j][0] * Km[0][i] + Qzu[j][1] * Km[1][i] +
-                                  Qzu[j][2] * Km[2][i]);
-        P[i][j] = T(0.5) * (v + vT);
+        if constexpr (NONU) dtaus(k) = T(0);
       }
-      p[i] = qz[i] + (Qzu[i][0] * kf[0] + Qzu[i][1] * kf[1] + Qzu[i][2] * kf[2]);
     }
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      kft(k, i) = kf[i];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) Kt(k, i, j) = Km[i][j];
-    }
+    sync();
   }
 
   // ---- via points (the Pallas via_sweep and via_rows)
 
-  // Per via slot, the first minimum over the N+1 states of the squared
+  // Via slot j's first minimum over the states k0 .. N of the squared
   // position distance (torch.argmin's: a NaN is the least, and wins once),
-  // over the candidate xs + al dxs (CAND) or the current states; ordered,
-  // from the cursor on, which an active slot moves to its stage and a masked
-  // slot leaves. COST: returns the summed attraction of the active slots,
-  // pw d2 + ow wrap(theta - theta_v)^2 (the orientation term where ow > 0);
-  // else stores each slot's stage in vks.
-  template <bool COST, bool CAND>
-  __device__ T via_sweep(T al) const {
+  // over the candidate xs + al dxs (cand) or the current states: each lane
+  // scans its stages in order, then the team keeps the NaN or the least
+  // value of the lowest stage. bk is k0 where no stage beats +inf.
+  __device__ __forceinline__ void via_best(int j, int k0, T al, bool cand, T& bd, int& bk) const {
+    const T vx = vp[3 * j], vy = vp[3 * j + 1];
+    T d = T(INFINITY);
+    int idx = INT_MAX;
+    for (int k = k0 + lane; k <= N; k += TEAM) {
+      T px = xs[k * NX], py = xs[k * NX + 1];
+      if (cand) {
+        px += al * dxs(k, 0);
+        py += al * dxs(k, 1);
+      }
+      const T ex = px - vx, ey = py - vy;
+      const T d2 = mul_rn(ex, ex) + mul_rn(ey, ey);
+      if (d2 < d || (d2 != d2 && d == d)) {
+        d = d2;
+        idx = k;
+      }
+    }
+#pragma unroll
+    for (int o = TEAM / 2; o > 0; o >>= 1) {
+      const T od = __shfl_xor_sync(mask, d, o);
+      const int oi = __shfl_xor_sync(mask, idx, o);
+      const bool on = od != od, dn = d != d;
+      if (on ? (!dn || oi < idx) : (!dn && (od < d || (od == d && oi < idx)))) {
+        d = od;
+        idx = oi;
+      }
+    }
+    bd = d;
+    bk = idx == INT_MAX ? k0 : idx;
+  }
+
+  // each via slot's stage at the current states, into vks (ordered: from
+  // the cursor on, which an active slot moves to its stage)
+  __device__ __forceinline__ void via_assign() const {
+    int cursor = 0;
+    for (int j = 0; j < mv; ++j) {
+      T bd;
+      int bk;
+      via_best(j, via_ordered ? cursor : 0, T(0), false, bd, bk);
+      if (lane == 0) vks[j] = bk;
+      if (via_ordered && vm[j] != 0) cursor = bk;
+    }
+    sync();
+  }
+
+  // the summed attraction of the active via slots, pw d2 + ow wrap(theta -
+  // theta_v)^2 (the orientation term where ow > 0), each slot at its own
+  // assignment over the candidate (cand) or the current states
+  __device__ __forceinline__ T via_cost(T al, bool cand) const {
     T acc = T(0);
     int cursor = 0;
     for (int j = 0; j < mv; ++j) {
-      const T vx = vp[3 * j], vy = vp[3 * j + 1];
-      const int k0 = via_ordered ? cursor : 0;
-      T bd = T(INFINITY);
-      int bk = k0;
-      for (int k = k0; k <= N; ++k) {
-        T px = xs[k * NX], py = xs[k * NX + 1];
-        if (CAND) {
-          px += al * dxs(k, 0);
-          py += al * dxs(k, 1);
-        }
-        const T ex = px - vx, ey = py - vy;
-        const T d2 = mul_rn(ex, ex) + mul_rn(ey, ey);
-        if (d2 < bd || (d2 != d2 && bd == bd)) {
-          bd = d2;
-          bk = k;
-        }
-      }
+      T bd;
+      int bk;
+      via_best(j, via_ordered ? cursor : 0, al, cand, bd, bk);
       const bool on = vm[j] != 0;
       if (via_ordered && on) cursor = bk;
-      if (!COST) {
-        vks[j] = bk;
-      } else if (on) {
+      if (on) {
         T c = via_pw * bd;
         if (via_ow > T(0)) {
           T th = xs[bk * NX + 2];
-          if (CAND) th = wrap(th + al * dxs(bk, 2));
+          if (cand) th = wrap(th + al * dxs(bk, 2));
           const T e = wrap(th - vp[3 * j + 2]);
           c += via_ow * e * e;
         }
@@ -1903,30 +2116,46 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
     }
   }
 
+  // ---- the line search
+
+  // the candidate's pose k, (xs + al dxs) with theta wrapped
+  __device__ __forceinline__ void cand_x(int k, T al, T x[NX]) const {
+    x[0] = xs[k * NX + 0] + al * dxs(k, 0);
+    x[1] = xs[k * NX + 1] + al * dxs(k, 1);
+    x[2] = wrap(xs[k * NX + 2] + al * dxs(k, 2));
+  }
+  __device__ __forceinline__ void cand_u(int k, T al, T u[NU]) const {
+    for (int i = 0; i < NU; ++i)
+      u[i] = k < 0 ? u_prev[i] : us[k * NU + i] + al * dus(k, i);
+  }
+  // the candidate's dt of stage k on the non-uniform grid
+  __device__ __forceinline__ T cand_dt(int k, T al) const {
+    if constexpr (NONU) return clip(this->dts[k] + al * dtaus(k), dt_lo, dt_hi);
+    return T(0);
+  }
+
   // the AL merit of the candidate (xs + al dxs [theta wrapped], us + al dus,
-  // clip(dt + al dtau)), one pass over the stages; on the non-uniform grid
+  // clip(dt + al dtau)): each lane sums its stages' terms, the team sums the
+  // lanes', and every lane adds the terminal terms; on the non-uniform grid
   // each stage's clip(dt_k + al ddt_k), its dt box and, for minimum time,
   // its cost dt_k, the slots predicted to the candidate's cumulative time
+  // (each lane sums the stages' dt from stage 0 in order)
   __device__ __forceinline__ T merit(T al) const {
     const T dtv = NONU ? T(0) : clip(dt + al * dtau, dt_lo, dt_hi);
-    T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = (QUAD || NONU) ? T(0) : T(N) * dtv;
-    T tc = T(0), dtp = T(0);  // the non-uniform grid: the time of x_{k+1}, dt_{k-1}
-    T xk[NX], uk[NU], up[NU];
-    auto cand_x = [&](int k, T x[NX]) {
-      x[0] = xs[k * NX + 0] + al * dxs(k, 0);
-      x[1] = xs[k * NX + 1] + al * dxs(k, 1);
-      x[2] = wrap(xs[k * NX + 2] + al * dxs(k, 2));
-    };
-    cand_x(0, xk);
-    for (int i = 0; i < NU; ++i) up[i] = u_prev[i];
-    for (int k = 0; k < N; ++k) {
-      T xk1[NX], c[NX];
-      cand_x(k + 1, xk1);
-      for (int i = 0; i < NU; ++i) uk[i] = us[k * NU + i] + al * dus(k, i);
-      T dk = dtv;
+    T eq_lin = T(0), eq_sq = T(0), ineq = T(0), cost = T(0);
+    T tc = T(0);
+    int tdone = 0;  // the non-uniform grid: tc sums the candidate's dt of stages < tdone
+    for (int k = lane; k < N; k += TEAM) {
+      T xk[NX], xk1[NX], uk[NU], up[NU], c[NX];
+      cand_x(k, al, xk);
+      cand_x(k + 1, al, xk1);
+      cand_u(k, al, uk);
+      cand_u(k - 1, al, up);
+      T dk = dtv, dtp = T(0);
       if constexpr (NONU) {
-        dk = clip(this->dts[k] + al * dtaus(k), dt_lo, dt_hi);
-        tc += dk;
+        dk = cand_dt(k, al);
+        if (k > 0) dtp = cand_dt(k - 1, al);
+        while (tdone <= k) tc += cand_dt(tdone++, al);
       }
       defect_value(xk, uk, xk1, dk, c);
       for (int i = 0; i < NX; ++i) {
@@ -1963,21 +2192,25 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
         if constexpr (!QUAD) cost += dk;
       }
       if constexpr (QUAD) cost += stage_cost(xk, uk, dk, k, dtp);
-      if constexpr (NONU) dtp = dk;
-      for (int i = 0; i < NX; ++i) xk[i] = xk1[i];
-      for (int i = 0; i < NU; ++i) up[i] = uk[i];
     }
-    // terminal equality (xk holds the candidate x_N)
-    const T gd[NX] = {xk[0] - xf[0], xk[1] - xf[1], wrap(xk[2] - xf[2])};
+    cost = team_sum(cost);
+    eq_lin = team_sum(eq_lin);
+    eq_sq = team_sum(eq_sq);
+    ineq = team_sum(ineq);
+    if constexpr (!QUAD && !NONU) cost += T(N) * dtv;
+    // terminal equality at the candidate x_N
+    T xN[NX];
+    cand_x(N, al, xN);
+    const T gd[NX] = {xN[0] - xf[0], xN[1] - xf[1], wrap(xN[2] - xf[2])};
     for (int i = 0; i < NX; ++i) {
       if (fixed[i]) {
         eq_lin += lt[i] * gd[i];
         eq_sq += gd[i] * gd[i];
       }
     }
-    cost += terminal_cost(xk, NONU ? dtp : dtv);
+    cost += terminal_cost(xN, NONU ? cand_dt(N - 1, al) : dtv);
     // the via attraction, from the candidate's own assignment (funcs.cost)
-    if constexpr (VIA) cost += via_sweep<true, true>(al);
+    if constexpr (VIA) cost += via_cost(al, true);
     // dt box (variable uniform dt only), and the terminal ball's row (a
     // disabled ball keeps the constant row g = -BIG, as the port's merit does)
     if (vdt && !NONU) {
@@ -1988,42 +2221,37 @@ struct Lane : NonuState<T, NONU>, CollocState<COLLOC> {
       }
     }
     T gp[NX];
-    const T ab = hinge(mball[0] + rho * (ball_on ? ball_g(xk, gp) : -T(BIG)));
+    const T ab = hinge(mball[0] + rho * (ball_on ? ball_g(xN, gp) : -T(BIG)));
     ineq += ab * ab - mball[0] * mball[0];
     return cost + eq_lin + T(0.5) * rho * eq_sq + ineq / (T(2) * rho);
   }
 };
 
 // The blocks per SM that ptxas budgets registers for (__launch_bounds__):
-// 16, 128 registers, for the float minimum-time launches of the car models
-// and the bicycle with one disc at the pose and static point and circle
-// slots (K2a and its models: as many as with the per-thread tapes, with no
-// spill); 12, 168 registers, for the other float ones (with the workspace
-// the quadratic form's and the unicycle's GEO_NONE spill at 128, and the
-// geometry's spill under ptxas' own choice, none at 168); double is left to
-// ptxas. One warp per SM runs at the batches of the fleet cycle, so the
-// count costs no occupancy there. The non-uniform grid's float launches
-// (the 3-column step, a 3x3 Quu) and those of the other collocation
-// families (Crank-Nicolson's second dyn and the fold, the shooting walk)
-// get 168.
-template <typename T, int MODEL, int OBJ, int GEO, bool NONU, int COLLOC>
+// as many as the teams' shared budget lets an SM hold (SMEM_SM, less the
+// 1 KB each block keeps), so that registers never hold the occupancy below
+// what shared memory allows: five blocks of two teams in float at the
+// default budget, two in double.
+template <typename T>
 struct MinBlocks {
-  static constexpr int value = sizeof(T) == 8 ? 1
-                               : (OBJ == OBJ_MIN_TIME && GEO == GEO_NONE && MODEL != UNICYCLE &&
-                                          !NONU && COLLOC == COLLOC_FD
-                                      ? 16
-                                      : 12);
+  static constexpr int value = SMEM_SM / (TEAMS * team_budget(sizeof(T)) + 1024) > 1
+                                   ? SMEM_SM / (TEAMS * team_budget(sizeof(T)) + 1024)
+                                   : 1;
 };
 
 template <typename T, int MODEL, int OBJ, int GEO, bool NONU, int COLLOC>
-__global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, COLLOC>::value))
-    k2a_kernel(const K2aArgs<T> a, const __grid_constant__ K2aParams prm) {
+__global__ void __launch_bounds__(BLOCK, MinBlocks<T>::value)
+    k2a_kernel(const K2aArgs<T> a, const __grid_constant__ K2aParams prm, const Layout lay) {
   constexpr bool QUAD = OBJ == OBJ_QUADRATIC;
   constexpr bool VIA = OBJ == OBJ_VIA;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
+  const int team = threadIdx.x / TEAM;
+  const int b = blockIdx.x * TEAMS + team;
+  if (b >= a.B) return;  // the whole team
   const int N = prm.N, M = prm.M;
   Lane<T, MODEL, OBJ, GEO, NONU, COLLOC> L;
+  L.lane = threadIdx.x % TEAM;
+  L.mask = TEAM == 32 ? 0xffffffffu : ((1u << TEAM) - 1u) << (threadIdx.x % 32 / TEAM * TEAM);
+  const int lane = L.lane;
   L.N = N;
   L.M = M;
   L.Mc = prm.Mc;
@@ -2082,18 +2310,15 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
   L.pvel = a.pvel + bb * prm.Mg * 2;
   L.pnv = a.pnv + bb * prm.Mg;
   L.pmask = a.pmask + bb * prm.Mg;
-  L.xs = a.xs + bb * (N + 1) * NX;
-  L.us = a.us + bb * N * NU;
-  L.ld = a.ld + bb * N * NX;
-  L.lt = a.lt + bb * NX;
-  L.mo = a.mo + bb * N * M;
-  L.mr = a.mr + bb * N * 4;
-  L.mb = a.mb + bb * N * 4;
-  L.md = a.md + bb * (NONU ? 2 * N : 2);
-  L.mball = a.mball + bb;
-  L.ws = a.ws + (bb / WARP) * workspace_per_lane(N, NONU) * WARP + bb % WARP;
+  if constexpr (VIA) {
+    L.mv = prm.mv;
+    L.via_ordered = prm.via_ordered != 0;
+    L.via_pw = T(prm.via_pw);
+    L.via_ow = T(prm.via_ow);
+    L.vp = a.vp + bb * prm.mv * 3;
+    L.vm = a.vmask + bb * prm.mv;
+  }
   if constexpr (NONU) {
-    L.dts = a.dt + bb * N;
     L.dt_ref = T(prm.dt_ref);
     L.dt_prox = T(prm.dt_prox);
   }
@@ -2104,41 +2329,69 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
     L.rk_a = prm.rk_a;
     L.rk_b = prm.rk_b;
   }
-  if constexpr (VIA) {
-    L.mv = prm.mv;
-    L.via_ordered = prm.via_ordered != 0;
-    L.via_pw = T(prm.via_pw);
-    L.via_ow = T(prm.via_ow);
-    L.vp = a.vp + bb * prm.mv * 3;
-    L.vm = a.vmask + bb * prm.mv;
+
+  // ---- the team's working state (Layout): the scratch and the vks in
+  // shared memory, each array in shared memory or, where it does not fit,
+  // in its output tensor or in the scenario's workspace
+  unsigned char* const tsm = k2a_smem + static_cast<size_t>(team) * lay.team_bytes;
+  L.vks = reinterpret_cast<int*>(tsm);
+  T* const sv = reinterpret_cast<T*>(tsm + VKS_BYTES);
+  T* const wsb = a.ws + bb * lay.ws;
+  const auto at = [&](int arr, T* out) -> T* {
+    return ((lay.shared >> arr) & 1) ? sv + lay.off[arr] : (out ? out : wsb + lay.off[arr]);
+  };
+  const size_t nx1 = static_cast<size_t>(N + 1) * NX, nu = static_cast<size_t>(N) * NU;
+  const size_t nmd = NONU ? 2 * N : 2;
+  L.sc = sv;
+  L.lt = sv + S_LT;
+  L.mball = sv + S_MBALL;
+  L.xs = at(A_XS, a.xs + bb * nx1);
+  L.us = at(A_US, a.us + bb * nu);
+  L.ld = at(A_LD, a.ld + bb * N * NX);
+  L.mo = at(A_MO, a.mo + bb * N * M);
+  L.mr = at(A_MR, a.mr + bb * N * 4);
+  L.mb = at(A_MB, a.mb + bb * N * 4);
+  L.md = at(A_MD, a.md + bb * nmd);
+  L.dxs_p = at(A_DXS, nullptr);
+  L.dus_p = at(A_DUS, nullptr);
+  L.chunk = at(A_CHUNK, nullptr);
+  L.tape = at(A_TAPE, nullptr);
+  L.bxs_p = at(A_BXS, nullptr);
+  L.bus_p = at(A_BUS, nullptr);
+  if constexpr (NONU) {
+    L.dts = at(A_DTS, a.dt + bb * N);
+    L.dtaus_p = at(A_DTAUS, nullptr);
+    L.bdts_p = at(A_BDTS, nullptr);
+    L.tv_p = at(A_TV, nullptr);
   }
 
-  // ---- state init: the inputs become the working state ---------------- //
-  for (int i = 0; i < (N + 1) * NX; ++i) L.xs[i] = a.xs_i[bb * (N + 1) * NX + i];
-  for (int i = 0; i < N * NU; ++i) L.us[i] = a.us_i[bb * N * NU + i];
-  for (int i = 0; i < N * NX; ++i) L.ld[i] = a.ld_i[bb * N * NX + i];
-  for (int i = 0; i < N * M; ++i) L.mo[i] = a.mo_i[bb * N * M + i];
-  for (int i = 0; i < N * 4; ++i) {
-    L.mr[i] = a.mr_i[bb * N * 4 + i];
-    L.mb[i] = a.mb_i[bb * N * 4 + i];
-  }
-  for (int i = 0; i < NX; ++i) L.lt[i] = a.lt_i[bb * NX + i];
+  // ---- state init: the inputs become the working state, copied by the
+  // team with neighbouring lanes on neighbouring values ------------------ //
+  const auto copy = [&](T* dst, const T* src, size_t n) {
+    for (size_t i = lane; i < n; i += TEAM) dst[i] = src[i];
+  };
+  copy(L.xs, a.xs_i + bb * nx1, nx1);
+  copy(L.us, a.us_i + bb * nu, nu);
+  copy(L.ld, a.ld_i + bb * N * NX, static_cast<size_t>(N) * NX);
+  copy(L.mo, a.mo_i + bb * N * M, static_cast<size_t>(N) * M);
+  copy(L.mr, a.mr_i + bb * N * 4, static_cast<size_t>(N) * 4);
+  copy(L.mb, a.mb_i + bb * N * 4, static_cast<size_t>(N) * 4);
+  copy(L.md, a.md_i + bb * nmd, nmd);  // on the non-uniform grid one pair per interval
+  copy(L.lt, a.lt_i + bb * NX, NX);
+  copy(L.mball, a.mball_i + bb, 1);
   if constexpr (NONU) {
-    for (int i = 0; i < 2 * N; ++i) L.md[i] = a.md_i[bb * 2 * N + i];  // one pair per interval
-  } else {
-    for (int i = 0; i < 2; ++i) L.md[i] = a.md_i[bb * 2 + i];
-  }
-  L.mball[0] = a.mball_i[bb];
-  if constexpr (NONU) {
-    // the per-stage dt; the derivatives predict dynamic slots at the
-    // initial dt's cumulative times
-    T t = T(0);
-    for (int k = 0; k < N; ++k) {
-      L.dts[k] = a.dt_i[bb * N + k];
-      L.tv(k) = t;
-      t += L.dts[k];
+    copy(L.dts, a.dt_i + bb * N, N);
+    L.sync();
+    // the derivatives predict dynamic slots at the initial dt's cumulative
+    // times
+    if (lane == 0) {
+      T t = T(0);
+      for (int k = 0; k < N; ++k) {
+        L.tv(k) = t;
+        t += L.dts[k];
+      }
+      L.tv(N) = t;
     }
-    L.tv(N) = t;
     L.dt = T(0);
     L.dt0 = T(0);
   } else {
@@ -2146,6 +2399,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
     L.dt0 = L.dt;  // the derivatives predict dynamic slots at the initial dt
   }
   L.rho = a.rho_i[b];
+  L.sync();
 
   const T inf = T(INFINITY);
   T viol_prev = inf, eq_last = inf, in_last = inf;
@@ -2158,7 +2412,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
     for (int it = 0; it < prm.n_sqp; ++it) {
       // the via points' stage assignment at the current states: stage data
       // of this iteration's derivatives (al_sqp._via_weights)
-      if constexpr (VIA) L.template via_sweep<false, false>(T(0));
+      if constexpr (VIA) L.via_assign();
       L.kkt_step(reg);
 
       // ---- line search: dt trust cap, candidates in order, alpha = 0 last
@@ -2166,7 +2420,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
       if constexpr (NONU) {
         // the least over the stages, each stage's dt floored at dt_ref
         cap = T(1);
-        for (int k = 0; k < N; ++k) {
+        for (int k = lane; k < N; k += TEAM) {
           const T adk = fabs(L.dtaus(k));
           const T ck = adk > T(0) ? vmin(T(prm.dt_trust_frac) * vmax(L.dts[k], L.dt_ref) /
                                              vmax(adk, T(1e-30)),
@@ -2174,6 +2428,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
                                   : T(1);
           cap = vmin(cap, ck);
         }
+        cap = L.team_vmin(cap);
       } else {
         const T adt = fabs(L.dtau);
         cap = adt > T(0) ? vmin(T(prm.dt_trust_frac) * L.dt / vmax(adt, T(1e-30)), T(1))
@@ -2197,36 +2452,38 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
         best_a = T(0);
         accepted = false;
       }
+      L.sync();  // every lane has read the states it applies the step to
 
       // ---- apply the winning candidate; reg shrinks or grows
-      for (int k = 0; k <= N; ++k) {
+      for (int k = lane; k <= N; k += TEAM) {
         L.xs[k * NX + 0] += best_a * L.dxs(k, 0);
         L.xs[k * NX + 1] += best_a * L.dxs(k, 1);
         L.xs[k * NX + 2] = wrap(L.xs[k * NX + 2] + best_a * L.dxs(k, 2));
       }
-      for (int k = 0; k < N; ++k)
+      for (int k = lane; k < N; k += TEAM) {
         for (int i = 0; i < NU; ++i) L.us[k * NU + i] += best_a * L.dus(k, i);
-      if constexpr (NONU) {
-        for (int k = 0; k < N; ++k)
-          L.dts[k] = clip(L.dts[k] + best_a * L.dtaus(k), L.dt_lo, L.dt_hi);
-      } else {
-        L.dt = clip(L.dt + best_a * L.dtau, L.dt_lo, L.dt_hi);
+        if constexpr (NONU) L.dts[k] = clip(L.dts[k] + best_a * L.dtaus(k), L.dt_lo, L.dt_hi);
       }
+      if constexpr (!NONU) L.dt = clip(L.dt + best_a * L.dtau, L.dt_lo, L.dt_hi);
       reg = accepted ? vmax(reg * T(prm.reg_shrink), T(prm.reg_min))
                      : vmin(vmax(reg, reg0) * T(prm.reg_grow), T(prm.reg_max));
+      L.sync();
     }
 
-    // ---- dual update with conditional rho growth ----------------------- //
+    // ---- dual update with conditional rho growth: each lane its stages,
+    // the violation maxima over the team ---------------------------------- //
     const T rho = L.rho;
     T eq_m = T(0), in_m = -inf;
     T tc = T(0);  // the non-uniform grid: the time of x_{k+1}
-    for (int k = 0; k < N; ++k) {
+    int tdone = 0;
+    for (int k = lane; k < N; k += TEAM) {
       T xk[NX], uk[NU], up[NU], xk1[NX], c[NX];
       L.x_at(k, xk);
       L.u_at(k, uk);
       L.uprev_at(k, up);
       L.x_at(k + 1, xk1);
-      if constexpr (NONU) tc += L.dts[k];
+      if constexpr (NONU)
+        while (tdone <= k) tc += L.dts[tdone++];
       L.defect_value(xk, uk, xk1, L.dt_at(k), c);
       for (int i = 0; i < NX; ++i) {
         L.ld[k * NX + i] += rho * c[i];
@@ -2261,14 +2518,18 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
         }
       }
     }
+    eq_m = L.team_vmax(eq_m);
+    in_m = L.team_vmax(in_m);
+    // the terminal rows, the same on every lane; lane 0 moves their
+    // multipliers
     T xN[NX];
     L.x_at(N, xN);
     const T gd[NX] = {xN[0] - L.xf[0], xN[1] - L.xf[1], wrap(xN[2] - L.xf[2])};
     for (int i = 0; i < NX; ++i) {
       if (L.fixed[i]) {
-        L.lt[i] += rho * gd[i];
+        if (lane == 0) L.lt[i] += rho * gd[i];
         eq_m = vmax(eq_m, T(fabs(gd[i])));
-      } else {
+      } else if (lane == 0) {
         L.lt[i] = T(0);
       }
     }
@@ -2277,12 +2538,12 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
     // fixed dt's rows are the constant -BIG)
     T gp[NX];
     const T gball = L.ball_on ? L.ball_g(xN, gp) : T(-BIG);
-    L.mball[0] = hinge(L.mball[0] + rho * gball);
+    if (lane == 0) L.mball[0] = hinge(L.mball[0] + rho * gball);
     in_m = vmax(in_m, gball);
     if (L.vdt && !NONU) {
       const T gdt[2] = {L.dt - L.dt_max, L.dt_min - L.dt};
       for (int i = 0; i < 2; ++i) {
-        L.md[i] = hinge(L.md[i] + rho * gdt[i]);
+        if (lane == 0) L.md[i] = hinge(L.md[i] + rho * gdt[i]);
         in_m = vmax(in_m, gdt[i]);
       }
     } else {
@@ -2298,82 +2559,110 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<T, MODEL, OBJ, GEO, NONU, 
 
     // ---- best-feasible snapshot ---------------------------------------- //
     if (eq_m < tol_eq && in_m < tol_ineq) {
-      for (int k = 0; k <= N; ++k)
+      for (int k = lane; k <= N; k += TEAM)
         for (int i = 0; i < NX; ++i) L.bxs(k, i) = L.xs[k * NX + i];
-      for (int k = 0; k < N; ++k)
+      for (int k = lane; k < N; k += TEAM) {
         for (int i = 0; i < NU; ++i) L.bus(k, i) = L.us[k * NU + i];
-      if constexpr (NONU)
-        for (int k = 0; k < N; ++k) L.bdts(k) = L.dts[k];
+        if constexpr (NONU) L.bdts(k) = L.dts[k];
+      }
       best_dt = L.dt;
       best_eq = eq_m;
       best_in = in_m;
       found = true;
     }
+    L.sync();
   }
 
   // ---- final selection (select, not blend) and outputs ------------------ //
   const bool final_ok = eq_last < tol_eq && in_last < tol_ineq;
   const bool use_best = found && !final_ok;
   if (use_best) {
-    for (int k = 0; k <= N; ++k)
+    for (int k = lane; k <= N; k += TEAM)
       for (int i = 0; i < NX; ++i) L.xs[k * NX + i] = L.bxs(k, i);
-    for (int k = 0; k < N; ++k)
+    for (int k = lane; k < N; k += TEAM) {
       for (int i = 0; i < NU; ++i) L.us[k * NU + i] = L.bus(k, i);
-    if constexpr (NONU)
-      for (int k = 0; k < N; ++k) L.dts[k] = L.bdts(k);
+      if constexpr (NONU) L.dts[k] = L.bdts(k);
+    }
   }
+  L.sync();
   const T dt_fin = use_best ? best_dt : L.dt;
   T cost = T(0);
   if constexpr (QUAD) {
-    T dtp = T(0);
-    for (int k = 0; k < N; ++k) {
+    for (int k = lane; k < N; k += TEAM) {
       T xk[NX], uk[NU];
       L.x_at(k, xk);
       L.u_at(k, uk);
       const T dk = NONU ? L.dt_at(k) : dt_fin;
+      const T dtp = NONU && k > 0 ? L.dt_at(k - 1) : T(0);
       cost += L.stage_cost(xk, uk, dk, k, dtp);
-      dtp = dk;
     }
+    cost = L.team_sum(cost);
   } else {
     if constexpr (NONU) {
-      for (int k = 0; k < N; ++k) cost += L.dts[k];  // sum_k dt_k
+      for (int k = lane; k < N; k += TEAM) cost += L.dts[k];  // sum_k dt_k
+      cost = L.team_sum(cost);
     } else {
       cost = T(N) * dt_fin;
     }
-    if constexpr (VIA) cost += L.template via_sweep<true, false>(T(0));  // the selected states
+    if constexpr (VIA) cost += L.via_cost(T(0), false);  // the selected states
   }
   T xN_fin[NX];
   L.x_at(N, xN_fin);
-  if constexpr (!NONU) a.dt[b] = dt_fin;
-  a.rho[b] = L.rho;
-  a.cost[b] = cost + L.terminal_cost(xN_fin, NONU ? L.dt_at(N - 1) : dt_fin);
-  a.eq[b] = use_best ? best_eq : eq_last;
-  a.ineq[b] = use_best ? best_in : in_last;
-  a.conv[b] = (final_ok || found) ? 1 : 0;
+  cost += L.terminal_cost(xN_fin, NONU ? L.dt_at(N - 1) : dt_fin);
+
+  // ---- the working state out: each array that lived in shared memory into
+  // its output, the team's lanes on neighbouring values
+  const auto out = [&](int arr, T* dst, const T* src, size_t n) {
+    if ((lay.shared >> arr) & 1) copy(dst, src, n);
+  };
+  out(A_XS, a.xs + bb * nx1, L.xs, nx1);
+  out(A_US, a.us + bb * nu, L.us, nu);
+  out(A_LD, a.ld + bb * N * NX, L.ld, static_cast<size_t>(N) * NX);
+  out(A_MO, a.mo + bb * N * M, L.mo, static_cast<size_t>(N) * M);
+  out(A_MR, a.mr + bb * N * 4, L.mr, static_cast<size_t>(N) * 4);
+  out(A_MB, a.mb + bb * N * 4, L.mb, static_cast<size_t>(N) * 4);
+  out(A_MD, a.md + bb * nmd, L.md, nmd);
+  if constexpr (NONU) out(A_DTS, a.dt + bb * N, L.dts, N);
+  copy(a.lt + bb * NX, L.lt, NX);
+  if (lane == 0) {
+    a.mball[b] = L.mball[0];
+    if constexpr (!NONU) a.dt[b] = dt_fin;
+    a.rho[b] = L.rho;
+    a.cost[b] = cost;
+    a.eq[b] = use_best ? best_eq : eq_last;
+    a.ineq[b] = use_best ? best_in : in_last;
+    a.conv[b] = (final_ok || found) ? 1 : 0;
+  }
 }
 
 template <typename T, int MODEL, int OBJ, bool NONU, int COLLOC>
-void launch_as(const K2aArgs<T>& a, const K2aParams& prm, cudaStream_t stream) {
-  const int blocks = (a.B + THREADS - 1) / THREADS;
+int launch_as(const K2aArgs<T>& a, const K2aParams& prm, const Layout& lay, cudaStream_t stream,
+              int* occupancy) {
+  const int blocks = (a.B + TEAMS - 1) / TEAMS;
+  const int smem = TEAMS * lay.team_bytes;
+  const auto go = [&](auto kernel) -> int {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (occupancy)
+      return static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, BLOCK, smem));
+    kernel<<<blocks, BLOCK, smem, stream>>>(a, prm, lay);
+    return static_cast<int>(cudaGetLastError());
+  };
   const bool plain_slots = prm.Ml == 0 && prm.Mg == 0 && prm.dynamic == 0;
   if (prm.fp_kind == FP_LINE)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(
-        a, prm);
-  else if (prm.fp_kind == FP_POLYGON && plain_slots)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
-  else if (prm.fp_kind == FP_POLYGON)
-    k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(
-        a, prm);
-  else if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
-    k2a_kernel<T, MODEL, OBJ, GEO_NONE, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
-  else
-    k2a_kernel<T, MODEL, OBJ, GEO_ALL, NONU, COLLOC><<<blocks, THREADS, 0, stream>>>(a, prm);
+    return go(k2a_kernel<T, MODEL, OBJ, GEO_FP_LINE | GEO_SLOTS, NONU, COLLOC>);
+  if (prm.fp_kind == FP_POLYGON && plain_slots)
+    return go(k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON, NONU, COLLOC>);
+  if (prm.fp_kind == FP_POLYGON)
+    return go(k2a_kernel<T, MODEL, OBJ, GEO_FP_POLYGON | GEO_SLOTS, NONU, COLLOC>);
+  if (plain_slots && prm.n_disc == 1 && prm.disc_off[0] == 0.0)
+    return go(k2a_kernel<T, MODEL, OBJ, GEO_NONE, NONU, COLLOC>);
+  return go(k2a_kernel<T, MODEL, OBJ, GEO_ALL, NONU, COLLOC>);
 }
 
-template <typename T>
-int launch(const K2aParams* prm, const void* const* in, void* const* out, void* ws, int B,
-           void* stream) {
-  if (B <= 0 || prm->N <= 0 || prm->M < 0 || prm->n_alpha <= 0 || prm->n_al <= 0 ||
+bool params_ok(const K2aParams* prm) {
+  return !(prm->N <= 0 || prm->M < 0 || prm->n_alpha <= 0 || prm->n_al <= 0 ||
       prm->n_sqp <= 0 || prm->mv < 0 || prm->mv > MAX_VIA || (prm->quadratic && prm->mv > 0) ||
       prm->model < UNICYCLE || prm->model > BICYCLE || prm->Mc < 0 || prm->Ml < 0 ||
       prm->Mg < 0 || prm->Mc + prm->Ml + prm->Mg != prm->M || prm->V > MAX_V ||
@@ -2387,8 +2676,15 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
       (prm->colloc == RULE_FORWARD ? COLLOC_FD : COLLOC_OTHER) != K2A_COLLOC ||
       (prm->colloc == RULE_SHOOTING &&
        (prm->rk_stages < 1 || prm->rk_stages > MAX_RK || prm->rk_substeps < 1 ||
-        prm->rk_substeps > MAX_SUBSTEPS || prm->rk_stages * prm->rk_substeps > MAX_RK_EVALS)))
-    return static_cast<int>(cudaErrorInvalidValue);
+        prm->rk_substeps > MAX_SUBSTEPS || prm->rk_stages * prm->rk_substeps > MAX_RK_EVALS)));
+}
+
+using Working = std::conditional_t<K2A_DOUBLE != 0, double, float>;
+
+template <typename T>
+int launch(const K2aParams* prm, const void* const* in, void* const* out, void* ws, int B,
+           void* stream, int* occupancy) {
+  if (B <= 0 || !params_ok(prm)) return static_cast<int>(cudaErrorInvalidValue);
   K2aArgs<T> a;
   a.xs_i = static_cast<const T*>(in[0]);
   a.us_i = static_cast<const T*>(in[1]);
@@ -2434,9 +2730,9 @@ int launch(const K2aParams* prm, const void* const* in, void* const* out, void* 
   a.ineq = static_cast<T*>(out[13]);
   a.conv = static_cast<unsigned char*>(out[14]);
   a.B = B;
+  const Layout lay = make_layout(prm->N, prm->M, K2A_NONU != 0, sizeof(T));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_as<T, K2A_MODEL, K2A_OBJ, K2A_NONU != 0, K2A_COLLOC>(a, *prm, s);
-  return static_cast<int>(cudaGetLastError());
+  return launch_as<T, K2A_MODEL, K2A_OBJ, K2A_NONU != 0, K2A_COLLOC>(a, *prm, lay, s, occupancy);
 }
 
 }  // namespace
@@ -2451,8 +2747,17 @@ int k2a_max_via() { return MAX_VIA; }
 int k2a_group() {
   return (((K2A_DOUBLE * 10 + K2A_MODEL) * 10 + K2A_OBJ) * 10 + K2A_NONU) * 10 + K2A_COLLOC;
 }
-int k2a_workspace_per_lane(int N) { return workspace_per_lane(N, K2A_NONU != 0); }
 int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
+// the launch geometry at N stages and M obstacle slots (Layout): out[0] the
+// team's lanes, out[1] the teams per block, out[2] the block's shared bytes,
+// out[3] the workspace values per scenario
+void k2a_launch_geometry(int N, int M, int* out) {
+  const Layout lay = make_layout(N, M, K2A_NONU != 0, sizeof(Working));
+  out[0] = TEAM;
+  out[1] = TEAMS;
+  out[2] = TEAMS * lay.team_bytes;
+  out[3] = lay.ws;
+}
 
 // in: xs, us, dt, xf, u_prev, point and circle centers, radii, mask,
 //     velocities, line endpoints, velocities, mask, polygon vertices, vertex
@@ -2463,14 +2768,21 @@ int k2a_params_size() { return static_cast<int>(sizeof(K2aParams)); }
 //      mu_ball, rho, cost, eq_norm, ineq_viol, converged (15 pointers)
 // On the non-uniform grid (a K2A_NONU build, prm->nonu) dt is (B, N) and
 // mu_dt (B, N, 2) in and out.
-// ws: the workspace, ceil(B / 32) * workspace_per_lane(N) * 32 values of the
-//     working type
+// ws: the workspace, B times k2a_launch_geometry's out[3] values of the
+//     working type, scenario-major
 // Launches this build's group (K2A_DOUBLE is the working type of every
 // pointer); a launch of another model or objective family is refused.
 int k2a_fused_solve(const K2aParams* prm, const void* const* in, void* const* out, void* ws,
                     int B, void* stream) {
-  return launch<std::conditional_t<K2A_DOUBLE != 0, double, float>>(prm, in, out, ws, B,
-                                                                      stream);
+  return launch<Working>(prm, in, out, ws, B, stream, nullptr);
+}
+
+// the blocks per SM of the instantiation a launch of prm would run, at its
+// shared bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks
+int k2a_occupancy(const K2aParams* prm, int* blocks) {
+  const void* none[27] = {};
+  void* outs[15] = {};
+  return launch<Working>(prm, none, outs, nullptr, 1, nullptr, blocks);
 }
 
 const char* k2a_error_string(int code) {

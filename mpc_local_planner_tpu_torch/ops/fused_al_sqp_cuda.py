@@ -25,14 +25,21 @@ the step, the interval's dt box a stage row; the template parameter NONU),
 any number of obstacle slots and of
 line-search candidates. K2a, the first specialization ported (simple car,
 minimum time, variable dt), is one instantiation. The
-source is ``csrc/fused_al_sqp.cu``: one thread per scenario runs the
-n_al × n_sqp schedule to its end — closed-form derivatives streamed into
-the Riccati sweep, the rollout, the NaN quarantine, the candidate line
-search, the dual updates, the best-feasible snapshot and the final
-selection — for float and double, in the port's (B, N, ...) layout. The
-step, the gain tape and the snapshot live in a workspace the wrapper
-allocates, tiled by warp with the lane index fastest; the candidates are a
-device input. Each (working type, model, objective family, grid,
+source is ``csrc/fused_al_sqp.cu``: a team of ``TEAM`` lanes of one warp
+runs one scenario's n_al × n_sqp schedule to its end — closed-form
+derivatives streamed into the Riccati sweep, the rollout, the NaN
+quarantine, the candidate line search, the dual updates, the best-feasible
+snapshot and the final selection — for float and double, in the port's
+(B, N, ...) layout. The lanes take the stages in turn wherever the stages
+are independent (the stage terms of the sweep, each candidate's merit, the
+step's application, the dual update, the snapshot and the selection); the
+Riccati recursion and the rollout stay serial over the stages, each stage's
+6×6 products spread over the lanes. A team's working state (the primal,
+the step, a chunk of stage terms, the gain tape, the duals and the
+snapshot) lives in its slice of the block's shared memory as far as its
+budget holds it, the rest in the output tensors or in a workspace the
+wrapper allocates, scenario-major (``launch_geometry``); the candidates are
+a device input. Each (working type, model, objective family, grid,
 collocation family) is a group of five instantiations built into a library
 of its own (``Group``),
 when a launch first needs it or all at once beforehand (``build``).
@@ -40,11 +47,11 @@ when a launch first needs it or all at once beforehand (``build``).
 What bounds it on an H100 is arithmetic: the flagship solve needs about
 0.79 MFLOP per scenario at the warm 3×4 budget (``k2a_flops``, the Riccati
 step on its structure) against 6 KB of input and output, so at B = 4096
-about 48 µs at the float32 peak against 7 µs for the bytes. One thread per scenario is the
-simplest design that is right; it runs the step as dense 6×6 products (1.7
-times the operations over the whole solve), and with one warp per block and
-per SM nothing hides the latency of each thread's dependent chain, so it
-runs far from that bound.
+about 48 µs at the float32 peak against 7 µs for the bytes. The kernel runs
+the step as dense 6×6 products (1.7 times the operations over the whole
+solve); a team per scenario puts several warps on every SM at the fleet
+cycle's batches and cuts each scenario's dependent chain to the serial
+recursion's.
 
 ``fused_solve_plain`` is the kernel's math in batched PyTorch: its
 closed-form stage and terminal derivatives (``fused_kkt_system``) drive the
@@ -122,7 +129,13 @@ MAX_V, MAX_FP_V, MAX_VIA = 16, 8, 8
 # most MAX_RK stages, at most MAX_SUBSTEPS substeps and MAX_RK_EVALS
 # dynamics evaluations per stage of the grid
 MAX_RK, MAX_SUBSTEPS, MAX_RK_EVALS = 11, 4, 28
-WARP = 32  # the workspace's tile (csrc/fused_al_sqp.cu)
+# the launch (csrc/fused_al_sqp.cu): a team of TEAM lanes solves one
+# scenario, BLOCK threads a block; a team's shared budget (SMEM_TEAM_F32
+# bytes in float, twice that in double, at most a block's SMEM_BLOCK over
+# its teams) holds its 32 bytes of via stage indices, SCRATCH values of the
+# Riccati step's blocks and then each array of ``_arrays`` that fits
+TEAM, BLOCK = 32, 64
+SMEM_BLOCK, SMEM_TEAM_F32, VKS_BYTES, SCRATCH = 232448, 18944, 32, 192
 
 _libs = {}  # the loaded library of each ``Group``
 
@@ -1156,6 +1169,26 @@ def _params(spec, settings, obstacles) -> _Params:
     )
 
 
+# the GEO instantiations a launch runs (csrc/fused_al_sqp.cu GeoParts,
+# launch_as)
+GEO_NONE, GEO_SLOTS, GEO_ALL, GEO_FP_LINE, GEO_FP_POLYGON = 0, 14, 15, 16, 32
+
+
+def launched_geo(params: _Params) -> int:
+    """The ``GEO`` instantiation the kernel launches for ``params``: a segment
+    footprint with every slot family, a polygon footprint with static point
+    and circle slots or with every family, one disc at the pose with static
+    point and circle slots, or the disc geometry read at run time."""
+    plain = params.Ml == 0 and params.Mg == 0 and params.dynamic == 0
+    if params.fp_kind == 1:
+        return GEO_FP_LINE | GEO_SLOTS
+    if params.fp_kind == 2:
+        return GEO_FP_POLYGON if plain else GEO_FP_POLYGON | GEO_SLOTS
+    if plain and params.n_disc == 1 and params.disc_off[0] == 0.0:
+        return GEO_NONE
+    return GEO_ALL
+
+
 class Group(NamedTuple):
     """The template arguments one library of the kernel holds (its five
     ``GEO`` instantiations): the working type, the model (``MODEL_IDS``),
@@ -1184,6 +1217,52 @@ OBJ_IDS = {"minimum_time": 0, "quadratic_form": 1, "minimum_time_via_points": 2}
 GROUPS = tuple(Group(d, m, o, n, c) for c in sorted(set(COLLOC_FAMILY.values()))
                for n in (False, True) for d in (False, True)
                for m in sorted(set(MODEL_IDS.values())) for o in sorted(OBJ_IDS.values()))
+
+
+# a team's working state in the kernel's order (csrc/fused_al_sqp.cu Arr):
+# each array's values at (N, M), on the non-uniform grid, for a team of
+# ``team`` lanes, and whether it has an output tensor to live in where it
+# does not fit in shared memory (else it goes to the workspace)
+def _arrays(N, M, nonu, team):
+    nv = 3 if nonu else 2
+    d = N if nonu else 0
+    slot = (2 * 36 + 2 * 6 + 2 * 6 * nv + nv * nv + nv) | 1  # a chunk slot: Fz .. hu
+    return (
+        ((N + 1) * 3, True), (N * 2, True), (d, True),               # xs, us, dts
+        (team * slot, False), (N * (nv * 6 + nv), False),            # chunk, gain tape
+        ((N + 1) * 3, False), (N * 2, False), (d, False),            # the step
+        (N * 3, True), (N * 4, True), (N * 4, True),                 # lam_def, mu_rate, mu_box
+        (2 * N if nonu else 2, True), (N * M, True),                 # mu_dt, mu_obs
+        ((N + 1) * 3, False), (N * 2, False), (d, False),            # the snapshot
+        (N + 1 if nonu else 0, False),                               # prediction times
+    )
+
+
+class LaunchGeometry(NamedTuple):
+    """A launch's shape: the lanes of a team, the teams of a block, the
+    block's dynamic shared bytes and the workspace's values per scenario."""
+
+    team: int
+    teams_per_block: int
+    shared_bytes: int
+    workspace: int
+
+
+def launch_geometry(g: Group, N: int, M: int, team: int = TEAM) -> LaunchGeometry:
+    """The kernel's launch shape for group ``g`` at N stages and M slots
+    (``k2a_launch_geometry`` of its library, computed here without it): the
+    arrays claim the team's shared budget in order, and an array that does
+    not fit lives in its output tensor or in the workspace."""
+    tsize = 8 if g.double else 4
+    teams = BLOCK // team
+    budget = min(SMEM_TEAM_F32 * tsize // 4, SMEM_BLOCK // teams)
+    used, ws = SCRATCH, 0
+    for n, has_output in _arrays(N, M, g.nonu, team):
+        if VKS_BYTES + (used + n) * tsize <= budget:
+            used += n
+        elif not has_output:
+            ws += n
+    return LaunchGeometry(team, teams, teams * ((VKS_BYTES + used * tsize + 15) // 16 * 16), ws)
 
 
 def group(spec, dtype) -> Group:
@@ -1227,14 +1306,35 @@ def bind(path, g: Group):
     for name in names:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    lib.k2a_workspace_per_lane.argtypes = [ctypes.c_int]
-    lib.k2a_workspace_per_lane.restype = ctypes.c_int
+    lib.k2a_launch_geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.k2a_launch_geometry.restype = None
+    lib.k2a_occupancy.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(ctypes.c_int)]
+    lib.k2a_occupancy.restype = ctypes.c_int
     lib.k2a_error_string.argtypes = [ctypes.c_int]
     lib.k2a_error_string.restype = ctypes.c_char_p
     limits = tuple(getattr(lib, name)() for name in names)
     if limits != (MAX_V, MAX_FP_V, MAX_VIA, ctypes.sizeof(_Params), g.code()):
         raise RuntimeError(f"fused-kernel library {path} does not match its wrapper: {limits}")
+    lib.k2a_team = library_geometry(lib, 1, 0).team
     return lib
+
+
+def library_geometry(lib, N: int, M: int) -> LaunchGeometry:
+    """``k2a_launch_geometry`` of a bound library at N stages and M slots."""
+    out = (ctypes.c_int * 4)()
+    lib.k2a_launch_geometry(N, M, out)
+    return LaunchGeometry(*out)
+
+
+def occupancy(lib, spec, settings, obstacles) -> int:
+    """The blocks per SM of the instantiation a launch of ``spec`` on
+    ``obstacles`` runs, at its shared bytes (the CUDA occupancy
+    calculator)."""
+    blocks = ctypes.c_int()
+    rc = lib.k2a_occupancy(ctypes.byref(_params(spec, settings, obstacles)), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"fused kernel occupancy failed: {lib.k2a_error_string(rc).decode()}")
+    return blocks.value
 
 
 def _load(g: Group):
@@ -1309,16 +1409,16 @@ def kernel_io(spec, scenario, init: Primal, duals: DualState):
 def launch(lib, spec, settings, ins, outs, stream, obstacles) -> None:
     """Run the kernel on ``ins`` into ``outs`` on ``stream``, with the
     line-search candidates as a device input in the working type and a
-    fresh workspace for the step, the gain tape and the best-feasible
-    snapshot (``k2a_workspace_per_lane(N)`` values per lane of the group
-    ``lib`` holds, tiled by warp with the lane index fastest); raises on a
-    refused launch."""
+    fresh workspace for what of each team's working state does not fit in
+    its shared memory (``launch_geometry``: values per scenario,
+    scenario-major, for the team size of ``lib``); raises on a refused
+    launch."""
     params = _params(spec, settings, obstacles)
     xs = ins[0]
     B = xs.shape[0]
     alphas = const(tuple(float(a) for a in settings.alphas), xs)  # cached on the device
-    ws = torch.empty((-(-B // WARP), lib.k2a_workspace_per_lane(spec.N), WARP), dtype=xs.dtype,
-                     device=xs.device)
+    geo = launch_geometry(group(spec, xs.dtype), spec.N, spec.obstacle_cap, lib.k2a_team)
+    ws = torch.empty((B, max(geo.workspace, 1)), dtype=xs.dtype, device=xs.device)
     in_ptrs = (ctypes.c_void_p * (len(ins) + 1))(*(a.data_ptr() for a in ins + (alphas,)))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(a.data_ptr() for a in outs))
     rc = lib.k2a_fused_solve(ctypes.byref(params), in_ptrs, out_ptrs, ws.data_ptr(), B, stream)

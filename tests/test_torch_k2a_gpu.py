@@ -18,7 +18,11 @@ other collocation rules (K2b: the flagship with Crank–Nicolson and with
 midpoint differences, config #2 with Crank–Nicolson, midpoint on the
 non-uniform grid; K2e: the flagship on the shooting_rk4 and shooting_rk7_2
 grids, shooting_rk2_heun under all four slot families moving with two
-discs).
+discs); and the edges of the kernel's team layout (a team of lanes per
+scenario): N at the edges of a chunk of stages and of the team, batches of
+1, 3 and 301 lanes, no slots, 30 slots with 17 candidates, a lane with a
+NaN state, via points with exactly tied distances and with a NaN stage,
+and the launch geometry against each library's own.
 
 The kernel has no CPU or interpret mode, so these tests skip without a CUDA
 card.
@@ -205,8 +209,9 @@ def _ensemble(spec, batch, gen, dtype, dev, slots):
 
 
 def _warm_state(dev, dtype, settings, batch=300, spec=None, seed=1, cycles=0, slots=None):
-    """300 lanes (not a multiple of the 32-thread block: the ragged last
-    block is exercised) in the state of the fleet cycle's next warm solve:
+    """``batch`` lanes (300 by default; ``EDGES`` adds batches that leave the
+    last block of two teams partly empty) in the state of the fleet cycle's
+    next warm solve:
     a cold solve (the plain version at the cold preset) and ``cycles``
     fleet cycles with the plain warm solve, then converged lanes advanced
     one stage, the primal resampled and the duals shifted. ``slots``: as
@@ -493,3 +498,110 @@ def test_torch_crank_nicolson_warm_solve_launches_the_kernel_and_never_k1():
     al_sqp.make_solver(spec, dataclasses.replace(st, fused="off"), dev)(scen, init, duals)
     assert k2a.fused_solve_cuda.launches == before + 1
     assert riccati_cuda.lqr_solve_cuda.launches == k1 + st.n_al * st.n_sqp
+
+
+# the team layout's edges: N at the edges of a chunk of stages and of the
+# team (32 lanes: N + 1 items, the terminal one of them), batches that
+# leave the last team or the last block (two teams) partly empty, no slots,
+# 30 slots with 17 candidates: (spec, ensemble as ``_ensemble`` takes it,
+# settings, batch)
+EDGES = {
+    **{f"N{n}": (lambda n=n: (config3_carlike_min_time(N=n, obstacle_cap=8), None, WARM, 300))
+       for n in (31, 32, 33, 65)},
+    **{f"B{b}": (lambda b=b: (config3_carlike_min_time(N=30, obstacle_cap=8), None, WARM, b))
+       for b in (1, 3, 301)},
+    "M0": lambda: (config3_carlike_min_time(N=30, obstacle_cap=0), None, WARM, 300),
+    "30-slots-17-candidates": lambda: (dataclasses.replace(
+        family_spec("canonical_carlike"), obstacle_cap=30), "8_obstacles", RESCUE17, 300),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_torch_fused_kernel_matches_plain_at_the_team_layouts_edges(case, dtype):
+    """The kernel against its plain version where the team layout has its
+    edges; a batch of 1 or 3 lanes is held to the rule on every lane with
+    no floor of converged lanes."""
+    spec, slots, settings, batch = EDGES[case]()
+    args = _warm_state(_card(), dtype, settings, batch=batch, spec=spec, slots=slots)
+    floor = 0.25 if batch >= 300 else 0.0
+    (_check_f64 if dtype == torch.float64 else _check_f32)(*args, floor=floor)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_torch_fused_kernel_quarantines_a_lane_with_a_nan_state(dtype):
+    """A NaN state makes every step of its lane non-finite: the team's vote
+    zeroes the whole step each iteration, so the lane's controls never move,
+    as in the plain version, and every other lane solves as it does without
+    that lane."""
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(dev, dtype, WARM, batch=64)
+    bad = 5
+    xs = init.xs.clone()
+    xs[bad, 7, 0] = float("nan")
+    init_nan = dataclasses.replace(init, xs=xs)
+    out = k2a.fused_solve_cuda(spec, st, scen, init_nan, duals)
+    clean = k2a.fused_solve_cuda(spec, st, scen, init, duals)
+    plain = k2a.fused_solve_plain(spec, st, scen, init_nan, duals)
+    torch.cuda.synchronize()
+    assert torch.equal(out.primal.us[bad], init.us[bad])
+    assert torch.equal(plain.primal.us[bad], init.us[bad])
+    assert not bool(out.converged[bad]) and not bool(plain.converged[bad])
+    torch.testing.assert_close(out.primal.xs[bad], plain.primal.xs[bad], equal_nan=True)
+    torch.testing.assert_close(out.primal.dt[bad], plain.primal.dt[bad])
+    keep = torch.arange(64, device=dev) != bad
+    for a, b in ((out.primal.xs, clean.primal.xs), (out.primal.us, clean.primal.us),
+                 (out.primal.dt, clean.primal.dt), (out.duals.lam_def, clean.duals.lam_def),
+                 (out.duals.mu_obs, clean.duals.mu_obs), (out.duals.rho, clean.duals.rho),
+                 (out.cost, clean.cost), (out.converged, clean.converged)):
+        assert torch.equal(a[keep], b[keep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_torch_fused_kernel_matches_plain_on_via_ties_and_a_nan_stage(dtype):
+    """The team's argmin over stages (path D's family): a via point at a
+    position two stages share (an exact tie, which the first stage wins),
+    held to the rule; and a NaN stage, which wins the assignment of every
+    via point (a NaN is the least), the lane then quarantined as in the
+    plain version."""
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(dev, dtype, WARM, batch=64,
+                                              spec=family_spec("via_points"), slots="via_points")
+    xs = init.xs.clone()
+    xs[:, 10, :2] = xs[:, 9, :2]
+    vp = scen.via_points.clone()
+    vp[:, 0, :2] = xs[:, 9, :2]
+    tied, scen_t = dataclasses.replace(init, xs=xs), dataclasses.replace(scen, via_points=vp)
+    (_check_f64 if dtype == torch.float64 else _check_f32)(spec, st, scen_t, tied, duals,
+                                                           floor=0.0)
+    xs_nan = init.xs.clone()
+    xs_nan[:32, 12, 0] = float("nan")
+    init_nan = dataclasses.replace(init, xs=xs_nan)
+    out = k2a.fused_solve_cuda(spec, st, scen, init_nan, duals)
+    plain = k2a.fused_solve_plain(spec, st, scen, init_nan, duals)
+    torch.cuda.synchronize()
+    assert torch.equal(out.primal.us[:32], init.us[:32])
+    assert torch.equal(out.converged[:32], plain.converged[:32])
+    torch.testing.assert_close(out.primal.xs[:32], plain.primal.xs[:32], equal_nan=True)
+    torch.testing.assert_close(out.cost[:32], plain.cost[:32], equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_torch_fused_launch_geometry_matches_the_library():
+    """``launch_geometry`` (tests/test_torch_fused_launch.py pins it on the
+    CPU) against each library's own ``k2a_launch_geometry``, for the groups
+    of the main paths in float and double."""
+    _card()
+    specs = (config3_carlike_min_time(N=30, obstacle_cap=8), FAMILY["config2"](),
+             family_spec("nonuniform"), family_spec("via_points"),
+             COLLOC["crank-nicolson-flagship"]()[0])
+    groups = sorted({k2a.group(s, d) for s in specs for d in (torch.float32, torch.float64)})
+    for g in groups:
+        lib = k2a._load(g)
+        for N in (1, 8, 30, 32, 33, 80, 200):
+            for M in (0, 8, 30):
+                geo = k2a.library_geometry(lib, N, M)
+                assert geo == k2a.launch_geometry(g, N, M, lib.k2a_team), (g, N, M)
