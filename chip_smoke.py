@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernel  — K1 against its plain PyTorch version on the Riccati inputs of
                one real flagship SQP iteration (B=4096 and 1024, N=30, and
                B=4096 at N=96, past the cap K1 once had), in float64 and
-               float32; kernel, plain and bound times
+               float32; kernel, plain and bound times (the kernel timed
+               around the wrapper's call and on the device alone, behind a
+               busy-wait), its launch geometry held to the library's and
+               its blocks per SM
   4. main    — the flagship warm fleet cycle on the un-fused path
                (fused="off"), as bench.py::main drives it: config3 (N=30, 8
                circle slots), 4096 lanes, cold 16×15 solve, 2 settle + 8
@@ -308,6 +311,39 @@ def _cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def _device_ms(fn, reps=20, rounds=5):
+    """The device time of one call of ``fn``, the host's share hidden: each
+    round queues ``reps`` calls behind a busy-wait kernel on the stream and
+    times them between CUDA events recorded after the wait, so that the
+    device runs them back to back; the median of ``rounds`` rounds. The wait
+    is lengthened until it outlasts the queueing (``fused_probe.py`` has the
+    same function, for trees without this one)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles, per = 2_000_000, []
+    while len(per) < rounds:
+        gate = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        gate.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not gate.query()  # still waiting when the last call was queued
+        torch.cuda.synchronize()
+        if hidden:
+            per.append(start.elapsed_time(end) / reps)
+        elif cycles > 2_000_000_000:
+            _fail("the host did not queue the timed calls within the wait")
+        else:
+            cycles *= 4
+    return statistics.median(per)
+
+
 def _max_rel_err(a, b):
     """max |a − b| over the step, relative to the step's largest entry."""
     import torch
@@ -355,10 +391,19 @@ def kernel_phase(spec, warm, device, batches=(BATCH, RESCUE_SLOTS), tag="K1"):
         row["bytes"] = nbytes
         row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         row["ms"] = _cuda_ms(lambda: riccati_cuda.lqr_solve_cuda(*args32, **kw), 25)
+        row["device_ms"] = _device_ms(lambda: riccati_cuda.lqr_solve_cuda(*args32, **kw))
         row["plain_ms"] = _cuda_ms(lambda: lqr_solve(*args32, **kw), 5)
+        N = spec.N
+        geo = riccati_cuda.library_geometry(riccati_cuda._load(), N, torch.float32)
+        if geo != riccati_cuda.launch_geometry(N, torch.float32, riccati_cuda.DESIGN):
+            _fail(f"K1's library geometry {geo} differs from launch_geometry at N={N}")
+        row["geometry"] = geo._asdict()
+        row["blocks_per_sm"] = riccati_cuda.occupancy(riccati_cuda._load(), N, torch.float32)
         print(
-            f"{tag} f32 B={batch}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s)"
+            f"{tag} f32 B={batch}: kernel {row['ms']:.4f} ms (the wrapper's call), "
+            f"{row['device_ms']:.4f} ms (device), plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s); "
+            f"{json.dumps(row['geometry'])}, {row['blocks_per_sm']} blocks per SM"
         )
         report[batch] = row
     return report
@@ -1298,6 +1343,7 @@ def main():
         "launches": launches,
         "max_abs_err": row["max_abs_err_f32"],
         "ms": row["ms"],
+        "device_ms": row["device_ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": "bytes",

@@ -2,7 +2,7 @@
 """Measurements of the fused kernel (``csrc/fused_al_sqp.cu``) and of K1 on
 one NVIDIA GPU, beside ``chip_smoke.py``:
 
-    python3 fused_probe.py [registers] [timing] [rounding[=CASE]] [times] [teams]
+    python3 fused_probe.py [registers] [timing] [rounding[=CASE]] [times] [teams] [k1] [stamps]
     (the first three by default)
 
 - registers: builds the kernel's ``<float, simple car, OBJ_MIN_TIME>`` and
@@ -41,12 +41,26 @@ one NVIDIA GPU, beside ``chip_smoke.py``:
   the flagship, config #2, paths A-F; CUDA events, median of 25 launches),
   with each launch's team layout where the tree has one, for the tree in
   the working directory: its ``chip_smoke`` and package come first on the
-  path. To compare two commits on one card, unpack the parent with
+  path. K1 is timed twice: around the wrapper's call (``k1_ms``, as before)
+  and on the device alone (``device_ms``: the launches queued behind a
+  busy-wait, so that the wrapper's host work is hidden), at B=4096 and
+  1024, N=30, and B=4096, N=96, with K1's ptxas report and, where the tree
+  has K1's launch geometry, its shared bytes and blocks per SM. To compare two commits on one card, unpack the parent with
   ``git archive`` into an ignored directory and run there and here in
   turns (parent, change, change, parent):
   ``(cd DIR && python3 ../fused_probe.py times)``.
 - teams: the team size and a team's shared budget, measured on the
   simple-car group (``TEAM_VARIANTS``).
+- k1: K1's design (``riccati_cuda.Design``: lanes per scenario, scenarios
+  per block, the ring's chunk and slots, the budget per scenario) built at
+  each of ``K1_VARIANTS`` with ``-D`` macros and timed on the device in
+  turns at B=4096 and 1024, N=30 and 96 (``device_ms``, ``K1_SHAPES``), with each
+  variant's ptxas report, geometry, blocks per SM and its error against
+  the plain version.
+- stamps: K1's cycles by phase at N=30 (the teams' first data, a backward
+  stage, a rollout stage, a team's flush, the whole block) from clock64()
+  stamps in a copy of the source, at B=528 (one block an SM), 1024 and
+  4096.
 
 Prints one JSON line per measurement. Needs a CUDA card.
 """
@@ -134,6 +148,58 @@ def _ptxas_rows(ptxas):
             row[key] = int(found.group(1)) if found else None
         rows[int(name.group(4))] = row  # by GEO
     return rows
+
+
+def device_ms(fn, reps=20, rounds=5):
+    """The device time of one call of ``fn``, the host's share hidden: each
+    round queues ``reps`` calls behind a busy-wait kernel on the stream and
+    times them between CUDA events recorded after the wait, so that the
+    device runs them back to back; the median of ``rounds`` rounds. The wait
+    is lengthened until it outlasts the queueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles, per = 2_000_000, []
+    while len(per) < rounds:
+        gate = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        gate.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        hidden = not gate.query()  # still waiting when the last call was queued
+        torch.cuda.synchronize()
+        if hidden:
+            per.append(start.elapsed_time(end) / reps)
+        elif cycles > 2_000_000_000:
+            raise RuntimeError("device_ms: the host did not queue the calls within the wait")
+        else:
+            cycles *= 4
+    return statistics.median(per)
+
+
+def k1_report(riccati_cuda, nvcc_build, tag="k1"):
+    """ptxas' registers, stack and spills of the tree's K1 (its source built
+    anew under a name of its own) and, where the tree has K1's launch
+    geometry, the layout and blocks per SM of its flagship launches."""
+    lib = nvcc_build.BUILD_DIR / f"libfused_probe_{tag}.so"
+    lib.unlink(missing_ok=True)
+    ptxas = nvcc_build.build_library(riccati_cuda.SOURCE, lib)["ptxas"]
+    row = {"ptxas": chip_smoke.ptxas_rows(ptxas)}
+    if hasattr(riccati_cuda, "launch_geometry"):
+        import torch
+
+        bound = riccati_cuda._load()
+        row["layout"] = {
+            f"{str(dt).removeprefix('torch.')} N={N}": {
+                **riccati_cuda.library_geometry(bound, N, dt)._asdict(),
+                "blocks_per_sm": riccati_cuda.occupancy(bound, N, dt)}
+            for N in (30, chip_smoke.K1_LONG_N) for dt in (torch.float32, torch.float64)}
+    return row
 
 
 def main_path_registers():
@@ -288,7 +354,7 @@ def times():
     import torch
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
-    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.ops import nvcc_build, riccati_cuda
     from mpc_local_planner_tpu_torch.solvers import al_sqp
 
     device = torch.device("cuda", 0)
@@ -300,6 +366,17 @@ def times():
     args = chip_smoke.riccati_inputs(spec, warm, scen)
     out = {"tree": os.getcwd(), "k1_ms": chip_smoke._cuda_ms(
         lambda: riccati_cuda.lqr_solve_cuda(*args, nx=3, free_tau=True), 25)}
+    k1 = {}
+    for batch, N in K1_SHAPES:
+        sp = chip_smoke.flagship(N=N)[0]
+        a = chip_smoke.riccati_inputs(sp, warm, chip_smoke.ensemble(sp, batch, device))
+        k1[f"B={batch} N={N}"] = {
+            "ms": chip_smoke._cuda_ms(
+                lambda: riccati_cuda.lqr_solve_cuda(*a, nx=3, free_tau=True), 25),  # noqa: B023
+            "device_ms": device_ms(
+                lambda: riccati_cuda.lqr_solve_cuda(*a, nx=3, free_tau=True))}  # noqa: B023
+    out["k1"] = k1
+    out["k1_build"] = k1_report(riccati_cuda, nvcc_build)
     layout = {}
     for tag, sp, family, st, batch in cases:
         st = dataclasses.replace(st, fused="auto")
@@ -386,6 +463,157 @@ def teams():
     print(json.dumps({"teams": rows, "card": chip_smoke.card_line()}))
 
 
+# K1's shapes on the main paths: (batch, N) — the warm solve's and the
+# rescue's Riccati sweeps at the flagship's horizon, and a long horizon
+K1_SHAPES = ((4096, 30), (1024, 30), (4096, 96), (1024, 96))
+# K1's designs ``k1`` builds: riccati_cuda.Design(team, spb, chunk, slots,
+# smem_f32); the first is the source's own (riccati_cuda.DESIGN)
+K1_VARIANTS = (
+    (8, 4, 4, 2, 6656), (8, 4, 4, 2, 6144), (4, 8, 4, 2, 6656), (8, 4, 6, 2, 8192),
+    (8, 4, 8, 4, 18432), (8, 2, 8, 4, 18432), (8, 8, 8, 2, 10240), (4, 8, 8, 2, 10240),
+)
+# and one block per SM at the default design (132 blocks of 4): one block's
+# latency
+K1_LATENCY_SHAPE = (528, 30)
+
+
+def k1():
+    """K1's design measured: the source built at each of ``K1_VARIANTS``
+    (one nvcc each, all at once), each held to the plain version at every
+    shape of ``K1_SHAPES`` in float, then timed on the device
+    (``device_ms``) in turns, the variants in order and then in reverse."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import nvcc_build, riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.riccati import lqr_solve
+
+    device = torch.device("cuda", 0)
+    designs = [riccati_cuda.Design(*v) for v in K1_VARIANTS]
+    nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build(d):
+        lib = nvcc_build.BUILD_DIR / f"libfused_probe_k1_{'_'.join(map(str, d))}.so"
+        lib.unlink(missing_ok=True)
+        report = nvcc_build.build_library(riccati_cuda.SOURCE, lib, d.defines())
+        return d, riccati_cuda.bind(lib), chip_smoke.ptxas_rows(report["ptxas"])
+
+    with ThreadPoolExecutor(max_workers=len(designs)) as pool:
+        built = {d: (lib, ptx) for d, lib, ptx in pool.map(build, designs)}
+    _, warm, _ = chip_smoke.flagship()[1:]
+    inputs = {}
+    for batch, N in K1_SHAPES + (K1_LATENCY_SHAPE,):
+        sp = chip_smoke.flagship(N=N)[0]
+        inputs[(batch, N)] = chip_smoke.riccati_inputs(
+            sp, warm, chip_smoke.ensemble(sp, batch, device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows = {}
+    for d in designs:
+        lib, ptx = built[d]
+        row = rows[",".join(map(str, d))] = {"ptxas": ptx, "shapes": {}}
+        for (batch, N), args in inputs.items():
+            plain = lqr_solve(*args, nx=3, free_tau=True)
+            _, rel = chip_smoke._max_rel_err(riccati_cuda.launch(lib, args, True, stream), plain)
+            row["shapes"][f"B={batch} N={N}"] = {
+                "rel_err": rel, "device_ms": [],
+                "geometry": riccati_cuda.library_geometry(lib, N, torch.float32)._asdict(),
+                "blocks_per_sm": riccati_cuda.occupancy(lib, N, torch.float32)}
+    for d in designs + designs[::-1]:
+        lib = built[d][0]
+        for (batch, N), args in inputs.items():
+            rows[",".join(map(str, d))]["shapes"][f"B={batch} N={N}"]["device_ms"].append(
+                device_ms(lambda: riccati_cuda.launch(lib, args, True, stream)))  # noqa: B023
+    print(json.dumps({"k1_variants": rows, "card": chip_smoke.card_line()}))
+
+
+# ``stamps``: where the copy of K1's source gets its clock64() stamps (text
+# found once in the source, the lines put after it); slot 0 the teams' start,
+# 1 + v each backward chunk's data landed, 10 + i the end of the i-th
+# backward stage, 50 + f each rollout chunk's start, 60 + k the end of
+# rollout stage k, 100 + f each team flush's end, 127 the end
+K1_STAMPS = (
+    ("  const bool live = b < a.B;\n",
+     "  long long* stamp = reinterpret_cast<long long*>(a.tape) + blockIdx.x * 128;\n"
+     "  const long long t0 = clock64();\n  int stage_no = 0;\n"
+     "#define STAMP(i) do { if (!WS && threadIdx.x == 0 && (i) < 128) "
+     "stamp[i] = clock64() - t0; } while (0)\n"),
+    ("  if (threadIdx.x >= CT) return;  // the idle lanes of the last teams' warp\n",
+     "  STAMP(0);\n"),
+    ("    phases ^= 1u << (v % S);\n", "    STAMP(1 + v);\n"),
+    ("          P[l][i] = s2;\n        }\n      }\n",
+     "      STAMP(10 + stage_no + (P[0][0] != P[0][0]));\n      ++stage_no;\n"),
+    ("    const int k0 = f * C;\n", "    STAMP(50 + f);\n"),
+    ("      for (int i = 0; i < NA; ++i) z[i] = zn[i];\n",
+     "      STAMP(60 + k + (z[0] != z[0]));\n"),
+    ("        a.dxs[(static_cast<size_t>(b) * (N + 1) + k0 + 1) * NX + e] = ost[C * NU + e];\n"
+     "    }\n    __syncwarp(warp_mask);\n", "    STAMP(100 + f);\n"),
+)
+
+
+def stamps():
+    """K1's cycles at N=30, measured: a copy of the source with clock64()
+    stamps by thread 0 of each block (``K1_STAMPS``), written into the
+    buffer passed as the workspace's pointer (unused where the tape is in
+    shared memory), at B=528 (one block an SM), 1024 and 4096; the median
+    over blocks of each phase: the teams' first data, a backward stage, a
+    rollout stage, a team's flush of a chunk, the whole block."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import nvcc_build, riccati_cuda
+
+    N = 30
+    source = riccati_cuda.SOURCE.read_text()
+    for found, _ in K1_STAMPS:
+        if source.count(found) != 1:
+            raise RuntimeError(f"stamps: the source no longer has {found!r} once")
+    for found, added in K1_STAMPS:
+        source = source.replace(found, found + added)
+    tail = "  }\n}\n\ntemplate <typename T>\nint launch("
+    if source.count(tail) != 1:
+        raise RuntimeError("stamps: the kernel's end is not where it was")
+    source = source.replace(tail, "  }\n  STAMP(127);\n}\n\ntemplate <typename T>\nint launch(")
+    nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = nvcc_build.BUILD_DIR / "fused_probe_k1_stamps.cu"
+    src.write_text(source)
+    path = src.with_name(f"lib{src.stem}.so")
+    path.unlink(missing_ok=True)
+    nvcc_build.build_library(src, path)
+    lib = riccati_cuda.bind(path)
+    geo = riccati_cuda.launch_geometry(N, torch.float32, lib.design)
+    if geo.workspace:
+        raise RuntimeError("stamps: the design keeps the tape in the workspace at N=30")
+    device = torch.device("cuda", 0)
+    warm = chip_smoke.flagship()[2]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    spec = chip_smoke.flagship(N=N)[0]
+    rows = {}
+    for batch in (528, 1024, 4096):
+        args = chip_smoke.riccati_inputs(spec, warm, chip_smoke.ensemble(spec, batch, device))
+        blocks = -(-batch // geo.scenarios_per_block)
+        buf = torch.zeros(blocks * 128, dtype=torch.int64, device=device)
+        outs = [torch.empty(shape, dtype=torch.float32, device=device)
+                for shape in ((batch, N + 1, 3), (batch, N, 2), (batch,), (batch,))]
+        for _ in range(3):
+            rc = lib.riccati_sweep_f32(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+                                       buf.data_ptr(), batch, N, 1, stream)
+            if rc:
+                raise RuntimeError(f"stamps: launch failed ({rc})")
+        torch.cuda.synchronize()
+        t = buf.view(blocks, 128).double().median(dim=0).values.tolist()
+        nq = -(-N // geo.chunk)
+        back = [t[10 + i] - t[9 + i] for i in range(1, N)]
+        roll = [t[60 + k] - t[59 + k] for k in range(1, N) if k % geo.chunk]
+        flush = [t[100 + f] - t[60 + min(N, (f + 1) * geo.chunk) - 1] for f in range(nq)]
+        rows[f"B={batch}"] = {
+            "first_data": t[1], "backward_stage": statistics.median(back),
+            "backward_total": t[10 + N - 1] - t[1], "rollout_stage": statistics.median(roll),
+            "rollout_total": t[100 + nq - 1] - t[50], "flush_per_chunk": statistics.median(flush),
+            "block": t[127]}
+    print(json.dumps({"k1_stamps_cycles": rows, "geometry": geo._asdict(),
+                      "card": chip_smoke.card_line()}))
+
+
 def main(names):
     import torch
 
@@ -395,7 +623,7 @@ def main(names):
     for name in names or ("registers", "timing", "rounding"):
         name, _, case = name.partition("=")
         probe = {"registers": registers, "timing": timing, "rounding": rounding,
-                 "times": times, "teams": teams}[name]
+                 "times": times, "teams": teams, "k1": k1, "stamps": stamps}[name]
         probe(case) if case else probe()
 
 
