@@ -72,9 +72,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  19. gate    — path A's fused warm solve against the un-fused one; trace
  20. path B  — the wall world (family_spec "converter_lines": the flagship
                disc, 6 line slots from the wall sampler) at the family's
-               shipping defaults but the straight-line seed: warm 4×4, the
-               2048-slot 4×4 rescue chained twice per cycle, stuck_restart=2;
-               30 fused launches (3 per cycle), 480 of K1
+               shipping defaults, bench.py's BENCH_LINES_SEED=astar: per-lane
+               A* plans (``lines_astar_plans``, built across processes) seed
+               the cold 16×15 solve and every fresh restart, the rescue
+               reseeds a diverged slot from its lane's plan, and the oracle
+               re-plans A* from the current states; warm 4×4, the 2048-slot
+               4×4 rescue chained twice per cycle, stuck_restart=2; 30 fused
+               launches (3 per cycle), 480 of K1; a line with the plans'
+               count, both builds' seconds and the metrics beside the
+               straight-line seed's converged_frac of record
  21. kernel  — the fused kernel against its plain version on path B's live
                warm state (4096 lanes at 4×4, the 2048-slot rescue)
  22. gate    — path B's fused warm solve against the un-fused one; trace
@@ -136,12 +142,29 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  34. kernel  — the fused kernel against its plain version on path F's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  35. gate    — path F's fused warm solve against the un-fused one; trace
+ 36. golden  — ``classify_feasibility`` on the first 16 lanes of path B's
+               final state, A*-seeded, at 1e-3 (bench.py's BENCH_CALIBRATE):
+               the float64 AL solve on the card, SLSQP on the host; golden
+               feasible share, agreement with the cold oracle, its misses
+               and false certificates, conv_on_feasible against the golden
+               labels; in the last phase
+ 37. f64 tier — ``make_f64_fallback`` over every straggler of path B's last
+               warm result, the float64 solve on the card, the A* seed as
+               its fresh seed: stragglers, rescued, seconds; no flag turns
+               false, every lane not rescued bit-equal; in the last phase
+ 38. pscan   — ``lqr_solve_pscan`` against ``lqr_solve`` on K1's inputs
+               (B=4096, N=30) on the card, float64 and float32, both timed
+               beside K1's device time; run after path B
+ 39. LM      — ``solve_single_lm`` on 1024 flagship lanes on the card and
+               the first 16 on the CPU, float64: bench.py's gate on those
+               lanes, the seconds of both; in the last phase
  last    — the float64 checks of phases 7, 13, 18, 21, 25, 28, 31 and
                34 at every prefix of the schedule (each of those phases
                saves its warm inputs and runs the float32 check and the
-               times at once) and the B=1024 cases of phases 14 and 23:
-               33 processes, at most 17 at once (``last_phase``)
- 36. summary — the seconds of the build, of each path and of the last
+               times at once), phases 36, 37 and 39 (started first) and the
+               B=1024 cases of phases 14 and 23: 36 processes, at most 17
+               at once (``last_phase``)
+ 40. summary — the seconds of the build, of each path and of the last
                phase (``smoke_split_s``), the kernels line, the card line,
                then the result line
 
@@ -164,6 +187,14 @@ import time
 BATCH = 4096
 RESCUE_SLOTS = 1024
 LINES_RESCUE_SLOTS = 2048  # the wall world's rescue (bench.py families mode)
+# path B's converged_frac from the straight-line seed, the figure of record
+# before the A* seed (this script on an H100 at 700 W; PERF.md)
+LINES_STRAIGHT_LINE_CONVERGED_FRAC = 0.7400
+ASTAR_PROCESSES = 8  # A* plans built across this many processes (the host's cores)
+CALIBRATION_LANES = 16  # the golden classifier's sample (bench.py BENCH_CALIBRATE)
+CALIBRATION_TOL = 1e-3  # the pipeline's feasibility tolerance
+F64_SLOTS = 2048  # the float64 tier's chunk
+LM_LANES, LM_CPU_LANES = 1024, 16
 GATE_LANES = 256
 SETTLE_CYCLES = 2
 TIMED_CYCLES = 8
@@ -409,17 +440,31 @@ def kernel_phase(spec, warm, device, batches=(BATCH, RESCUE_SLOTS), tag="K1"):
     return report
 
 
+def astar_plans(scen):
+    """``lines_astar_plans`` over ASTAR_PROCESSES worker processes: (plans on
+    the card, ok flags, seconds)."""
+    from mpc_local_planner_tpu_torch.benchmarks import lines_astar_plans
+
+    t0 = time.perf_counter()
+    plans, ok = lines_astar_plans(scen, processes=ASTAR_PROCESSES)
+    return plans, ok, time.perf_counter() - t0
+
+
 def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH,
-              slots=RESCUE_SLOTS, family=None, chain=1, stuck_restart=0):
+              slots=RESCUE_SLOTS, family=None, chain=1, stuck_restart=0, plan_seed=False):
     """bench.py::main on the port (families mode for a named ``family``:
     its ensemble, the rescue chained ``chain`` times per cycle, the
-    stuck-lane restart). ``cold_start`` = (scenarios, cold result) skips
-    the cold solve. Returns (extra, settled state, seconds, one cycle from
-    the settled state, the cold start, K1's launch count after the timed
-    cycles)."""
+    stuck-lane restart; with ``plan_seed`` the wall family's shipping seed,
+    bench.py's ``BENCH_LINES_SEED=astar``: per-lane A* plans seed the cold
+    solve and every fresh restart, the rescue reseeds a diverged slot from
+    its lane's plan, and the oracle re-plans from the current states).
+    ``cold_start`` = (scenarios, cold result) skips the cold solve. Returns
+    (extra, settled state, seconds, one cycle from the settled state, the
+    cold start, K1's launch count after the timed cycles, the final state:
+    scenarios, result, the oracle's flags and its seed)."""
     import torch
 
-    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal
+    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal, primal_from_plan
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
     from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
     from mpc_local_planner_tpu_torch.solvers.al_sqp import init_duals, make_solver
@@ -429,9 +474,19 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
+    secs, seed_info = {}, {}
+    scen = ensemble(spec, batch, device, family=family) if cold_start is None else cold_start[0]
+    fresh_init = reseed = None
+    if plan_seed:
+        plans, ok, secs["astar_build_s"] = astar_plans(scen)
+        seed_info["astar_plans"] = int(ok.sum())
+        fresh_init = lambda s: primal_from_plan(spec, plans, s.x0)  # noqa: E731
+        reseed = lambda sk, idx: primal_from_plan(  # noqa: E731
+            spec, plans.index_select(0, idx), sk.x0)
     duals0 = init_duals(spec, cold, dtype=torch.float32, device=device, batch=(batch,))
     cold_solve = make_solver(spec, cold, device)
-    rescue1 = make_rescue(spec, warm, slots, rescue_settings=rescue_set, device=device)
+    rescue1 = make_rescue(spec, warm, slots, rescue_settings=rescue_set, device=device,
+                          fresh_init=reseed)
 
     def rescue(scen, r):
         for _ in range(chain):
@@ -439,7 +494,7 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         return r
 
     cycle = make_fleet_cycle(spec, warm, duals0, rescue=rescue, device=device,
-                             stuck_restart=stuck_restart)
+                             fresh_init=fresh_init, stuck_restart=stuck_restart)
     stuck = torch.zeros((batch,), dtype=torch.int32, device=device)
 
     def run(scen, r):
@@ -449,11 +504,10 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         scen, r, stuck = cycle(scen, r, stuck)
         return scen, r
 
-    secs = {}
     if cold_start is None:
-        scen = ensemble(spec, batch, device, family=family)
         t0 = time.perf_counter()
-        r = cold_solve(scen, initial_primal(spec, scen), duals0)
+        init = initial_primal(spec, scen) if fresh_init is None else fresh_init(scen)
+        r = cold_solve(scen, init, duals0)
         sync()
         secs["cold_solve_s"] = time.perf_counter() - t0
         cold_start = (scen, r)
@@ -476,8 +530,15 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
     n_conv = int(torch.sum(r.converged))  # host fetch ends the chain
     dt = (time.perf_counter() - t0) / TIMED_CYCLES
     k1_after_cycles = riccati_cuda.lqr_solve_cuda.launches
+    if plan_seed:
+        # the oracle's denominator: feasible from the current state with a
+        # fresh global plan (bench.py re-plans A* from the current states)
+        plans_now, _, secs["astar_oracle_build_s"] = astar_plans(scen)
+        oracle_seed = primal_from_plan(spec, plans_now, scen.x0)
+    else:
+        oracle_seed = initial_primal(spec, scen)
     t0 = time.perf_counter()
-    oracle = cold_solve(scen, initial_primal(spec, scen), duals0)
+    oracle = cold_solve(scen, oracle_seed, duals0)
     feas = oracle.converged
     sync()
     secs["oracle_s"] = time.perf_counter() - t0
@@ -490,8 +551,10 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         "converged_frac": n_conv / batch,
         "feasible_frac_cold_oracle": n_feas / batch,
         "conv_on_feasible": int(torch.sum(r.converged & feas)) / max(n_feas, 1),
+        **seed_info,
     }
-    return extra, settled, secs, one_cycle, cold_start, k1_after_cycles
+    final = (scen, r, feas, oracle_seed)
+    return extra, settled, secs, one_cycle, cold_start, k1_after_cycles, final
 
 
 def warm_inputs(spec, warm, settled, n):
@@ -658,6 +721,19 @@ class F64Checks:
         path = f"{self.dir.name}/f64_{len(self.jobs)}.pt"
         torch.save({"spec": spec, "st": st, "args": args32, "tag": tag, "floor": floor}, path)
         self.jobs.append((tag, [sys.executable, __file__, "--f64-check", path]))
+
+    def add_solver_phases(self, spec, final):
+        """Phases 36 (the golden calibration), 37 (the float64 tier) and 39
+        (Levenberg–Marquardt): path B's final state saved for the first two,
+        each phase a process of its own, started first in the last phase
+        (the longest jobs)."""
+        import torch
+
+        path = f"{self.dir.name}/pathB_final.pt"
+        torch.save({"spec": spec, "final": final}, path)
+        self.jobs[:0] = [(f"solver phase {name}", [sys.executable, __file__, "--solver-phase",
+                                                   name, path])
+                         for name in ("golden", "f64_tier", "lm")]
 
 
 def k2a_phase(spec, warm, rescue_set, settled, checks, name="K2a", slots=RESCUE_SLOTS):
@@ -920,8 +996,9 @@ def run_processes(jobs, tmp):
 
 
 def last_phase(checks, names):
-    """The main paths' float64 checks (``checks``) and phases 14 and 23, each
-    ``family_case`` in a process of its own, all at once (host-bound work
+    """The main paths' float64 checks and phases 36, 37 and 39 (``checks``)
+    and phases 14 and 23, each ``family_case``, in a process of its own,
+    all at once (host-bound work
     that leaves the card idle, so they share the card and the host's
     cores); prints each one's lines in order and fails if any failed. Then
     each case's kernel, plain and bound times (``k2a_times``), one case
@@ -941,7 +1018,7 @@ def last_phase(checks, names):
         ]
         failed = run_processes(jobs, tmp)
         if failed:
-            _fail(f"the fused kernel disagrees with its plain version on {', '.join(failed)}")
+            _fail(f"failed in the last phase: {', '.join(failed)}")
         print(f"checks and cases: {len(jobs)} processes, at most {MAX_PROCS} at once, done in "
               f"{time.perf_counter() - t0:.2f} s on {os.cpu_count()} host cores")
         warm = dataclasses.replace(flagship()[2], fused="auto")
@@ -969,7 +1046,7 @@ def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
 
     reset_counts()
     t0 = time.perf_counter()
-    extra, settled, secs, cycle, _, k1_before_oracle = main_path(
+    extra, settled, secs, cycle, _, k1_before_oracle, final = main_path(
         spec, cold, warm_f, rescue_f, device, **kw
     )
     fused = k2a.fused_solve_cuda.launches
@@ -988,7 +1065,7 @@ def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
               f"oracle), expected {2 * cold_iters} (the cold solve and the oracle)")
     if not extra["converged_frac"] >= floor:
         _fail(f"{tag} converged_frac {extra['converged_frac']} below the {floor} floor")
-    return extra, settled, cycle, fused
+    return {**extra, **secs}, settled, cycle, fused, final
 
 
 def gate_and_trace(tag, spec, warm, warm_f, settled, cycle, cycle_ms):
@@ -1139,7 +1216,8 @@ def main():
     # ---- 4. main path, un-fused ------------------------------------------ #
     reset_counts()
     t0 = time.perf_counter()
-    extra, settled, secs, cycle, cold_start, _ = main_path(spec, cold, warm, rescue_set, device)
+    extra, settled, secs, cycle, cold_start, _, _ = main_path(
+        spec, cold, warm, rescue_set, device)
     launches = riccati_cuda.lqr_solve_cuda.launches
     main_s = time.perf_counter() - t0
     expected = (
@@ -1175,7 +1253,7 @@ def main():
     # ---- 8. main path, fused, from the same cold solve --------------------- #
     reset_counts()
     t0 = time.perf_counter()
-    extra_f, settled_f, secs_f, cycle_f, _, k1_in_cycles = main_path(
+    extra_f, settled_f, secs_f, cycle_f, _, k1_in_cycles, _ = main_path(
         spec, cold, warm_f, rescue_f, device, cold_start=cold_start
     )
     k2a_launches = k2a.fused_solve_cuda.launches
@@ -1212,7 +1290,7 @@ def main():
     # ---- 12. config #2 main path, fused ------------------------------------- #
     warm2_f = dataclasses.replace(warm2, fused="auto")
     rescue2_f = dataclasses.replace(rescue2, fused="auto")
-    extra2, settled2, cycle2, fused2 = fused_path(
+    extra2, settled2, cycle2, fused2, _ = fused_path(
         "config2_fused", spec2, cold2, warm2_f, rescue2_f, device, card, 0.25
     )
 
@@ -1229,7 +1307,7 @@ def main():
     specA, coldA, warmA, rescueA = fleet_settings(family_spec("canonical_carlike", N=30))
     warmA_f = dataclasses.replace(warmA, fused="auto")
     rescueA_f = dataclasses.replace(rescueA, fused="auto")
-    extraA, settledA, cycleA, fusedA = fused_path(
+    extraA, settledA, cycleA, fusedA, _ = fused_path(
         "canonical_carlike_fused", specA, coldA, warmA_f, rescueA_f, device, card, 0.5,
         family="canonical_carlike",
     )
@@ -1243,21 +1321,34 @@ def main():
     warmB = dataclasses.replace(warmB, n_al=4)
     warmB_f = dataclasses.replace(warmB, fused="auto")
     rescueB_f = dataclasses.replace(warmB_f, alphas=rescue_set.alphas)
-    extraB, settledB, cycleB, fusedB = fused_path(
+    extraB, settledB, cycleB, fusedB, finalB = fused_path(
         "converter_lines_fused", specB, coldB, warmB_f, rescueB_f, device, card, 0.25,
         family="converter_lines", slots=LINES_RESCUE_SLOTS, chain=2, stuck_restart=2,
+        plan_seed=True,
     )
+    print(json.dumps({"pathB_seed": "astar", "astar_plans": extraB["astar_plans"],
+                      "of": BATCH, **{k: extraB[k] for k in (
+                          "astar_build_s", "astar_oracle_build_s", "converged_frac",
+                          "feasible_frac_cold_oracle", "conv_on_feasible")},
+                      "straight_line_converged_frac_of_record":
+                          LINES_STRAIGHT_LINE_CONVERGED_FRAC, "device": card}))
     rows_b = k2a_phase(specB, warmB_f, rescueB_f, settledB, checks, name="pathB",
                        slots=LINES_RESCUE_SLOTS)
     gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
                    extraB["cycle_ms"])
+    # phases 36, 37 and 39 run at the end beside the float64 checks
+    checks.add_solver_phases(specB, finalB)
     lap("20_22_path_b")
+
+    # ---- 38. the horizon-parallel Riccati solve on K1's inputs ------------ #
+    pscan_phase(spec, warm, device, k1[BATCH])
+    lap("38_pscan")
 
     # ---- 24-26. path C: the polygon-footprint family (a moving rectangle) -- #
     specC, coldC, warmC, rescueC = fleet_settings(family_spec("polygon_footprint", N=30))
     warmC_f = dataclasses.replace(warmC, fused="auto")
     rescueC_f = dataclasses.replace(rescueC, fused="auto")
-    extraC, settledC, cycleC, fusedC = fused_path(
+    extraC, settledC, cycleC, fusedC, _ = fused_path(
         "polygon_footprint_fused", specC, coldC, warmC_f, rescueC_f, device, card, 0.5,
         family="polygon_footprint",
     )
@@ -1270,7 +1361,7 @@ def main():
     specD, coldD, warmD, rescueD = fleet_settings(family_spec("via_points", N=30))
     warmD_f = dataclasses.replace(warmD, fused="auto")
     rescueD_f = dataclasses.replace(rescueD, fused="auto")
-    extraD, settledD, cycleD, fusedD = fused_path(
+    extraD, settledD, cycleD, fusedD, _ = fused_path(
         "via_points_fused", specD, coldD, warmD_f, rescueD_f, device, card, 0.5,
         family="via_points",
     )
@@ -1282,7 +1373,7 @@ def main():
     specE, coldE, warmE, rescueE = fleet_settings(family_spec("nonuniform", N=30))
     warmE_f = dataclasses.replace(warmE, fused="auto")
     rescueE_f = dataclasses.replace(rescueE, fused="auto")
-    extraE, settledE, cycleE, fusedE = fused_path(
+    extraE, settledE, cycleE, fusedE, _ = fused_path(
         "nonuniform_fused", specE, coldE, warmE_f, rescueE_f, device, card, 0.5,
         family="nonuniform",
     )
@@ -1294,7 +1385,7 @@ def main():
     specF, coldF, warmF, rescueF = fleet_settings(crank_nicolson_flagship())
     warmF_f = dataclasses.replace(warmF, fused="auto")
     rescueF_f = dataclasses.replace(rescueF, fused="auto")
-    extraF, settledF, cycleF, fusedF = fused_path(
+    extraF, settledF, cycleF, fusedF, _ = fused_path(
         "crank_nicolson_fused", specF, coldF, warmF_f, rescueF_f, device, card, 0.5,
     )
     rows_f = k2a_phase(specF, warmF_f, rescueF_f, settledF, checks, name="pathF")
@@ -1312,7 +1403,7 @@ def main():
         "f64_checks_and_cases": time.perf_counter() - t_cases,
         "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
 
-    # ---- 36. summary ---------------------------------------------------- #
+    # ---- 40. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
     from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX
 
@@ -1377,6 +1468,184 @@ def main():
     }}))
 
 
+# The horizon-parallel solve against the plain sequential sweep, relative to
+# the step's largest entry: float64 a few ulps (the same solution by another
+# order of operations: 1.5e-15 on these inputs on the H100); float32 K1's
+# tolerance (6.8e-7 on the H100).
+PSCAN_RTOL = {"f64": 1e-9, "f32": 1e-4}
+
+
+def pscan_phase(spec, warm, device, k1_row):
+    """Phase 38: ``lqr_solve_pscan`` against the plain ``lqr_solve`` on K1's
+    inputs (the flagship's, B=4096, N=30) on the card, in float64 and
+    float32; both timed with CUDA events beside K1's device time."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.solvers.riccati import lqr_solve
+    from mpc_local_planner_tpu_torch.solvers.riccati_pscan import lqr_solve_pscan
+
+    args32 = riccati_inputs(spec, warm, ensemble(spec, BATCH, device))
+    kw = dict(nx=spec.nx, free_tau=spec.variable_dt)
+    row = {"batch": BATCH, "N": spec.N}
+    for name, args in (("f64", tuple(a.double() for a in args32)), ("f32", args32)):
+        got, want = lqr_solve_pscan(*args, **kw), lqr_solve(*args, **kw)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _max_rel_err(got, want)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        print(f"pscan {name} B={BATCH}: max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
+              f"(tol {PSCAN_RTOL[name]:g}) finite={finite}")
+        if not finite or not rel_err <= PSCAN_RTOL[name]:
+            _fail(f"lqr_solve_pscan disagrees with lqr_solve ({name})")
+        row[f"rel_err_{name}"] = rel_err
+    row["pscan_ms"] = _cuda_ms(lambda: lqr_solve_pscan(*args32, **kw), 5)
+    row["plain_ms"] = _cuda_ms(lambda: lqr_solve(*args32, **kw), 5)
+    row["k1_device_ms"], row["k1_ms"] = k1_row["device_ms"], k1_row["ms"]
+    print(json.dumps({"pscan": row}))
+
+
+def golden_phase(spec, final):
+    """Phase 36: ``classify_feasibility`` on the first CALIBRATION_LANES lanes
+    of path B's final state, A*-seeded from the current states (the
+    oracle's seed), at the pipeline's tolerance, as bench.py's
+    ``BENCH_CALIBRATE`` runs it: the float64 AL solve on the card (K1 in
+    double), SLSQP on the host; the golden labels against the cold oracle's
+    and the warm path's flags."""
+    import numpy as np
+
+    from mpc_local_planner_tpu_torch.benchmarks import classify_feasibility
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    scen, r, feas, seed = final
+    n = CALIBRATION_LANES
+    k1_before = riccati_cuda.lqr_solve_cuda.launches
+    t0 = time.perf_counter()
+    labels, details = classify_feasibility(spec, scen, max_instances=n, tol=CALIBRATION_TOL,
+                                           seed_primal=seed, device=scen.x0.device)
+    secs = time.perf_counter() - t0
+    gold = np.array([lab == "feasible" for lab in labels])
+    conv, oracle = r.converged[:n].cpu().numpy(), feas[:n].cpu().numpy()
+    n_gold = max(int(gold.sum()), 1)
+    cal = {
+        "n": n, "tol": CALIBRATION_TOL,
+        "golden_feasible_frac": float(gold.mean()),
+        "oracle_feasible_frac_sub": float(oracle.mean()),
+        "oracle_golden_agreement": float((gold == oracle).mean()),
+        "oracle_missed_feasible": int((gold & ~oracle).sum()),
+        "oracle_false_feasible": int((~gold & oracle).sum()),
+        "conv_frac_sub": float(conv.mean()),
+        "conv_on_feasible_golden": float((conv & gold).sum() / n_gold),
+        "certified_by": [p["certified_by"] for p in details["per_instance"]],
+        "k1_launches": riccati_cuda.lqr_solve_cuda.launches - k1_before,
+        "classify_s": secs,
+    }
+    print(json.dumps({"golden_calibration": cal, "device": card_line()}))
+    if len(labels) != n or not gold.any():
+        _fail(f"the golden classifier certified no lane of {n}: {cal}")
+    if cal["k1_launches"] == 0:
+        _fail("the golden classifier's float64 AL solve did not run on the card")
+
+
+def f64_tier_phase(spec, final):
+    """Phase 37: ``make_f64_fallback`` over every straggler of path B's last
+    warm result, the float64 solve on the card, its fresh seed the A* seed
+    of the oracle: no converged flag may turn false, and every lane it does
+    not rescue keeps its result bit for bit."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.core.tree import tree_map
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import SolverSettings
+    from mpc_local_planner_tpu_torch.solvers.f64_fallback import make_f64_fallback
+
+    scen, r, feas, seed = final
+    s64 = SolverSettings.for_spec(spec, early_exit=True, tol_eq=CALIBRATION_TOL,
+                                  tol_ineq=CALIBRATION_TOL)
+    tier = make_f64_fallback(spec, s64, F64_SLOTS, device=scen.x0.device)
+    k1_before = riccati_cuda.lqr_solve_cuda.launches
+    t0 = time.perf_counter()
+    out = tier(scen, r, fresh_primal=seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    conv0, conv1 = r.converged, out.converged
+    kept = ~conv1 | conv0
+    same = []
+    tree_map(lambda a, b: same.append(bool(((a == b) | (a != a) & (b != b))[kept].all())),
+             out, r)
+    n_feas = max(int(feas.sum()), 1)
+    row = {
+        "stragglers": int((~conv0).sum()), "rescued": int((conv1 & ~conv0).sum()),
+        "slots": F64_SLOTS, "converged_frac_before": float(conv0.float().mean()),
+        "converged_frac_after": float(conv1.float().mean()),
+        "conv_on_feasible_after": int((conv1 & feas).sum()) / n_feas,
+        "k1_launches": riccati_cuda.lqr_solve_cuda.launches - k1_before,
+        "fallback_s": secs,
+    }
+    print(json.dumps({"f64_tier": row, "device": card_line()}))
+    if bool((conv0 & ~conv1).any()):
+        _fail("the float64 tier turned a converged flag false")
+    if not all(same):
+        _fail("the float64 tier changed a lane it did not rescue")
+    if row["stragglers"] and row["k1_launches"] == 0:
+        _fail("the float64 tier's solve did not run on the card")
+
+
+LM_BUDGET = (6, 10)  # (n_al, n_sqp): 60 LM iterations
+
+
+def lm_phase():
+    """Phase 39: ``solve_single_lm`` on LM_LANES flagship lanes on the card
+    and on the first LM_CPU_LANES of them on the CPU, both in float64 from
+    the straight-line seed: bench.py's gate on those lanes (conv flags, max
+    |Δxs| on lanes converged on both within the bound of a 60-iteration
+    budget)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.core.tree import tree_map
+    from mpc_local_planner_tpu_torch.solvers import agreement
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import SolverSettings, default_init
+    from mpc_local_planner_tpu_torch.solvers.lsq_lm import solve_single_lm
+
+    spec = flagship()[0]
+    n_al, n_sqp = LM_BUDGET
+    st = SolverSettings.for_spec(spec, n_al=n_al, n_sqp=n_sqp, tol_eq=CALIBRATION_TOL,
+                                 tol_ineq=CALIBRATION_TOL)
+    scen = tree_map(lambda a: a.double() if a.is_floating_point() else a,
+                    ensemble(spec, LM_LANES, torch.device("cuda", 0)))
+    init, duals = default_init(spec, st, scen, dtype=torch.float64)
+    t0 = time.perf_counter()
+    card = solve_single_lm(spec, st, scen, init, duals)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    head = lambda t: tree_map(lambda a: a[:LM_CPU_LANES].cpu(), t)  # noqa: E731
+    t0 = time.perf_counter()
+    cpu = solve_single_lm(spec, st, head(scen), head(init), head(duals))
+    cpu_s = time.perf_counter() - t0
+    info, passed = agreement.gate(head(card), cpu, n_al * n_sqp)
+    print(json.dumps({"lm": {"lanes": LM_LANES, "budget": [n_al, n_sqp],
+                             "converged_frac": float(card.converged.float().mean()),
+                             "card_s": card_s, "cpu_lanes": LM_CPU_LANES, "cpu_s": cpu_s,
+                             **info}, "passed": passed, "device": card_line()}))
+    if not passed or card.primal.xs.device.type != "cuda":
+        _fail(f"Levenberg-Marquardt on the card disagrees with the CPU: {info}")
+
+
+def solver_worker(name, path):
+    """``chip_smoke.py --solver-phase NAME FILE``: phase 36 (golden), 37
+    (f64_tier) or 39 (lm) in a process of its own; FILE holds path B's
+    final state."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    if name == "lm":
+        lm_phase()
+    else:
+        job = torch.load(path, map_location="cuda:0", weights_only=False)
+        {"golden": golden_phase, "f64_tier": f64_tier_phase}[name](job["spec"], job["final"])
+    print_peak_memory(f"solver phase {name}")
+
+
 def family_worker(name, save=None):
     """``chip_smoke.py --family-case NAME [FILE]``: one case of
     ``last_phase``, its warm inputs saved to FILE."""
@@ -1412,5 +1681,7 @@ if __name__ == "__main__":
         family_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--f64-check"]:
         f64_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--solver-phase"]:
+        solver_worker(*sys.argv[2:4])
     else:
         main()

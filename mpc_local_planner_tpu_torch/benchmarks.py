@@ -292,3 +292,208 @@ def mixed_obstacles(batch: int, generator: torch.Generator, mp: int = 0, mc: int
         polygons=polygons, polygon_nv=nv.to(device=dev, dtype=torch.int32),
         polygon_vels=vel(mg), polygon_mask=mask(mg),
     )
+
+
+def _astar_lane(x0, xf, lines, mask, n_points, resolution, robot_radius, margin):
+    """One lane of ``lines_astar_plans``: (plan (n_points, 3) float64, ok)."""
+    import numpy as np
+
+    from mpc_local_planner_tpu_torch.planner.local_planner import Costmap
+    from mpc_local_planner_tpu_torch.utils.worlds import astar_plan
+
+    lo = np.minimum(x0, xf) - margin
+    hi = np.maximum(x0, xf) + margin
+    W = int(np.ceil((hi[0] - lo[0]) / resolution)) + 1
+    H = int(np.ceil((hi[1] - lo[1]) / resolution)) + 1
+    data = np.zeros((H, W), np.uint8)
+    for j in range(lines.shape[0]):
+        if not mask[j]:
+            continue
+        a, c = lines[j, 0], lines[j, 1]
+        n = max(2, int(np.linalg.norm(c - a) / (0.5 * resolution)))
+        for t in np.linspace(0.0, 1.0, n):
+            p = a + t * (c - a)
+            cx = int(round((p[0] - lo[0]) / resolution))
+            cy = int(round((p[1] - lo[1]) / resolution))
+            if 0 <= cy < H and 0 <= cx < W:
+                data[cy, cx] = 254
+    cm = Costmap(data=data, origin=(float(lo[0]), float(lo[1])), resolution=resolution)
+    plan = np.zeros((n_points, 3), np.float64)
+    try:
+        path = astar_plan(cm, x0, xf, robot_radius=robot_radius)
+    except ValueError:
+        path = None
+    if path is None or path.shape[0] < 2:
+        d = xf - x0
+        fr = np.linspace(0.0, 1.0, n_points)[:, None]
+        plan[:, :2] = x0 + fr * d
+        plan[:, 2] = np.arctan2(d[1], d[0])
+        return plan, False
+    # the true start and goal anchor the seed (A* returns cell centres)
+    path = np.array(path, np.float64)
+    path[0, :2] = x0
+    path[-1, :2] = xf
+    seg = np.diff(path[:, :2], axis=0)
+    arc = np.concatenate([[0.0], np.cumsum(np.linalg.norm(seg, axis=1))])
+    s = np.linspace(0.0, arc[-1], n_points)
+    plan[:, 0] = np.interp(s, arc, path[:, 0])
+    plan[:, 1] = np.interp(s, arc, path[:, 1])
+    d = np.diff(plan[:, :2], axis=0)
+    th = np.arctan2(d[:, 1], d[:, 0])
+    plan[:-1, 2] = th
+    plan[-1, 2] = th[-1]
+    return plan, True
+
+
+def _astar_lanes(args):
+    """``_astar_lane`` over a chunk of lanes (a worker process's share)."""
+    x0, xf, lines, mask, kw = args
+    out = [_astar_lane(x0[b], xf[b], lines[b], mask[b], **kw) for b in range(x0.shape[0])]
+    return [p for p, _ in out], [ok for _, ok in out]
+
+
+def lines_astar_plans(scenario, n_points: int = 16, resolution: float = 0.1,
+                      robot_radius: float = 0.25, margin: float = 1.8, processes: int = 1):
+    """Per-lane A* global plans around the wall fields (host-side numpy).
+
+    The move_base global planner's role for the ``converter_lines``
+    ensemble: each lane's active wall segments are rasterized into an
+    occupancy grid and ``astar_plan`` routes start → goal; each path is
+    resampled by arc length to ``n_points`` poses. Lanes where A* fails
+    (start or goal enclosed) fall back to the straight line. Returns (plans
+    (B, n_points, 3) float32 on the scenario's device, ok (B,) numpy bool).
+    ``processes`` > 1 splits the lanes into that many chunks, each planned
+    in a process of its own; the plans are the same.
+    """
+    import numpy as np
+
+    x0 = scenario.x0[..., :2].detach().cpu().double().numpy()
+    xf = scenario.xf[..., :2].detach().cpu().double().numpy()
+    lines = scenario.obstacles.lines.detach().cpu().double().numpy()   # (B, M, 2, 2)
+    mask = scenario.obstacles.line_mask.detach().cpu().numpy()
+    B = x0.shape[0]
+    kw = dict(n_points=n_points, resolution=resolution, robot_radius=robot_radius,
+              margin=margin)
+    bounds = np.linspace(0, B, max(1, min(processes, B)) + 1).astype(int)
+    chunks = [(x0[a:b], xf[a:b], lines[a:b], mask[a:b], kw)
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    if len(chunks) == 1:
+        parts = [_astar_lanes(chunks[0])]
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(len(chunks),
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            parts = list(pool.map(_astar_lanes, chunks))
+    plans = np.stack([p for ps, _ in parts for p in ps]) if B else np.zeros((0, n_points, 3))
+    ok = np.array([o for _, oks in parts for o in oks], dtype=bool)
+    return torch.from_numpy(plans.astype(np.float32)).to(scenario.x0.device), ok
+
+
+def lines_detour_plan(scenario) -> torch.Tensor:
+    """A 3-point global plan routed around the wall field: start → a mid-path
+    waypoint 1.2 m to the side opposite the mean lateral offset of the
+    active walls → goal, every pose heading along start → goal (bench.py's
+    ``BENCH_LINES_SEED=plan``); feed it to ``ocp.grid.primal_from_plan``."""
+    x0, xf = scenario.x0[..., :2], scenario.xf[..., :2]
+    d = xf - x0
+    dist = torch.linalg.norm(d, dim=-1, keepdim=True)
+    hn = d / torch.clamp(dist, min=1e-6)
+    normal = torch.stack([-hn[..., 1], hn[..., 0]], dim=-1)
+    mids = torch.mean(scenario.obstacles.lines, dim=-2)  # (..., M, 2)
+    rel = mids - x0[..., None, :]
+    lat = torch.sum(rel * normal[..., None, :], dim=-1)  # (..., M)
+    m = scenario.obstacles.line_mask.to(lat.dtype)
+    mean_lat = torch.sum(lat * m, dim=-1) / torch.clamp(torch.sum(m, dim=-1), min=1.0)
+    side = -torch.sign(mean_lat + 1e-6)
+    way = 0.5 * (x0 + xf) + side[..., None] * 1.2 * normal
+    th = torch.atan2(d[..., 1], d[..., 0])[..., None]
+    return torch.stack([torch.cat([p, th], dim=-1) for p in (x0, way, xf)], dim=-2)
+
+
+def classify_feasibility(spec, scenario, max_instances: int = 64, tol: float = 1e-5,
+                         maxiter: int = 600, seed_primal=None, device=None):
+    """Ensemble feasibility oracle: classify the first ``max_instances``
+    scenarios with the float64 golden pipeline.
+
+    For each: (1) a float64 AL-SQP cold solve (``SolverSettings.for_spec``)
+    from the straight-line seed or ``seed_primal`` finds a candidate point
+    on ``device`` (CUDA unless the caller asks for the CPU); (2) where its
+    violation passes ``tol``, scipy SLSQP (``solvers/golden.py``, on the
+    host) polishes from it; (3) the instance is "feasible" if the better of
+    the two points is within ``tol`` (max equality and inequality
+    violation), else "unknown" (infeasible, or beyond both budgets). Inputs
+    are cast to float64 here, so the classification never runs at the
+    solver's float32. Returns (labels list, details dict), as the JAX
+    function does.
+    """
+    import numpy as np
+
+    from mpc_local_planner_tpu_torch.core.tree import tree_map
+    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal
+    from mpc_local_planner_tpu_torch.ocp.problem import make_ocp_functions
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import (
+        SolverSettings,
+        init_duals,
+        make_solver,
+    )
+    from mpc_local_planner_tpu_torch.solvers.golden import solve_golden
+
+    dev = resolve_device(device)
+    funcs = make_ocp_functions(spec)
+    B = int(scenario.x0.shape[0])
+    n = min(B, max_instances)
+
+    def head64(tree, where):
+        return tree_map(
+            lambda a: (a[:n].double() if a.is_floating_point() else a[:n]).to(where), tree)
+
+    scen64 = head64(scenario, dev)
+    cold = SolverSettings.for_spec(spec)
+    init = initial_primal(spec, scen64) if seed_primal is None else head64(seed_primal, dev)
+    duals = init_duals(spec, cold, dtype=torch.float64, device=dev, batch=(n,))
+    r = make_solver(spec, cold, dev)(scen64, init, duals)
+    scen_h = tree_map(lambda a: a.cpu(), scen64)
+    primal_h = tree_map(lambda a: a.cpu(), r.primal)
+
+    def viol_at(primal, scen_b):
+        eq = float(torch.max(torch.abs(funcs.eq(primal, scen_b))))
+        ineq = float(torch.max(funcs.ineq(primal, scen_b)))
+        return max(eq, max(ineq, 0.0))
+
+    labels, viols, per_instance = [], [], []
+    for b in range(n):
+        scen_b = tree_map(lambda a: a[b], scen_h)
+        primal_b = tree_map(lambda a: a[b], primal_h)
+        al_viol = viol_at(primal_b, scen_b)
+        viol = al_viol
+        used_slsqp = False
+        if viol > tol:
+            try:
+                sol_g, _res = solve_golden(spec, scen_b, init=primal_b, tol=1e-10,
+                                           maxiter=maxiter)
+                pv = viol_at(sol_g, scen_b)
+                used_slsqp = pv < viol
+                viol = min(viol, pv)
+            except Exception:  # noqa: BLE001 — an SLSQP failure leaves "unknown"
+                pass
+        viols.append(viol)
+        labels.append("feasible" if viol <= tol else "unknown")
+        per_instance.append({
+            "al_viol": float(al_viol),
+            "viol": float(viol),
+            "certified_by": (
+                "al64" if al_viol <= tol else ("slsqp" if viol <= tol else "none")
+            ),
+            "used_slsqp": used_slsqp,
+        })
+    feas = labels.count("feasible")
+    return labels, {
+        "n": n,
+        "feasible_frac": feas / max(n, 1),
+        "max_viol_on_feasible": float(
+            np.max([v for v, lab in zip(viols, labels) if lab == "feasible"], initial=0.0)
+        ),
+        "per_instance": per_instance,
+    }

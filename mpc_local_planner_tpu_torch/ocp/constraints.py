@@ -68,7 +68,8 @@ def dt_inequalities(spec, dt, dtype):
     dt = dt.to(dtype)
     if not spec.variable_dt:
         return torch.full(dt.shape + (2,), -BIG_DISTANCE, dtype=dtype, device=dt.device)
-    g = torch.stack([dt - spec.dt_max, spec.dt_min - dt], dim=-1)
+    d = dt[..., None]  # no 0-d arithmetic: see ``solvers/lsq_lm.py``
+    g = torch.cat([d - spec.dt_max, spec.dt_min - d], dim=-1)
     return g.flatten(-2) if spec.nonuniform_dt else g
 
 

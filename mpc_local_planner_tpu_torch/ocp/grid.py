@@ -17,6 +17,7 @@ from mpc_local_planner_tpu_torch.core.so2 import (
     _wrap_theta,
     se2_boxminus,
     se2_boxplus,
+    se2_interpolate,
 )
 
 
@@ -71,6 +72,26 @@ def initial_primal(spec, scenario) -> Primal:
     dt_shape = x0.shape[:-1] + ((spec.N,) if spec.nonuniform_dt else ())
     dt = torch.full(dt_shape, spec.dt_ref, dtype=x0.dtype, device=x0.device)
     return Primal(xs=xs, us=_seed_controls(spec, xs, dt), dt=dt)
+
+
+def primal_from_plan(spec, plan_xy_theta, x0, dt=None) -> Primal:
+    """Seed from a global plan (..., P, 3): the plan's poses resampled onto
+    the N+1 grid states by arc index with shortest-arc angle blending, x_0
+    pinned to the measured state ``x0``, dt = ``dt`` (dt_ref by default; at
+    every stage on the non-uniform grid), path-seeded controls."""
+    P = plan_xy_theta.shape[-2]
+    dev = plan_xy_theta.device
+    pos = torch.linspace(0.0, float(P - 1), spec.N + 1, dtype=torch.float64, device=dev)
+    idx0 = torch.clamp(torch.floor(pos).long(), 0, P - 2)
+    frac = (pos - idx0.to(pos.dtype)).to(plan_xy_theta.dtype)
+    pa = plan_xy_theta[..., idx0, :]
+    pb = plan_xy_theta[..., idx0 + 1, :]
+    # the stage fractions broadcast over every leading batch dim of the plan
+    xs = se2_interpolate(pa, pb, frac.expand(pa.shape[:-1]))
+    xs = _set_first_state(xs, x0)
+    dt_shape = xs.shape[:-2] + ((spec.N,) if spec.nonuniform_dt else ())
+    dtv = torch.full(dt_shape, spec.dt_ref if dt is None else dt, dtype=xs.dtype, device=dev)
+    return Primal(xs=xs, us=_seed_controls(spec, xs, dtv), dt=dtv)
 
 
 def _take_stages(a, src):

@@ -13,7 +13,9 @@ trapezoidal, with the hybrid time weight), the terminal quadratic cost and
 the terminal ball, on a uniform grid with a fixed or variable dt or on the
 non-uniform grid of a per-stage dt. It raises ``ValueError`` for an unknown
 collocation rule, as the JAX spec does, and ``NotImplementedError`` naming
-the ROADMAP item for a model or footprint outside the port.
+the ROADMAP item for a model or footprint outside the port. A
+``hybrid_time_weight`` of 0 or below leaves the hybrid term out, as in the
+JAX package (every use gates on a weight above 0).
 """
 
 from __future__ import annotations
@@ -97,8 +99,6 @@ class OcpSpec:
             raise ValueError(f"unknown objective {self.objective!r}")
         if self.cost_integration not in ("left_sum", "trapezoidal"):
             raise ValueError(f"unknown cost_integration {self.cost_integration!r}")
-        if self.hybrid_time_weight < 0.0:
-            raise ValueError("hybrid_time_weight must be >= 0")
 
     @property
     def nx(self) -> int:

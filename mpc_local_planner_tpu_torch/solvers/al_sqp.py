@@ -50,6 +50,7 @@ from mpc_local_planner_tpu_torch.solvers.riccati import (
     build_augmented_transition_nonuniform,
     lqr_solve,
 )
+from mpc_local_planner_tpu_torch.solvers.riccati_pscan import lqr_solve_pscan
 
 
 # --------------------------------------------------------------------------- #
@@ -61,8 +62,12 @@ class SolverSettings:
 
     kkt: "auto" (or "pallas") = kernel K1 for CUDA tensors, the plain
     ``lqr_solve`` for CPU tensors; "scan" = the plain ``lqr_solve`` on any
-    device. fused: "auto" = the fused kernel for the solves ``fused_dispatch_ok``
-    admits; "off" = always the un-fused path.
+    device; "pscan" (or ``horizon_parallel=True``) = the horizon-parallel
+    ``lqr_solve_pscan`` (the same solution in log-depth composition rounds).
+    fused: "auto" = the fused kernel for the solves ``fused_dispatch_ok``
+    admits; "off" = always the un-fused path. early_exit: a lane stops at
+    the end of the first AL phase whose iterate is feasible (converge or
+    exhaust ``n_al``); the others run on.
     """
 
     n_al: int = 5
@@ -122,11 +127,7 @@ class Decisions:
 
 
 def _check_settings(settings: SolverSettings):
-    if settings.early_exit:
-        raise NotImplementedError("early_exit is not ported yet (ROADMAP M10)")
-    if settings.horizon_parallel or settings.kkt == "pscan":
-        raise NotImplementedError("the pscan KKT solve is not ported yet (ROADMAP M11)")
-    if settings.kkt not in ("auto", "pallas", "scan"):
+    if settings.kkt not in ("auto", "pallas", "scan", "pscan"):
         raise ValueError(f"unknown kkt backend {settings.kkt!r}")
     if settings.fused not in ("auto", "off"):
         raise ValueError(f"unknown fused mode {settings.fused!r}")
@@ -785,6 +786,11 @@ def solve(
     kernel's defect values (the merit's and the dual update's; by default
     ``make_ocp_functions(spec)``). ``decisions`` takes the line search's
     pick and the growth test (exact by default).
+
+    With ``settings.early_exit`` a lane freezes (its primal, duals, norms and
+    best-feasible snapshot) at the end of the first AL phase that leaves it
+    feasible, as JAX's ``while_loop`` under ``vmap`` keeps a lane whose
+    condition is false; the phases run while any lane is active.
     """
     _check_settings(settings)
     decisions = decisions or Decisions()
@@ -803,7 +809,10 @@ def solve(
             return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k,
                                settings.dt_prox)
 
-    lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
+    if settings.horizon_parallel or settings.kkt == "pscan":
+        lqr = lqr_solve_pscan
+    else:
+        lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
     dtype = init.xs.dtype
     B = init.dt.shape[0]
     reg0 = torch.full((B,), settings.reg0, dtype=dtype, device=init.xs.device)
@@ -813,23 +822,34 @@ def solve(
     eq_norm, viol = inf, inf
     b_primal, b_eq, b_in = init, inf, inf
     b_found = torch.zeros((B,), dtype=torch.bool, device=init.xs.device)
+    active = torch.ones((B,), dtype=torch.bool, device=init.xs.device)
     for _al in range(settings.n_al):
+        if settings.early_exit and not bool(active.any()):
+            break
         reg = reg0  # reg restarts each phase: the dual update reshapes the merit
+        p = primal
         for _sqp in range(settings.n_sqp):
-            primal, reg = _sqp_iteration(
-                spec, funcs, settings, kkt_system, primal, scenario, duals, reg, lqr,
+            p, reg = _sqp_iteration(
+                spec, funcs, settings, kkt_system, p, scenario, duals, reg, lqr,
                 decisions,
             )
-        duals, viol_prev, eq_norm, viol = _update_duals(
-            spec, funcs, primal, scenario, duals, settings, viol_prev, decisions
+        d, vp, e, v = _update_duals(
+            spec, funcs, p, scenario, duals, settings, viol_prev, decisions
         )
+        # a lane frozen by early_exit keeps its phase-end state
+        primal, duals = where_tree(active, p, primal), where_tree(active, d, duals)
+        viol_prev = torch.where(active, vp, viol_prev)
+        eq_norm, viol = torch.where(active, e, eq_norm), torch.where(active, v, viol)
         # best-feasible snapshot: a later dual update can push a feasible
         # iterate back out of tolerance
         ok = (eq_norm < settings.tol_eq) & (viol < settings.tol_ineq)
-        b_primal = where_tree(ok, primal, b_primal)
-        b_eq = torch.where(ok, eq_norm, b_eq)
-        b_in = torch.where(ok, viol, b_in)
-        b_found = ok | b_found
+        snap = ok & active
+        b_primal = where_tree(snap, primal, b_primal)
+        b_eq = torch.where(snap, eq_norm, b_eq)
+        b_in = torch.where(snap, viol, b_in)
+        b_found = snap | b_found
+        if settings.early_exit:
+            active = active & ~ok
 
     final_ok = (eq_norm < settings.tol_eq) & (viol < settings.tol_ineq)
     use_best = b_found & ~final_ok

@@ -119,11 +119,13 @@ def test_torch_solve_matches_jax_f32_on_converged_lanes():
 
 def test_torch_settings_refuse_what_the_slice_does_not_run():
     spec = t_config3(N=N, obstacle_cap=M)
-    for bad in (dict(early_exit=True), dict(horizon_parallel=True), dict(kkt="pscan")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_al.make_solver(spec, t_al.SolverSettings(**bad), device="cpu")
+    # early_exit and the pscan KKT solve are ported: admitted
+    for good in (dict(early_exit=True), dict(horizon_parallel=True), dict(kkt="pscan")):
+        assert callable(t_al.make_solver(spec, t_al.SolverSettings(**good), device="cpu"))
     with pytest.raises(ValueError, match="kkt"):
         t_al.make_solver(spec, t_al.SolverSettings(kkt="bogus"), device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        t_al.make_solver(spec, t_al.SolverSettings(fused="bogus"), device="cpu")
 
 
 def test_torch_entry_points_raise_without_a_card(monkeypatch):

@@ -43,6 +43,26 @@ def test_torch_port_and_chip_smoke_import_no_jax():
 
 
 @pytest.mark.parametrize(
+    "module",
+    [
+        "utils/worlds.py",
+        "planner/local_planner.py",
+        "solvers/golden.py",
+        "solvers/f64_fallback.py",
+        "solvers/lsq_lm.py",
+        "solvers/riccati_pscan.py",
+    ],
+)
+def test_torch_host_and_solver_modules_import_no_jax(module):
+    """The numpy-only and solver modules keep their own copies of what they
+    need (``Costmap``, ``inflate``, ``astar_plan``): none imports JAX or the
+    JAX package, and each is one of the files the walk above checks."""
+    path = ROOT / "mpc_local_planner_tpu_torch" / module
+    assert path in _port_files()
+    assert _bad_imports(path.read_text()) == []
+
+
+@pytest.mark.parametrize(
     "source, bad",
     [
         ("import jax.numpy as jnp", True),

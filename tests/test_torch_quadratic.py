@@ -288,8 +288,10 @@ def test_torch_spec_admits_the_quadratic_family_and_refuses_the_rest():
     for kw in (TRAPEZOIDAL, dict(variable_dt=False, objective="minimum_time"),
                dict(model=tm.KinematicBicycleModelVelocityInput()), dict(via_cap=2)):
         assert k2a.fused_supported(dataclasses.replace(c2, **kw))
-    with pytest.raises(ValueError, match="hybrid_time_weight"):
-        dataclasses.replace(c2, hybrid_time_weight=-1.0)
+    # a negative hybrid time weight is admitted and left out, as in the JAX
+    # spec (every use gates on a weight above 0)
+    assert dataclasses.replace(c2, hybrid_time_weight=-1.0).hybrid_time_weight == -1.0
+    assert k2a.fused_supported(dataclasses.replace(c2, hybrid_time_weight=-1.0))
     with pytest.raises(ValueError, match="cost_integration"):
         dataclasses.replace(c2, cost_integration="simpson")
     # the midpoint and Crank–Nicolson rules (K2b) are admitted, and in the
