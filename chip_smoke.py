@@ -158,13 +158,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  39. LM      — ``solve_single_lm`` on 1024 flagship lanes on the card and
                the first 16 on the CPU, float64: bench.py's gate on those
                lanes, the seconds of both; in the last phase
+ 41. fleet   — ``Controller(cfg, batch=4096)`` on examples/demo_fleet.py's
+               config (the flagship: simple car, disc r=0.2, 8 circle
+               slots, N=30, minimum time, 1024 rescue slots) on
+               ``random_ensemble`` seed 0: a cold step (K1: 240 launches)
+               and 8 warm steps (the fused kernel: the warm 2×4 solve and
+               the 4×4 rescue, 2 launches each), the planned stage 1 and
+               u0 fed back; step 4 passes ``elapsed`` (per-lane shifts),
+               step 6 moves 512 lanes' goals past the reinit distance
+               (they must restart fresh); the last warm solve against the
+               un-fused one with bench.py's gate; one more warm step
+               under torch.profiler; run after path F
+ 42. robot   — ``Controller(cfg)`` unbatched on
+               examples/cfg/carlike_minimum_time.yaml (N=50, two discs, 30
+               slots) in a closed loop of at most 30 cycles around 3
+               circles (``ObstacleSet.from_lists``, ``Scenario.goal_only``)
+               until ``is_goal_reached``: cycles to the goal, the median
+               and p90 warm step; K1 once per SQP iteration, the fused
+               kernel never; one more warm step under torch.profiler
+ 43. surface — the rest of the Controller unbatched: time_based_single_step
+               grid adaptation from N=50, ``calibrate_cycle_budget`` under
+               ``max_cycle_ms``, ``precompile`` over 3 horizons, an
+               ``lsq_lm`` step and the float64 tier (no flag true → false)
  last    — the float64 checks of phases 7, 13, 18, 21, 25, 28, 31 and
                34 at every prefix of the schedule (each of those phases
                saves its warm inputs and runs the float32 check and the
                times at once), phases 36, 37 and 39 (started first) and the
                B=1024 cases of phases 14 and 23: 36 processes, at most 17
                at once (``last_phase``)
- 40. summary — the seconds of the build, of each path and of the last
+ 44. summary — the seconds of the build, of each path and of the last
                phase (``smoke_split_s``), the kernels line, the card line,
                then the result line
 
@@ -177,6 +199,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import resource
 import statistics
@@ -199,6 +222,53 @@ GATE_LANES = 256
 SETTLE_CYCLES = 2
 TIMED_CYCLES = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+# The Controller phases' configs, as dicts (no YAML reader on the card's
+# machine). FLEET_CONFIG is examples/demo_fleet.py's at 4096 robots (rescue
+# slots B//4); CARLIKE_MINIMUM_TIME is examples/cfg/carlike_minimum_time.yaml
+# written out (tests/test_torch_config.py holds the two equal).
+FLEET_CONFIG = {
+    "robot": {
+        "type": "simple_car",
+        "simple_car": {
+            "wheelbase": 0.5, "max_vel_x": 0.4,
+            "max_vel_x_backwards": 0.2, "max_steering_angle": 1.0,
+            "acc_lim_x": 0.5,
+        },
+    },
+    "grid": {
+        "grid_size_ref": 30,
+        "dt_ref": 0.3,
+        "xf_fixed": [True, True, True],
+        "variable_grid": {"enable": True, "min_dt": 0.001, "max_dt": 0.5},
+    },
+    "planning": {"objective": {"type": "minimum_time"}},
+    "collision": {"min_obstacle_dist": 0.1, "obstacle_capacity": 8},
+    "footprint_model": {"type": "circular", "radius": 0.2},
+    "solver": {"tol_eq": 0.001, "tol_ineq": 0.001, "rescue_slots": BATCH // 4},
+}
+CARLIKE_MINIMUM_TIME = {
+    "robot": {
+        "type": "simple_car",
+        "simple_car": {
+            "wheelbase": 0.5, "max_vel_x": 0.4, "max_vel_x_backwards": 0.2,
+            "max_steering_angle": 1.0, "acc_lim_x": 0.5,
+        },
+    },
+    "grid": {
+        "grid_size_ref": 50,
+        "dt_ref": 0.3,
+        "xf_fixed": [True, True, True],
+        "collocation_method": "forward_differences",
+        "variable_grid": {"enable": True, "min_dt": 0.001, "max_dt": 0.5},
+    },
+    "planning": {"objective": {"type": "minimum_time"}},
+    "collision": {"min_obstacle_dist": 0.1, "obstacle_capacity": 30},
+    "footprint_model": {
+        "type": "two_circles", "front_offset": 0.15, "front_radius": 0.2,
+        "rear_offset": -0.15, "rear_radius": 0.2,
+    },
+    "solver": {"tol_eq": 0.001, "tol_ineq": 0.001},
+}
 # Errors are max |kernel − plain| over the step, relative to the step's
 # largest entry. f64: the two versions do the same arithmetic in another
 # order, so they agree to a few ulps (1e-15 measured on an H100).
@@ -1392,6 +1462,12 @@ def main():
     gate_and_trace("crank_nicolson", specF, warmF, warmF_f, settledF, cycleF,
                    extraF["cycle_ms"])
     lap("33_35_path_f")
+
+    # ---- 41-43. the Controller: the fleet, one robot, the rest ------------ #
+    fleet = controller_fleet_phase(device, card)
+    robot = controller_robot_phase(device, card)
+    controller_surface_phase(device, card)
+    lap("41_43_controller")
     paths_s = time.perf_counter() - t_start - build_s
 
     # ---- the paths' f64 checks; 14 and 23: the other models, config #1, the
@@ -1399,11 +1475,11 @@ def main():
     t_cases = time.perf_counter()
     case_rows = last_phase(checks, [name for name, _, _ in all_cases()])
     print(json.dumps({"smoke_split_s": {
-        "build": build_s, "phases_3_to_35": paths_s,
+        "build": build_s, "phases_3_to_43": paths_s,
         "f64_checks_and_cases": time.perf_counter() - t_cases,
         "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
 
-    # ---- 40. summary ---------------------------------------------------- #
+    # ---- 44. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
     from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX
 
@@ -1411,13 +1487,13 @@ def main():
         """The main paths' launches of the rules that start with one of ``prefixes``."""
         return sum(n for rule, n in RULE_LAUNCHES.items() if rule.startswith(prefixes))
 
-    def fused_row(name, launches, r, line=264):
-        return {
+    def fused_row(name, launches, r, line=264, by_path=None):
+        row = {
             "name": name,
             "route": "cuda",
             "source": "mpc_local_planner_tpu_torch/csrc/fused_al_sqp.cu",
             "replaces": f"mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py:{line}",
-            "launches": launches,
+            "launches": launches if by_path is None else sum(by_path.values()),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1425,13 +1501,19 @@ def main():
             "bound_by": r["bound_by"],
             "library_ms": None,
         }
+        if by_path is not None:
+            row["launches_by_path"] = by_path
+        return row
 
+    k1_by_path = {"unfused_main": launches, "controller_fleet": fleet["k1_launches"],
+                  "controller_robot": robot["k1_launches"]}
     print(json.dumps({"kernels": [{
         "name": "K1 riccati_sweep",
         "route": "cuda",
         "source": "mpc_local_planner_tpu_torch/csrc/riccati_sweep.cu",
         "replaces": "mpc_local_planner_tpu/ops/riccati_pallas.py:37",
-        "launches": launches,
+        "launches": sum(k1_by_path.values()),
+        "launches_by_path": k1_by_path,
         "max_abs_err": row["max_abs_err_f32"],
         "ms": row["ms"],
         "device_ms": row["device_ms"],
@@ -1440,7 +1522,9 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
     },
-        fused_row("K2a fused_al_sqp", k2a_launches, row2),
+        fused_row("K2a fused_al_sqp", k2a_launches, row2,
+                  by_path={"fused_main": k2a_launches,
+                           "controller_fleet": fleet["fused_launches"]}),
         fused_row("K2 fused_al_sqp: unicycle, quadratic form, terminal ball, fixed dt "
                   "(config #2)", fused2, row3),
         fused_row("K2 fused_al_sqp: simple car, two-disc footprint (K2c; the reference's "
@@ -1629,6 +1713,377 @@ def lm_phase():
         _fail(f"Levenberg-Marquardt on the card disagrees with the CPU: {info}")
 
 
+# --------------------------------------------------------------------------- #
+# the Controller (phases 41-43)
+# --------------------------------------------------------------------------- #
+FLEET_STEPS = 9          # one cold step, then 8 warm ones
+FLEET_ELAPSED_STEP = 4   # this step passes elapsed (per-lane shifts)
+FLEET_REINIT_STEP = 6    # this step moves REINIT_LANES goals past the threshold
+FLEET_ELAPSED = 0.25
+REINIT_LANES = 512
+REINIT_MOVE = 1.5        # metres along the goal's heading (threshold 1.0)
+ROBOT_CYCLES = 30        # the single robot's closed loop, at most (21 to the goal on the H100)
+ROBOT_PERIOD = 0.3       # seconds of driving per cycle (the cycles' elapsed)
+ROBOT_SUBSTEPS = 6       # the simulated drive's Euler steps per cycle (the demo's)
+ROBOT_GOAL = (2.4, 0.3, 0.0)
+ROBOT_CIRCLES = [(1.0, 0.6, 0.2), (1.6, -0.35, 0.2), (0.5, -0.5, 0.15)]
+# the surface phase's cold budget (its cycles check the surface, not the
+# cold solve the single-robot phase already runs at the full preset)
+SURFACE_COLD = {"iterations": 2, "inner_iterations": 3}
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def launch_counts():
+    """(K1, fused) launches since ``reset_counts``."""
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    return riccati_cuda.lqr_solve_cuda.launches, k2a.fused_solve_cuda.launches
+
+
+def _load_libraries(spec, device):
+    """Load K1's library and the fused kernel's group of ``spec`` before a
+    timed path, as ``Controller.precompile`` does (each launch's first call
+    would otherwise pay the library's load)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
+
+    if device.type == "cuda":
+        riccati_cuda._load()
+        fused_al_sqp_cuda._load(fused_al_sqp_cuda.group(spec, torch.float32))
+
+
+def _recording(ctrl):
+    """Record the inputs of each solve ``ctrl`` runs (``inputs[-1]``: the
+    last step's (warm, scenario, init, duals))."""
+    inputs = []
+    build = ctrl._solver_fn
+
+    def solver_fn(warm):
+        fn = build(warm)
+
+        def run(scenario, init, duals):
+            inputs.append((warm, scenario, init, duals))
+            return fn(scenario, init, duals)
+
+        return run
+
+    ctrl._solver_fn = solver_fn
+    return inputs
+
+
+def controller_fleet_phase(device, card, batch=BATCH):
+    """Phase 41: ``Controller(cfg, batch=4096)`` on examples/demo_fleet.py's
+    config (the flagship: simple car, disc r=0.2, 8 circle slots, N=30,
+    minimum time, rescue_slots 1024) on ``random_ensemble`` seed 0: one cold
+    step and 8 warm ones, feeding back the planned stage 1 and u0 of the
+    converged lanes as the demo does; step 4 passes ``elapsed`` (per-lane
+    shifts), step 6 moves 512 lanes' goals past
+    ``force_reinit_new_goal_dist``. K1 must carry the cold step (240
+    launches) and the fused kernel each warm step (the warm solve and the
+    rescue: 2 launches); the last warm step's solve is held against the
+    un-fused solve on the same inputs with bench.py's gate."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import random_ensemble
+    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal
+    from mpc_local_planner_tpu_torch.ocp.spec import Scenario
+    from mpc_local_planner_tpu_torch.planner import Controller, load_config
+    from mpc_local_planner_tpu_torch.solvers import agreement
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import make_solver
+
+    cfg = load_config({**FLEET_CONFIG, "solver": {**FLEET_CONFIG["solver"],
+                                                  "rescue_slots": batch // 4}})
+    ctrl = Controller(cfg, batch=batch, device=device)
+    spec, cold, warm = ctrl.spec, ctrl.settings, ctrl.warm_settings
+    scen = random_ensemble(spec, batch, torch.Generator().manual_seed(0), device=device)
+    _load_libraries(spec, device)
+    inputs = _recording(ctrl)
+    steps = []
+    reset_counts()
+    t_path = time.perf_counter()
+    for k in range(FLEET_STEPS):
+        if k == FLEET_REINIT_STEP:
+            xf = scen.xf.clone()
+            heading = torch.stack([torch.cos(xf[:REINIT_LANES, 2]),
+                                   torch.sin(xf[:REINIT_LANES, 2])], dim=-1)
+            xf[:REINIT_LANES, :2] += REINIT_MOVE * heading
+            scen = dataclasses.replace(scen, xf=xf)
+        kw = {"elapsed": FLEET_ELAPSED} if k == FLEET_ELAPSED_STEP else {}
+        shifts = None
+        if kw:  # each lane's own stage count for the interval, as step computes it
+            shifts = sorted({int(v) for v in torch.clamp(torch.round(
+                FLEET_ELAPSED / ctrl._primal.dt.clamp(min=1e-6)), 1, spec.N // 2)})
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        res = ctrl.step(scen, **kw)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        now = launch_counts()
+        row = {"step": k, "ms": ms, "k1": now[0] - before[0], "fused": now[1] - before[1],
+               "converged_frac": float(res.solve.converged.float().mean())}
+        if k == FLEET_REINIT_STEP:
+            _, s_k, init_k, duals_k = inputs[-1]
+            fresh = initial_primal(spec, s_k)
+            lanes = slice(0, REINIT_LANES)
+            # stage 0 is re-anchored to x0 on every lane
+            reset = ((init_k.xs[lanes, 1:] == fresh.xs[lanes, 1:]).flatten(1).all(1)
+                     & (init_k.xs[lanes, 0] == s_k.x0[lanes]).all(1)
+                     & (init_k.us[lanes] == fresh.us[lanes]).flatten(1).all(1)
+                     & (init_k.dt[lanes] == fresh.dt[lanes])
+                     & (duals_k.lam_def[lanes] == 0).flatten(1).all(1)
+                     & (duals_k.rho[lanes] == cold.rho0))
+            row["reinit_lanes_reset"] = int(reset.sum())
+        if shifts is not None:
+            row["shift_steps"] = shifts
+        steps.append(row)
+        if not bool(torch.isfinite(res.u0).all()) or res.u0.shape != (batch, spec.nu):
+            _fail(f"the fleet Controller's u0 is not finite of shape ({batch}, {spec.nu})")
+        conv = res.solve.converged[:, None]
+        scen = Scenario(x0=torch.where(conv, res.solve.primal.xs[:, 1], scen.x0), xf=scen.xf,
+                        obstacles=scen.obstacles, via_points=scen.via_points,
+                        via_mask=scen.via_mask, u_prev=torch.where(conv, res.u0, scen.u_prev))
+    path_s = time.perf_counter() - t_path
+    k1_total, fused_total = launch_counts()
+
+    # the last warm step's solve against the un-fused solve on its inputs
+    _, s_k, init_k, duals_k = inputs[-1]
+    out_f = make_solver(spec, warm, device)(s_k, init_k, duals_k)
+    out_u = make_solver(spec, dataclasses.replace(warm, fused="off"), device)(
+        s_k, init_k, duals_k)
+    gate, passed = agreement.gate(out_f, out_u, warm.n_al * warm.n_sqp)
+    warm_ms = [r["ms"] for r in steps[1:]]
+    trace = None
+    if device.type == "cuda":  # one more warm step, under torch.profiler
+        trace = trace_phase(lambda s, _r: ctrl.step(s), (scen, None), statistics.median(warm_ms))
+    line = {
+        "batch": batch, "N": spec.N, "cold": [cold.n_al, cold.n_sqp],
+        "warm": [warm.n_al, warm.n_sqp], "rescue_slots": cfg.solver.rescue_slots,
+        "cold_step_ms": steps[0]["ms"], "mean_warm_step_ms": statistics.mean(warm_ms),
+        "median_warm_step_ms": statistics.median(warm_ms),
+        "mean_warm_step_ms_after_the_first": statistics.mean(warm_ms[1:]),
+        "k1_launches": k1_total, "fused_launches": fused_total,
+        "converged_frac_by_step": [r["converged_frac"] for r in steps],
+        "reinit_lanes_reset": steps[FLEET_REINIT_STEP]["reinit_lanes_reset"],
+        "reinit_lanes": REINIT_LANES, "shift_steps_at_elapsed":
+            steps[FLEET_ELAPSED_STEP]["shift_steps"], "steps": steps, "path_s": path_s,
+        "gate": gate, "gate_passed": passed, "trace": trace, "device": card,
+    }
+    print(json.dumps({"controller_fleet": line}))
+    want = [(cold.n_al * cold.n_sqp, 0)] + [(0, 2)] * (FLEET_STEPS - 1)
+    got = [(r["k1"], r["fused"]) for r in steps]
+    if got != want:
+        _fail(f"the fleet Controller launched (K1, fused) {got} by step, expected {want}")
+    if line["reinit_lanes_reset"] != REINIT_LANES:
+        _fail(f"{line['reinit_lanes_reset']} of {REINIT_LANES} moved-goal lanes reset")
+    if not passed:
+        _fail(f"the fleet Controller's fused warm solve fails the gate: {gate}")
+    if not steps[-1]["converged_frac"] >= 0.5:
+        _fail(f"the fleet Controller's converged_frac {steps[-1]['converged_frac']} < 0.5")
+    return line
+
+
+def _drive(model, x, u_seq, period, substeps):
+    """The simulated robot, as examples/demo_planner.py drives it:
+    ``period`` seconds of Euler steps under the planned controls sampled by
+    zero-order hold (a variable-dt plan's stages are shorter than the
+    period), in float64 on the host. Returns the new state and the control
+    applied last (the next cycle's u_prev)."""
+    import torch
+
+    h = period / substeps
+    u_seq = type(u_seq)(times=u_seq.times.double().cpu(), values=u_seq.values.double().cpu())
+    for s in range(substeps):
+        u = u_seq.interpolate((s + 0.5) * h, mode="zoh")
+        x = x + h * model.f(x, u)
+    return torch.cat([x[:2], torch.remainder(x[2:] + math.pi, 2 * math.pi) - math.pi]), u
+
+
+def controller_robot_phase(device, card, cycles=ROBOT_CYCLES):
+    """Phase 42: ``Controller(cfg)`` unbatched on
+    examples/cfg/carlike_minimum_time.yaml (N=50, two circles, 30 slots): a
+    closed loop of at most ROBOT_CYCLES cycles, each from the simulated
+    state with ``elapsed``, the 3 circles of ``ObstacleSet.from_lists``
+    through ``Scenario.goal_only`` (padded to 30 slots), until
+    ``is_goal_reached``; the robot drives the planned controls as
+    examples/demo_planner.py does. Every warm step launches K1 once per SQP
+    iteration (2×4 = 8) and the fused kernel never. The goal's pose is held
+    to the config's tolerances (0.2 m, 0.1 rad), which a float32 minimum-time
+    plan with a fixed terminal pose may miss by rounding alone; the phase
+    prints the cycles to the goal (null when missed) and the closest
+    approach, and fails when the robot came no closer than half its start
+    distance."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.core.so2 import angle_diff
+    from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
+    from mpc_local_planner_tpu_torch.ocp.spec import Scenario
+    from mpc_local_planner_tpu_torch.planner import Controller, load_config
+
+    ctrl = Controller(load_config(CARLIKE_MINIMUM_TIME), device=device)
+    spec, warm = ctrl.spec, ctrl.warm_settings
+    _load_libraries(spec, device)
+    obs = ObstacleSet.from_lists(circles=ROBOT_CIRCLES, device=device)
+    goal = torch.tensor(ROBOT_GOAL, dtype=torch.float64)
+    x = torch.zeros(3, dtype=torch.float64)
+    u_prev = torch.zeros(2, device=device)
+    rows, reached, closest = [], None, None
+    reset_counts()
+    t_path = time.perf_counter()
+    for cycle in range(cycles):
+        scen = Scenario.goal_only(x, goal, nu=spec.nu, obstacle_set=obs, device=device)
+        scen = dataclasses.replace(scen, u_prev=u_prev)
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        res = ctrl.step(scen, elapsed=ROBOT_PERIOD)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        now = launch_counts()
+        rows.append({"cycle": cycle, "ms": ms, "k1": now[0] - before[0],
+                     "fused": now[1] - before[1], "converged": bool(res.solve.converged),
+                     "x": [round(v, 4) for v in x.tolist()]})
+        if not bool(torch.isfinite(res.u0).all()) or res.u0.shape != (spec.nu,):
+            _fail("the single-robot Controller's u0 is not finite of shape (2,)")
+        x, applied = _drive(spec.model, x, res.u_seq, ROBOT_PERIOD, ROBOT_SUBSTEPS)
+        u_prev = applied.to(device=device, dtype=u_prev.dtype)
+        dist = float(torch.linalg.norm(x[:2] - goal[:2]))
+        if closest is None or dist < closest[0]:
+            closest = (dist, abs(float(angle_diff(x[2], goal[2]))), cycle + 1)
+        if ctrl.is_goal_reached(x, goal):
+            reached = cycle + 1
+            break
+    path_s = time.perf_counter() - t_path
+    warm_rows = rows[1:]
+    warm_ms = sorted(r["ms"] for r in warm_rows)
+    line = {
+        "N": spec.N, "slots": spec.obstacle_cap, "cold": [ctrl.settings.n_al, ctrl.settings.n_sqp],
+        "warm": [warm.n_al, warm.n_sqp], "cycles_to_goal": reached, "cycles": len(rows),
+        "final_state": x.tolist(), "goal": list(ROBOT_GOAL),
+        "closest_xy_m_yaw_rad_cycle": list(closest),
+        "cold_step_ms": rows[0]["ms"],
+        "median_warm_step_ms": statistics.median(warm_ms) if warm_ms else None,
+        "p90_warm_step_ms": warm_ms[int(0.9 * (len(warm_ms) - 1))] if warm_ms else None,
+        "k1_launches_per_warm_step": sorted({r["k1"] for r in warm_rows}),
+        "k1_launches": sum(r["k1"] for r in rows), "fused_launches": sum(r["fused"] for r in rows),
+        "converged_cycles": sum(r["converged"] for r in rows), "path_s": path_s,
+        "cycles_ms_converged_start": [[round(r["ms"], 2), r["converged"], r["x"]] for r in rows],
+        "device": card,
+    }
+    if device.type == "cuda" and warm_ms:  # one more warm step, under torch.profiler
+        line["trace"] = trace_phase(lambda s, _r: ctrl.step(s, elapsed=ROBOT_PERIOD),
+                                    (scen, None), line["median_warm_step_ms"])
+    print(json.dumps({"controller_robot": line}))
+    if line["fused_launches"] != 0:
+        _fail(f"the single-robot Controller launched the fused kernel {line['fused_launches']} "
+              "times; it runs the un-fused solve")
+    if rows[0]["k1"] != ctrl.settings.n_al * ctrl.settings.n_sqp or any(
+            r["k1"] != warm.n_al * warm.n_sqp for r in warm_rows):
+        _fail(f"the single-robot Controller's K1 launches by cycle: {[r['k1'] for r in rows]}")
+    start = float(torch.linalg.norm(goal[:2]))
+    if reached is None and not closest[0] < 0.5 * start:
+        _fail(f"the single robot came no closer than {closest[0]:.3f} m to its goal "
+              f"({start:.3f} m away at the start)")
+    return line
+
+
+def controller_surface_phase(device, card):
+    """Phase 43: the rest of the Controller's surface, unbatched, a few
+    cycles each on carlike_minimum_time's config (its cold budget cut to
+    SURFACE_COLD): ``time_based_single_step`` grid adaptation from N=50
+    (the sequence of N), ``calibrate_cycle_budget`` with ``max_cycle_ms``
+    (the phase time and the capped n_al), ``precompile`` over a 3-value
+    ladder, a ``solver.type: lsq_lm`` step and a step with
+    ``f64_fallback_slots`` (no converged flag turns false)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
+    from mpc_local_planner_tpu_torch.ocp.spec import Scenario
+    from mpc_local_planner_tpu_torch.planner import Controller, load_config
+
+    def controller(**updates):
+        cfg = {ns: dict(v) for ns, v in CARLIKE_MINIMUM_TIME.items()}
+        for ns, v in updates.items():
+            cfg[ns] = {**cfg.get(ns, {}), **v}
+        cfg["solver"] = {**cfg["solver"], **SURFACE_COLD, **updates.get("solver", {})}
+        return Controller(load_config(cfg), device=device)
+
+    obs = ObstacleSet.from_lists(circles=ROBOT_CIRCLES[:1], device=device)
+
+    def scenario(x0, goal):
+        return Scenario.goal_only(x0, goal, obstacle_set=obs, device=device)
+
+    row = {"cold": [SURFACE_COLD["iterations"], SURFACE_COLD["inner_iterations"]]}
+    t0 = time.perf_counter()
+    # time-based grid adaptation: a near goal, the optimized dt far below the
+    # band (0.27-0.33 s) from the cold step on
+    adapt = {"grid": {"variable_grid": {**CARLIKE_MINIMUM_TIME["grid"]["variable_grid"],
+                                        "grid_adaptation": {"enable": True,
+                                                            "min_grid_size": 40,
+                                                            "max_grid_size": 60}}}}
+    ctrl = controller(**adapt)
+    scen = scenario([0.0, 0.0, 0.0], [0.8, 0.1, 0.0])
+    ns = []
+    for _k in range(3):
+        res = ctrl.step(scen, elapsed=ROBOT_PERIOD)
+        ns.append(ctrl._spec.N)
+        scen = dataclasses.replace(scen, x0=res.solve.primal.xs[1])
+    row["adaptation_N"] = ns
+    if len(set(ns)) < 2 or not all(abs(a - b) <= 1 for a, b in zip(ns, ns[1:])):
+        _fail(f"time_based_single_step took the horizons {ns}")
+    # precompile: cold and warm solves of 3 horizons
+    t1 = time.perf_counter()
+    row["precompiled"] = controller(**adapt).precompile(scenario([0.0, 0.0, 0.0], [1.2, 0.2, 0.0]),
+                                                        n_values=[48, 50, 52])
+    row["precompile_s"] = time.perf_counter() - t1
+    if row["precompiled"] != 6:
+        _fail(f"precompile over 3 horizons cached {row['precompiled']} solves, expected 6")
+    # the wall-clock budget: one AL phase measured, the warm n_al capped
+    ctrl = controller(solver={"max_cycle_ms": 100.0})
+    scen = scenario([0.0, 0.0, 0.0], [1.2, 0.2, 0.0])
+    ctrl.step(scen)
+    row["phase_ms"] = ctrl.calibrate_cycle_budget(scen)
+    row["capped_n_al"] = ctrl.warm_settings.n_al
+    res = ctrl.step(scen, elapsed=ROBOT_PERIOD)
+    if row["capped_n_al"] != max(1, min(2, int(100.0 / row["phase_ms"]))):
+        _fail(f"calibrate_cycle_budget capped n_al at {row['capped_n_al']}")
+    # Levenberg-Marquardt
+    ctrl = controller(solver={"type": "lsq_lm"})
+    before = launch_counts()
+    res = ctrl.step(scen)
+    row["lm_converged"] = bool(res.solve.converged)
+    row["lm_k1_launches"] = launch_counts()[0] - before[0]
+    if not bool(torch.isfinite(res.u0).all()) or res.u0.device != device:
+        _fail("the lsq_lm Controller's u0 is not finite on the card")
+    # the float64 tier on the step's stragglers
+    ctrl = controller(solver={"f64_fallback_slots": 4})
+    passes = []
+    tier = ctrl._f64_pass
+
+    def recorded(scenario, result, fresh_seed=None):
+        out = tier(scenario, result, fresh_seed)
+        passes.append((bool(result.converged), bool(out.converged)))
+        return out
+
+    ctrl._f64_pass = recorded
+    res = ctrl.step(scenario([0.0, 0.0, 0.0], [2.4, 0.3, 0.0]))
+    row["f64_converged_before_after"] = passes
+    if any(b and not a for b, a in passes):
+        _fail(f"the float64 tier turned a converged flag false: {passes}")
+    row["surface_s"] = time.perf_counter() - t0
+    row["device"] = card
+    print(json.dumps({"controller_surface": row}))
+    return row
+
+
 def solver_worker(name, path):
     """``chip_smoke.py --solver-phase NAME FILE``: phase 36 (golden), 37
     (f64_tier) or 39 (lm) in a process of its own; FILE holds path B's
@@ -1676,8 +2131,36 @@ def print_peak_memory(tag):
     print(f"{tag}: peak resident memory {peak:.2f} GiB")
 
 
+def controller_phases():
+    """``chip_smoke.py --controller-phases``: build K1 and the flagship's
+    group and run phases 41-43 alone (a few minutes)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
+
+    card = card_line()
+    print(f"device: {card}")
+    t0 = time.perf_counter()
+    riccati_cuda.build()
+    fused_al_sqp_cuda.build([fused_al_sqp_cuda.group(flagship()[0], torch.float32)])
+    t1 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    controller_fleet_phase(device, card)
+    t2 = time.perf_counter()
+    controller_robot_phase(device, card)
+    t3 = time.perf_counter()
+    controller_surface_phase(device, card)
+    print(json.dumps({"controller_phases_s": {"build": t1 - t0, "fleet": t2 - t1,
+                                              "robot": t3 - t2,
+                                              "surface": time.perf_counter() - t3}}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--family-case"]:
+    if sys.argv[1:2] == ["--controller-phases"]:
+        controller_phases()
+    elif sys.argv[1:2] == ["--family-case"]:
         family_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--f64-check"]:
         f64_worker(sys.argv[2])

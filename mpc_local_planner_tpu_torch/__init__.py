@@ -7,7 +7,8 @@ cycle of BASELINE configs #1-#3 and the specs ``OcpSpec`` admits:
 The warm solve and the rescue run as one launch each of the hand-written
 CUDA fused kernel (``ops/fused_al_sqp_cuda.py``); the other solves take the
 un-fused path, whose KKT solve is the hand-written CUDA kernel K1
-(``ops/riccati_cuda.py``).
+(``ops/riccati_cuda.py``). ``planner.Controller`` (with ``load_config``)
+drives a fleet or one robot cycle by cycle, as the JAX Controller does.
 """
 
 from mpc_local_planner_tpu_torch.benchmarks import (

@@ -28,6 +28,11 @@ def angle_diff(a, b):
     return normalize_angle(a - b)
 
 
+def interpolate_angle(a, b, t):
+    """Interpolate from angle a to b along the shortest arc; t in [0, 1]."""
+    return normalize_angle(a + t * angle_diff(b, a))
+
+
 def rot2d(theta):
     """2x2 rotation matrix(es); theta (...,) -> (..., 2, 2)."""
     c, s = torch.cos(theta), torch.sin(theta)

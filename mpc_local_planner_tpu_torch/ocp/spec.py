@@ -129,3 +129,27 @@ class Scenario:
     via_points: torch.Tensor  # (..., Mv, 3)
     via_mask: torch.Tensor    # (..., Mv) bool
     u_prev: torch.Tensor      # (..., nu) control applied in the previous cycle
+
+    @staticmethod
+    def goal_only(x0, xf, nu: int = 2, obstacle_set: Optional[ObstacleSet] = None,
+                  via_cap: int = 0, dtype=torch.float32, device="cpu") -> "Scenario":
+        """A point-to-point scenario on ``device``: no via point, u_prev = 0 and
+        ``obstacle_set`` (none by default), an unbatched set broadcast over
+        the scenario batch."""
+        x0 = torch.as_tensor(x0, dtype=dtype).to(device)
+        xf = torch.as_tensor(xf, dtype=dtype).to(device)
+        if obstacle_set is None:
+            obstacle_set = ObstacleSet.empty(dtype=dtype, device=device)
+        batch = tuple(x0.shape[:-1])
+        if batch and obstacle_set.batch_ndim == 0:
+            obstacle_set = obstacle_set._map(
+                lambda _n, a: a.expand(batch + a.shape).contiguous()
+            )
+        return Scenario(
+            x0=x0,
+            xf=xf,
+            obstacles=obstacle_set,
+            via_points=torch.zeros(batch + (via_cap, 3), dtype=dtype, device=device),
+            via_mask=torch.zeros(batch + (via_cap,), dtype=torch.bool, device=device),
+            u_prev=torch.zeros(batch + (nu,), dtype=dtype, device=device),
+        )

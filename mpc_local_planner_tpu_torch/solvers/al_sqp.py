@@ -40,7 +40,7 @@ from mpc_local_planner_tpu_torch.geometry.obstacles import BIG_DISTANCE, Obstacl
 from mpc_local_planner_tpu_torch.ocp import constraints as C
 from mpc_local_planner_tpu_torch.ocp.collocation import stage_defect
 from mpc_local_planner_tpu_torch.ocp.costs import trapezoidal, via_stage_assignment
-from mpc_local_planner_tpu_torch.ocp.grid import Primal, initial_primal
+from mpc_local_planner_tpu_torch.ocp.grid import Primal, _take_stages, initial_primal
 from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions, make_ocp_functions
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec
 from mpc_local_planner_tpu_torch.ops.riccati_cuda import lqr_solve_auto
@@ -157,19 +157,30 @@ class SolveResult:
     converged: torch.Tensor  # bool per scenario
 
 
-def shift_duals(duals: DualState, settings: SolverSettings, steps: int = 1) -> DualState:
+def shift_duals(duals: DualState, settings: SolverSettings, steps=1) -> DualState:
     """Shift stage-indexed multipliers with the warm-started grid (on the
     non-uniform grid the per-interval dt-box pairs too); ρ restarts at
-    rho0."""
-    if not isinstance(steps, int):
-        raise NotImplementedError(
-            "per-lane (tensor) dual shifts are not ported yet (ROADMAP M10)"
+    rho0. ``steps``: a Python int, or an integer tensor with the duals'
+    batch shape (a shift per lane), clipped to [1, N//2] like the primal's
+    per-lane warm starts, so a lane whose step is 0 shifts its multipliers
+    with its constraints."""
+    if isinstance(steps, int):
+        def roll(a):
+            n = a.shape[-2]
+            src = torch.clamp(torch.arange(n, device=a.device) + steps, max=n - 1)
+            return a[..., src, :]
+    else:
+        n_stages = duals.lam_def.shape[-2]
+        lane_steps = torch.as_tensor(steps, device=duals.lam_def.device).long()
+        lane_steps = torch.clamp(
+            torch.broadcast_to(lane_steps, duals.rho.shape), 1, max(1, n_stages // 2)
         )
 
-    def roll(a):
-        n = a.shape[-2]
-        src = torch.clamp(torch.arange(n, device=a.device) + steps, max=n - 1)
-        return a[..., src, :]
+        def roll(a):
+            n = a.shape[-2]
+            src = torch.clamp(torch.arange(n, device=a.device) + lane_steps[..., None],
+                              max=n - 1)
+            return _take_stages(a, src)
 
     mu_dt = duals.mu_dt
     if mu_dt.shape[-1] > 2:

@@ -75,6 +75,10 @@ class UnicycleModel(BaseRobotSE2):
         v, om = u[..., 0], u[..., 1]
         return torch.stack([v * torch.cos(th), v * torch.sin(th), om], dim=-1)
 
+    def twist_from_control(self, x, u):
+        """(linear.x, linear.y, angular.z): the unicycle's controls are its twist."""
+        return torch.stack([u[..., 0], torch.zeros_like(u[..., 0]), u[..., 1]], dim=-1)
+
     def control_bounds(self, limits: RobotLimits):
         lo = _f64([-limits.max_vel_x_backwards, -limits.max_vel_theta])
         hi = _f64([limits.max_vel_x, limits.max_vel_theta])
@@ -105,6 +109,11 @@ class SimpleCarModel(BaseRobotSE2):
             [v * torch.cos(th), v * torch.sin(th), v * torch.tan(phi) / wb], dim=-1
         )
 
+    def twist_from_control(self, x, u):
+        v, phi = u[..., 0], u[..., 1]
+        om = v * torch.tan(phi) / self.wheelbase
+        return torch.stack([v, torch.zeros_like(v), om], dim=-1)
+
     def control_bounds(self, limits: RobotLimits):
         return _steered_bounds(limits)
 
@@ -127,6 +136,13 @@ class SimpleCarFrontWheelDrivingModel(SimpleCarModel):
         vl = v * torch.cos(phi)
         return torch.stack(
             [vl * torch.cos(th), vl * torch.sin(th), v * torch.sin(phi) / wb], dim=-1
+        )
+
+    def twist_from_control(self, x, u):
+        v, phi = u[..., 0], u[..., 1]
+        return torch.stack(
+            [v * torch.cos(phi), torch.zeros_like(v), v * torch.sin(phi) / self.wheelbase],
+            dim=-1,
         )
 
 
@@ -152,8 +168,34 @@ class KinematicBicycleModelVelocityInput(BaseRobotSE2):
             dim=-1,
         )
 
+    def twist_from_control(self, x, u):
+        v, delta = u[..., 0], u[..., 1]
+        beta = torch.atan(self.lr * torch.tan(delta) / (self.lf + self.lr))
+        return torch.stack(
+            [v * torch.cos(beta), v * torch.sin(beta), v * torch.sin(beta) / self.lr], dim=-1
+        )
+
     def control_bounds(self, limits: RobotLimits):
         return _steered_bounds(limits)
 
     def control_rate_bounds(self, limits: RobotLimits):
         return _steered_rate_bounds(limits)
+
+
+ROBOT_TYPES = {
+    "unicycle": UnicycleModel,
+    "simple_car": SimpleCarModel,
+    "simple_car_front_wheel_driving": SimpleCarFrontWheelDrivingModel,
+    "kinematic_bicycle_vel_input": KinematicBicycleModelVelocityInput,
+}
+
+
+def make_robot_dynamics(robot_type: str, **kwargs):
+    """Factory (parity: Controller::configureRobotDynamics robot.type switch)."""
+    try:
+        cls = ROBOT_TYPES[robot_type]
+    except KeyError:
+        raise ValueError(
+            f"unknown robot type {robot_type!r}; options: {sorted(ROBOT_TYPES)}"
+        ) from None
+    return cls(**kwargs)
