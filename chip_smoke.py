@@ -11,7 +11,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                launches (csrc/fused_al_sqp.cu: one library per working type,
                model, objective family, grid and collocation family, five
                instantiations each; 16 of the 96) into _build/, all at
-               once; each build's seconds and the phase's wall time
+               once; as soon as K1 is built, the main paths' ensembles and
+               cold solves (phases 4, 12, 17, 20, 24, 27, 30 and 33: the
+               cold preset, un-fused, K1 once per SQP iteration; path B's
+               from its A* plans), each in a process of its own beside the
+               builds (``cold_phase``: host-bound, the card idle); each
+               build's seconds, each cold solve's line and the wall time
   3. kernel  — K1 against its plain PyTorch version on the Riccati inputs of
                one real flagship SQP iteration (B=4096 and 1024, N=30, and
                B=4096 at N=96, past the cap K1 once had), in float64 and
@@ -21,10 +26,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                its blocks per SM
   4. main    — the flagship warm fleet cycle on the un-fused path
                (fused="off"), as bench.py::main drives it: config3 (N=30, 8
-               circle slots), 4096 lanes, cold 16×15 solve, 2 settle + 8
-               timed warm cycles (3×4, 3 candidates) with the 1024-slot 4×4
-               rescue (8 candidates), then the cold oracle; K1 must carry
-               every SQP iteration (760 launches)
+               circle slots), 4096 lanes, from phase 2's cold 16×15 solve,
+               2 settle + 8 timed warm cycles (3×4, 3 candidates) with the
+               1024-slot 4×4 rescue (8 candidates); K1 must carry every
+               SQP iteration (280 launches); its cold oracle runs in the
+               last phase
   5. gate    — the warm solve with K1 against the same solve with the plain
                KKT solve, on 256 lanes of the live warm state
   6. trace   — one un-fused warm cycle under torch.profiler: device kernel
@@ -35,7 +41,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                float32; kernel, plain and bound times
   8. fused   — the same main path with fused="auto" from the same cold solve:
                the warm solve and the rescue run as one K2a launch each (20
-               launches), K1 only for the oracle (240)
+               launches), K1 none (its oracle in the last phase)
   9. gate    — the fused warm solve (K2a) against the un-fused one (AD
                derivatives + K1) on 256 lanes of the live warm state
  10. trace   — one fused warm cycle under torch.profiler
@@ -44,11 +50,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                (B=4096), float64 and float32
  12. config2 — the warm fleet cycle of BASELINE config #2 (unicycle, disc
                r=0.2, 10 circle slots, quadratic form with Qf, terminal
-               ball, fixed dt 0.3, N=30) with fused="auto": cold 8×10 solve
-               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
-               1024-slot 4×4 rescue, the cold oracle; the fused kernel must
-               carry the warm solve and the rescue (20 launches), K1 the
-               cold solve and the oracle (160)
+               ball, fixed dt 0.3, N=30) with fused="auto" from phase 2's
+               cold 8×10 solve (un-fused, K1: 80 launches), 2 settle + 8
+               timed warm cycles (3×4) with the 1024-slot 4×4 rescue; the
+               fused kernel must carry the warm solve and the rescue (20
+               launches), K1 nothing
  13. kernel  — the fused kernel against its plain version on config #2's
                live warm state, as phase 7 does for the flagship
  14. family  — the kernel against its plain version (float64 at every
@@ -63,10 +69,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  17. path A  — the reference's car-like config (family_spec
                "canonical_carlike": the simple car with the two-disc
                footprint, 8 circle slots, minimum time) on the fused path as
-               bench.py's families mode runs it: cold 16×15 (un-fused, K1),
-               2 settle + 8 timed warm cycles (3×4) with the 1024-slot 4×4
-               rescue, the cold oracle; 20 fused launches, 480 of K1, none
-               in the warm cycles
+               bench.py's families mode runs it: from phase 2's cold 16×15
+               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue; 20 fused launches, none of K1
  18. kernel  — the fused kernel against its plain version on path A's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  19. gate    — path A's fused warm solve against the un-fused one; trace
@@ -75,12 +80,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                shipping defaults, bench.py's BENCH_LINES_SEED=astar: per-lane
                A* plans (``lines_astar_plans``, built across processes) seed
                the cold 16×15 solve and every fresh restart, the rescue
-               reseeds a diverged slot from its lane's plan, and the oracle
-               re-plans A* from the current states; warm 4×4, the 2048-slot
-               4×4 rescue chained twice per cycle, stuck_restart=2; 30 fused
-               launches (3 per cycle), 480 of K1; a line with the plans'
-               count, both builds' seconds and the metrics beside the
-               straight-line seed's converged_frac of record
+               reseeds a diverged slot from its lane's plan (its oracle,
+               in phases 36 and 37, re-plans A* from the current states);
+               warm 4×4, the 2048-slot 4×4 rescue chained twice per cycle,
+               stuck_restart=2; 30 fused launches (3 per cycle), none of K1
+               (the plans and the cold solve are phase 2's);
+               a line with the plans' count, the build's seconds and the
+               converged_frac beside the straight-line seed's of record
  21. kernel  — the fused kernel against its plain version on path B's live
                warm state (4096 lanes at 4×4, the 2048-slot rescue)
  22. gate    — path B's fused warm solve against the un-fused one; trace
@@ -107,38 +113,39 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                --family-case NAME``); then each is timed alone
  24. path C  — the polygon-footprint family (family_spec "polygon_footprint":
                the simple car with a 0.5 × 0.3 m rectangle, 8 circle slots,
-               minimum time) as bench.py's families mode runs it: cold 16×15
-               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
-               1024-slot 4×4 rescue, the cold oracle; 20 fused launches, 480
-               of K1, none in the warm cycles; run after path B
+               minimum time) as bench.py's families mode runs it: phase 2's
+               cold 16×15, 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue; 20 fused launches, none of K1; run
+               after path B
  25. kernel  — the fused kernel against its plain version on path C's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  26. gate    — path C's fused warm solve against the un-fused one; trace
  27. path D  — the via-points family (family_spec "via_points": the flagship
                with 4 corridor via points, position weight 2, unordered,
-               8 circle slots) as bench.py's families mode runs it: cold
-               16×15 (un-fused, K1), 2 settle + 8 timed warm cycles (3×4)
-               with the 1024-slot 4×4 rescue, the cold oracle; 20 fused
-               launches, 480 of K1, none in the warm cycles; run after path C
+               8 circle slots) as bench.py's families mode runs it: phase
+               2's cold 16×15, 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue; 20 fused launches, none of K1; run
+               after path C
  28. kernel  — the fused kernel against its plain version on path D's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  29. gate    — path D's fused warm solve against the un-fused one; trace
  30. path E  — the non-uniform family (family_spec "nonuniform": the
                flagship with a per-stage dt, the kernel's K2f branch) as
-               bench.py's families mode runs it: cold 16×15 and the cold
-               oracle un-fused, their KKT solves the plain lqr_solve (δdt_k
-               a third control column: no K1 launch), 2 settle + 8 timed
-               warm cycles (3×4) with the 1024-slot 4×4 rescue; 20 fused
+               bench.py's families mode runs it: phase 2's cold 16×15
+               un-fused, its KKT solves the plain lqr_solve (δdt_k a third
+               control column: no K1 launch; nor in its oracle), 2 settle +
+               8 timed warm
+               cycles (3×4) with the 1024-slot 4×4 rescue; 20 fused
                launches, 0 of K1; run after path D
  31. kernel  — the fused kernel against its plain version on path E's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  32. gate    — path E's fused warm solve against the un-fused one; trace
  33. path F  — the Crank–Nicolson flagship (the flagship's spec with
                ``collocation="crank_nicolson_differences"``: the kernel's
-               K2b branch, the −E⁻¹ fold) as the flagship runs: cold 16×15
-               (un-fused, K1), 2 settle + 8 timed warm cycles (3×4) with the
-               1024-slot 4×4 rescue, the cold oracle; 20 fused launches, 480
-               of K1, none in the warm cycles; run after path E
+               K2b branch, the −E⁻¹ fold) as the flagship runs: phase 2's
+               cold 16×15, 2 settle + 8 timed warm cycles (3×4) with the
+               1024-slot 4×4 rescue; 20 fused launches, none of K1; run
+               after path E
  34. kernel  — the fused kernel against its plain version on path F's live
                warm state (4096 lanes at 3×4, 1024 at 4×4)
  35. gate    — path F's fused warm solve against the un-fused one; trace
@@ -147,11 +154,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                the float64 AL solve on the card, SLSQP on the host; golden
                feasible share, agreement with the cold oracle, its misses
                and false certificates, conv_on_feasible against the golden
-               labels; in the last phase
+               labels; in the last phase, after path B's oracle, which it
+               runs itself and prints
  37. f64 tier — ``make_f64_fallback`` over every straggler of path B's last
                warm result, the float64 solve on the card, the A* seed as
                its fresh seed: stragglers, rescued, seconds; no flag turns
-               false, every lane not rescued bit-equal; in the last phase
+               false, every lane not rescued bit-equal; in the last phase,
+               after path B's oracle, which it runs itself
  38. pscan   — ``lqr_solve_pscan`` against ``lqr_solve`` on K1's inputs
                (B=4096, N=30) on the card, float64 and float32, both timed
                beside K1's device time; run after path B
@@ -180,13 +189,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                grid adaptation from N=50, ``calibrate_cycle_budget`` under
                ``max_cycle_ms``, ``precompile`` over 3 horizons, an
                ``lsq_lm`` step and the float64 tier (no flag true → false)
- last    — the float64 checks of phases 7, 13, 18, 21, 25, 28, 31 and
-               34 at every prefix of the schedule (each of those phases
-               saves its warm inputs and runs the float32 check and the
-               times at once), phases 36, 37 and 39 (started first) and the
-               B=1024 cases of phases 14 and 23: 36 processes, at most 17
+ 44. serving — ``JourneyStream`` as bench.py::serving_mode runs it (the
+               flagship, warm 8×4 early-exit, ``StreamSettings()``) over 16
+               journeys of ``random_ensemble`` seed 0: ``init`` (the cold
+               16×15 solve), a settling block of 4 cycles and two timed
+               blocks of 4 (examples/demo_serving.py's blocks are 32);
+               the amortized cycle, the counts, K1 once per SQP iteration
+               (counted apart), the fused kernel never; one more cycle under
+               torch.profiler; its sampled oracle and abandon audit in the
+               last phase
+ 45. shell   — ``LocalPlanner`` on examples/demo_planner.py's scenario
+               (diff_drive_quadratic_form: unicycle, N=20, 30 point slots;
+               the 60×80 costmap with two lethal blocks; the cosine plan) in
+               a closed loop of at most 60 cycles with the native costmap
+               runtime built from native/costmap.cpp: cycles to the goal,
+               vetoes, the cycle's and the shell's own host times, K1 once
+               per SQP iteration, the fused kernel never
+ last    — the cold oracles of phases 4, 8, 12, 17, 24, 27, 30 and 33
+               (each path saves its final state) and of the serving stream
+               (with its abandon audit), the float64 checks of phases 7,
+               13, 18, 21, 25, 28, 31 and 34 at every prefix of the schedule
+               (each of those phases saves its warm inputs and runs the
+               float32 check and the times at once), phases 36, 37 and 39
+               (started first; 36 and 37 run path B's oracle) and the
+               B=1024 cases of phases 14 and 23: 45 processes, at most 17
                at once (``last_phase``)
- 44. summary — the seconds of the build, of each path and of the last
+ 46. summary — the seconds of the build, of each path and of the last
                phase (``smoke_split_s``), the kernels line, the card line,
                then the result line
 
@@ -520,41 +548,40 @@ def astar_plans(scen):
     return plans, ok, time.perf_counter() - t0
 
 
-def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH,
-              slots=RESCUE_SLOTS, family=None, chain=1, stuck_restart=0, plan_seed=False):
-    """bench.py::main on the port (families mode for a named ``family``:
-    its ensemble, the rescue chained ``chain`` times per cycle, the
-    stuck-lane restart; with ``plan_seed`` the wall family's shipping seed,
-    bench.py's ``BENCH_LINES_SEED=astar``: per-lane A* plans seed the cold
-    solve and every fresh restart, the rescue reseeds a diverged slot from
-    its lane's plan, and the oracle re-plans from the current states).
-    ``cold_start`` = (scenarios, cold result) skips the cold solve. Returns
-    (extra, settled state, seconds, one cycle from the settled state, the
-    cold start, K1's launch count after the timed cycles, the final state:
-    scenarios, result, the oracle's flags and its seed)."""
+def main_path(spec, cold, warm, rescue_set, device, cold_start, slots=RESCUE_SLOTS, chain=1,
+              stuck_restart=0):
+    """bench.py::main on the port from ``cold_start`` (``cold_phase``'s: the
+    ensemble and its cold solve, made in the build phase; families mode
+    for a named family: the rescue chained ``chain`` times per cycle, the
+    stuck-lane restart; where the cold start carries per-lane A* plans,
+    the wall family's shipping seed, bench.py's ``BENCH_LINES_SEED=astar``:
+    the plans seed every fresh restart and the rescue reseeds a diverged
+    slot from its lane's plan). The cold oracle runs in the last phase
+    (``oracle_phase``) from the final state. Returns (extra, settled state,
+    seconds, one cycle from the settled state, the cold start, K1's launch
+    count after the timed cycles, the final state: scenarios and
+    result)."""
     import torch
 
-    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal, primal_from_plan
+    from mpc_local_planner_tpu_torch.ocp.grid import primal_from_plan
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
     from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
-    from mpc_local_planner_tpu_torch.solvers.al_sqp import init_duals, make_solver
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import init_duals
     from mpc_local_planner_tpu_torch.solvers.rescue import make_rescue
 
     def sync():
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
-    secs, seed_info = {}, {}
-    scen = ensemble(spec, batch, device, family=family) if cold_start is None else cold_start[0]
+    secs, seed_info = dict(cold_start["secs"]), dict(cold_start["seed_info"])
+    scen, r, plans = cold_start["scen"], cold_start["r"], cold_start["plans"]
+    batch = scen.x0.shape[0]
     fresh_init = reseed = None
-    if plan_seed:
-        plans, ok, secs["astar_build_s"] = astar_plans(scen)
-        seed_info["astar_plans"] = int(ok.sum())
+    if plans is not None:
         fresh_init = lambda s: primal_from_plan(spec, plans, s.x0)  # noqa: E731
         reseed = lambda sk, idx: primal_from_plan(  # noqa: E731
             spec, plans.index_select(0, idx), sk.x0)
     duals0 = init_duals(spec, cold, dtype=torch.float32, device=device, batch=(batch,))
-    cold_solve = make_solver(spec, cold, device)
     rescue1 = make_rescue(spec, warm, slots, rescue_settings=rescue_set, device=device,
                           fresh_init=reseed)
 
@@ -574,14 +601,6 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
         scen, r, stuck = cycle(scen, r, stuck)
         return scen, r
 
-    if cold_start is None:
-        t0 = time.perf_counter()
-        init = initial_primal(spec, scen) if fresh_init is None else fresh_init(scen)
-        r = cold_solve(scen, init, duals0)
-        sync()
-        secs["cold_solve_s"] = time.perf_counter() - t0
-        cold_start = (scen, r)
-    scen, r = cold_start
     for _ in range(SETTLE_CYCLES):
         scen, r = run(scen, r)
     sync()
@@ -600,31 +619,123 @@ def main_path(spec, cold, warm, rescue_set, device, cold_start=None, batch=BATCH
     n_conv = int(torch.sum(r.converged))  # host fetch ends the chain
     dt = (time.perf_counter() - t0) / TIMED_CYCLES
     k1_after_cycles = riccati_cuda.lqr_solve_cuda.launches
-    if plan_seed:
-        # the oracle's denominator: feasible from the current state with a
-        # fresh global plan (bench.py re-plans A* from the current states)
-        plans_now, _, secs["astar_oracle_build_s"] = astar_plans(scen)
-        oracle_seed = primal_from_plan(spec, plans_now, scen.x0)
-    else:
-        oracle_seed = initial_primal(spec, scen)
-    t0 = time.perf_counter()
-    oracle = cold_solve(scen, oracle_seed, duals0)
-    feas = oracle.converged
-    sync()
-    secs["oracle_s"] = time.perf_counter() - t0
-    n_feas = int(torch.sum(feas))
     extra = {
         "batch": batch,
         "cycle_ms": dt * 1e3,
         "total_solves_per_s": batch / dt,
         "warm_iterations": warm.n_al * warm.n_sqp,
         "converged_frac": n_conv / batch,
-        "feasible_frac_cold_oracle": n_feas / batch,
-        "conv_on_feasible": int(torch.sum(r.converged & feas)) / max(n_feas, 1),
         **seed_info,
     }
-    final = (scen, r, feas, oracle_seed)
-    return extra, settled, secs, one_cycle, cold_start, k1_after_cycles, final
+    return extra, settled, secs, one_cycle, cold_start, k1_after_cycles, (scen, r)
+
+
+# the main paths whose ensembles and cold solves ``cold_phase`` makes while
+# the fused kernel's groups build: phases 4 and 8 (the flagship), 12, 17,
+# 20, 24, 27, 30 and 33
+COLD_PATHS = ("flagship", "config2", "canonical_carlike", "converter_lines",
+              "polygon_footprint", "via_points", "nonuniform", "crank_nicolson")
+
+
+def path_settings(tag):
+    """(spec, cold, warm, rescue, family) of the main path ``tag``: the
+    flagship, config #2, a family of bench.py's families mode, or the
+    Crank–Nicolson flagship."""
+    from mpc_local_planner_tpu_torch.benchmarks import family_spec
+
+    if tag == "flagship":
+        return (*flagship(), None)
+    if tag == "config2":
+        return (*fleet_settings(config2()), None)
+    if tag == "crank_nicolson":
+        return (*fleet_settings(crank_nicolson_flagship()), None)
+    return (*fleet_settings(family_spec(tag, N=30)), tag)
+
+
+def cold_phase(tag, path, device=None):
+    """A main path's ensemble (4096 lanes, seed 0) and its cold solve at the
+    cold preset (un-fused: K1 once per SQP iteration, none on the
+    non-uniform grid), in a process of its own while the fused kernel's
+    groups build: host-bound work that leaves the card idle. The wall
+    family's cold solve starts from per-lane A* plans (bench.py's
+    ``BENCH_LINES_SEED=astar``), which its path reuses. Saves them to
+    ``path`` and prints its line."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal, primal_from_plan
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import init_duals, make_solver
+
+    device = device or torch.device("cuda", 0)
+    spec, cold, _, _, family = path_settings(tag)
+    scen = ensemble(spec, BATCH, device, family=family)
+    secs, seed_info, plans = {}, {}, None
+    if tag == "converter_lines":
+        plans, ok, secs["astar_build_parallel_s"] = astar_plans(scen)
+        seed_info["astar_plans"] = int(ok.sum())
+        init = primal_from_plan(spec, plans, scen.x0)
+    else:
+        init = initial_primal(spec, scen)
+    duals0 = init_duals(spec, cold, dtype=torch.float32, device=device, batch=(BATCH,))
+    k1_before = riccati_cuda.lqr_solve_cuda.launches
+    t0 = time.perf_counter()
+    r = make_solver(spec, cold, device)(scen, init, duals0)
+    n_conv = int(torch.sum(r.converged))
+    secs["cold_solve_parallel_s"] = time.perf_counter() - t0
+    k1 = riccati_cuda.lqr_solve_cuda.launches - k1_before
+    torch.save({"scen": scen, "r": r, "plans": plans, "secs": secs, "seed_info": seed_info},
+               path)
+    print(json.dumps({"cold": {"path": tag, "batch": BATCH, "budget": [cold.n_al, cold.n_sqp],
+                               "converged": n_conv, "k1_launches": k1, **secs, **seed_info}}))
+    expected = 0 if spec.nonuniform_dt else cold.n_al * cold.n_sqp
+    if k1 != expected:
+        _fail(f"K1 launched {k1} times in the {tag} cold solve, expected {expected}")
+
+
+def load_cold_start(path):
+    import torch
+
+    return torch.load(path, map_location="cuda:0", weights_only=False)
+
+
+def oracle_phase(job, quiet=False):
+    """A main path's cold oracle, in the last phase: the feasibility
+    denominator of its final state. The cold preset (un-fused, K1 once per
+    SQP iteration; none on the non-uniform grid) from the straight-line
+    seed, or, for the wall family (``plan_seed``), from A* plans re-built
+    at the current states as bench.py does. Prints the path's
+    ``feasible_frac_cold_oracle`` and ``conv_on_feasible`` (not when
+    ``quiet``); returns (the oracle's flags, its seed)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ocp.grid import initial_primal, primal_from_plan
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import init_duals, make_solver
+
+    spec, cold, (scen, r) = job["spec"], job["cold"], job["final"]
+    batch, dev, secs = scen.x0.shape[0], scen.x0.device, {}
+    if job["plan_seed"]:
+        # feasible from the current state with a fresh global plan
+        plans_now, _, secs["astar_oracle_build_parallel_s"] = astar_plans(scen)
+        seed = primal_from_plan(spec, plans_now, scen.x0)
+    else:
+        seed = initial_primal(spec, scen)
+    duals0 = init_duals(spec, cold, dtype=torch.float32, device=dev, batch=(batch,))
+    k1_before = riccati_cuda.lqr_solve_cuda.launches
+    t0 = time.perf_counter()
+    feas = make_solver(spec, cold, dev)(scen, seed, duals0).converged
+    n_feas = int(torch.sum(feas))
+    secs["oracle_parallel_s"] = time.perf_counter() - t0
+    k1 = riccati_cuda.lqr_solve_cuda.launches - k1_before
+    line = {"path": job["tag"], "batch": batch, "feasible_frac_cold_oracle": n_feas / batch,
+            "conv_on_feasible": int(torch.sum(r.converged & feas)) / max(n_feas, 1),
+            "k1_launches": k1, **secs, "device": card_line()}
+    if not quiet:
+        print(json.dumps({"oracle": line}))
+    expected = 0 if spec.nonuniform_dt else cold.n_al * cold.n_sqp
+    if k1 != expected:
+        _fail(f"K1 launched {k1} times in the {job['tag']} oracle, expected {expected}")
+    return feas, seed
 
 
 def warm_inputs(spec, warm, settled, n):
@@ -774,16 +885,39 @@ def k2a_times(spec, st, args32, info, tag):
 
 
 class F64Checks:
-    """The main paths' float64 checks (``k2a_f64_phase``), their warm inputs
-    saved as each path makes them and run at the end, each in a process of
-    its own beside the B=1024 cases (``last_phase``): host-bound, they
-    would run one after the other here; the host has cores to spare."""
+    """The main paths' float64 checks (``k2a_f64_phase``) and cold oracles
+    (``oracle_phase``), their inputs saved as each path makes them and run
+    at the end, each in a process of its own beside the B=1024 cases
+    (``last_phase``): host-bound, they would run one after the other here;
+    the host has cores to spare. ``all_jobs`` starts the longest first: the
+    solver phases, then the oracles, then the float64 checks."""
 
     def __init__(self):
         import tempfile
 
         self.dir = tempfile.TemporaryDirectory()
         self.jobs = []
+        self.oracles = []
+        self.solver = []
+
+    def all_jobs(self):
+        return self.solver + self.oracles + self.jobs
+
+    def add_oracle(self, tag, spec, cold, final, plan_seed=False):
+        """A main path's cold oracle on its final state (scenarios, result)."""
+        import torch
+
+        path = f"{self.dir.name}/oracle_{len(self.oracles)}.pt"
+        torch.save({"tag": tag, "spec": spec, "cold": cold, "final": final,
+                    "plan_seed": plan_seed}, path)
+        self.oracles.append((f"oracle {tag}", [sys.executable, __file__, "--oracle", path]))
+        return path
+
+    def add_serving(self, path):
+        """The serving stream's sampled oracle and false-abandon audit on its
+        final state and abandoned rows, saved to ``path``."""
+        self.oracles.insert(0, ("serving oracle and audit",
+                                [sys.executable, __file__, "--serving-oracle", path]))
 
     def add(self, spec, st, args32, tag, floor=0.25):
         import torch
@@ -792,18 +926,20 @@ class F64Checks:
         torch.save({"spec": spec, "st": st, "args": args32, "tag": tag, "floor": floor}, path)
         self.jobs.append((tag, [sys.executable, __file__, "--f64-check", path]))
 
-    def add_solver_phases(self, spec, final):
+    def add_solver_phases(self, tag, spec, cold, final):
         """Phases 36 (the golden calibration), 37 (the float64 tier) and 39
         (Levenberg–Marquardt): path B's final state saved for the first two,
-        each phase a process of its own, started first in the last phase
-        (the longest jobs)."""
+        each of which runs path B's oracle itself first (the golden
+        calibration prints its line); each phase a process of its own,
+        started first in the last phase (the longest jobs)."""
         import torch
 
         path = f"{self.dir.name}/pathB_final.pt"
-        torch.save({"spec": spec, "final": final}, path)
-        self.jobs[:0] = [(f"solver phase {name}", [sys.executable, __file__, "--solver-phase",
-                                                   name, path])
-                         for name in ("golden", "f64_tier", "lm")]
+        torch.save({"tag": tag, "spec": spec, "cold": cold, "final": final,
+                    "plan_seed": True}, path)
+        self.solver = [(f"solver phase {name}", [sys.executable, __file__, "--solver-phase",
+                                                 name, path])
+                       for name in ("f64_tier", "golden", "lm")]
 
 
 def k2a_phase(spec, warm, rescue_set, settled, checks, name="K2a", slots=RESCUE_SLOTS):
@@ -1066,8 +1202,9 @@ def run_processes(jobs, tmp):
 
 
 def last_phase(checks, names):
-    """The main paths' float64 checks and phases 36, 37 and 39 (``checks``)
-    and phases 14 and 23, each ``family_case``, in a process of its own,
+    """The main paths' cold oracles and float64 checks, the serving stream's
+    oracle and audit, and phases 36, 37 and 39 (``checks``) and phases 14
+    and 23, each ``family_case``, in a process of its own,
     all at once (host-bound work
     that leaves the card idle, so they share the card and the host's
     cores); prints each one's lines in order and fails if any failed. Then
@@ -1082,7 +1219,7 @@ def last_phase(checks, names):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         saved = {name: f"{tmp}/{name}.pt" for name in names}
-        jobs = checks.jobs + [
+        jobs = checks.all_jobs() + [
             (name, [sys.executable, __file__, "--family-case", name, saved[name]])
             for name in names
         ]
@@ -1103,36 +1240,38 @@ def last_phase(checks, names):
     return rows
 
 
-def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, **kw):
-    """A warm fleet cycle on the fused path (``main_path``'s keywords pass
-    through): the fused kernel must carry every warm solve and rescue pass
-    (1 + chain launches per cycle), K1 the cold solve and the oracle (on the
-    non-uniform grid none: their KKT solve is the plain lqr_solve) and
-    nothing in the warm cycles, and converged_frac reach ``floor``. Prints
-    the path's line; returns (extra, settled state, one cycle, fused
-    launches)."""
+def fused_path(tag, spec, cold, warm_f, rescue_f, device, card, floor, checks, oracle=True,
+               **kw):
+    """A warm fleet cycle on the fused path from the build phase's cold start
+    (``main_path``'s keywords pass through): the fused kernel must carry
+    every warm solve and rescue pass (1 + chain launches per cycle), K1
+    nothing, and converged_frac reach ``floor``. Prints the path's line;
+    its cold oracle joins ``checks`` (the last phase) unless ``oracle`` is
+    false. Returns (extra, settled state, one cycle, fused launches, the
+    final state)."""
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
     from mpc_local_planner_tpu_torch.ops import riccati_cuda
 
     reset_counts()
     t0 = time.perf_counter()
-    extra, settled, secs, cycle, _, k1_before_oracle, final = main_path(
+    extra, settled, secs, cycle, _, _, final = main_path(
         spec, cold, warm_f, rescue_f, device, **kw
     )
     fused = k2a.fused_solve_cuda.launches
     k1 = riccati_cuda.lqr_solve_cuda.launches
     by_rule = rule_counts()
-    cold_iters = 0 if spec.nonuniform_dt else cold.n_al * cold.n_sqp  # K1 per cold solve
     print(json.dumps({**extra, "path": tag, "fused_launches": fused,
                       "fused_launches_by_rule": by_rule, "k1_launches": k1,
-                      "k1_launches_in_warm_cycles": k1_before_oracle - cold_iters,
+                      "k1_launches_in_warm_cycles": k1,
                       "device": card, **secs, "main_path_s": time.perf_counter() - t0}))
     expected = (1 + kw.get("chain", 1)) * (SETTLE_CYCLES + TIMED_CYCLES)
     if fused != expected:
         _fail(f"the fused kernel launched {fused} times on the {tag} path, expected {expected}")
-    if k1 != 2 * cold_iters or k1_before_oracle != cold_iters:
-        _fail(f"K1 launched {k1} times on the {tag} path ({k1_before_oracle} before the "
-              f"oracle), expected {2 * cold_iters} (the cold solve and the oracle)")
+    if k1 != 0:
+        _fail(f"K1 launched {k1} times on the {tag} path, expected 0 (its cold solve is the "
+              "build phase's)")
+    if oracle:
+        checks.add_oracle(tag, spec, cold, final)
     if not extra["converged_frac"] >= floor:
         _fail(f"{tag} converged_frac {extra['converged_frac']} below the {floor} floor")
     return {**extra, **secs}, settled, cycle, fused, final
@@ -1150,14 +1289,15 @@ def gate_and_trace(tag, spec, warm, warm_f, settled, cycle, cycle_ms):
 
 def trace_phase(cycle, settled, cycle_ms):
     """One warm cycle (solve + rescue) from the settled state under
-    torch.profiler: the device's kernel time per cycle, K1's and K2a's parts
-    of it, and the device's busy share against the unprofiled cycle time."""
+    torch.profiler, recording the device's activity alone: the device's
+    kernel time per cycle, K1's and K2a's parts of it, and the device's busy
+    share against the unprofiled cycle time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scen, r = settled
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cycle(scen, r)
         torch.cuda.synchronize()
     kernels = [
@@ -1198,26 +1338,44 @@ def fused_groups():
     return sorted({k2a.group(s, d) for s in specs for d in (torch.float32, torch.float64)})
 
 
-def build_phase():
+def build_phase(tmp):
     """Build K1 and the fused kernel's groups the smoke launches, all at once
-    (one nvcc each); print each build's seconds, the phase's wall time and
-    ptxas' registers, stack frames and spills for every instantiation."""
+    (one nvcc each); as soon as K1 is built, make the main paths' cold
+    starts (``cold_phase``), each in a process of its own, beside the
+    fused kernel's builds. Print each build's seconds, ptxas' registers,
+    stack frames and spills for every instantiation, the cold solves'
+    lines and the phase's wall time. Returns (the wall time, the seconds
+    until the builds were done, each path's cold start file)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
 
+    files = {tag: f"{tmp}/cold_{tag}.pt" for tag in COLD_PATHS}
+    jobs = [(f"cold {tag}", [sys.executable, __file__, "--cold", tag, files[tag]])
+            for tag in COLD_PATHS]
+
+    def colds(k1):
+        k1.result()
+        return run_processes(jobs, tmp)
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         k1 = pool.submit(riccati_cuda.build)
         fused = pool.submit(fused_al_sqp_cuda.build, fused_groups())
+        cold = pool.submit(colds, k1)
         builds = [k1.result(), *fused.result()]
+        built_s = time.perf_counter() - t0
+        failed = cold.result()
     wall = time.perf_counter() - t0
     for built in builds:
         print(f"build: {built['path']} in {built['seconds']:.2f} s")
         for name, usage in ptxas_rows(built["ptxas"]):
             print(f"  ptxas: {name}: {usage}")
-    print(f"build: phase 2 wall {wall:.2f} s")
-    return wall
+    if failed:
+        _fail(f"failed in the build phase: {', '.join(failed)}")
+    print(f"build: phase 2 wall {wall:.2f} s (the builds {built_s:.2f} s, the cold solves "
+          "beside them)")
+    return wall, built_s, files
 
 
 def ptxas_rows(report):
@@ -1267,7 +1425,10 @@ def main():
 
     # ---- 2. build ------------------------------------------------------- #
     t_start = time.perf_counter()
-    build_s = build_phase()
+    import tempfile
+
+    cold_dir = tempfile.TemporaryDirectory()
+    build_s, built_s, cold_files = build_phase(cold_dir.name)
     laps, t_lap = {}, [time.perf_counter()]
 
     def lap(tag):
@@ -1277,7 +1438,7 @@ def main():
         t_lap[0] = now
 
     # ---- 3. K1 against its plain version --------------------------------- #
-    spec, cold, warm, rescue_set = flagship()
+    spec, cold, warm, rescue_set, _ = path_settings("flagship")
     k1 = kernel_phase(spec, warm, device)
     kernel_phase(flagship(N=K1_LONG_N)[0], warm, device, batches=(BATCH,),
                  tag=f"K1 N={K1_LONG_N}")
@@ -1286,15 +1447,12 @@ def main():
     # ---- 4. main path, un-fused ------------------------------------------ #
     reset_counts()
     t0 = time.perf_counter()
-    extra, settled, secs, cycle, cold_start, _, _ = main_path(
-        spec, cold, warm, rescue_set, device)
+    extra, settled, secs, cycle, cold_start, _, final = main_path(
+        spec, cold, warm, rescue_set, device, load_cold_start(cold_files["flagship"]))
     launches = riccati_cuda.lqr_solve_cuda.launches
     main_s = time.perf_counter() - t0
-    expected = (
-        2 * cold.n_al * cold.n_sqp
-        + (SETTLE_CYCLES + TIMED_CYCLES)
-        * (warm.n_al * warm.n_sqp + rescue_set.n_al * rescue_set.n_sqp)
-    )
+    expected = (SETTLE_CYCLES + TIMED_CYCLES) * (
+        warm.n_al * warm.n_sqp + rescue_set.n_al * rescue_set.n_sqp)
     print(json.dumps({**extra, "path": "unfused", "k1_launches": launches,
                       "k2a_launches": k2a.fused_solve_cuda.launches, "device": card, **secs,
                       "main_path_s": main_s}))
@@ -1315,6 +1473,7 @@ def main():
 
     # ---- 7. K2a against its plain version --------------------------------- #
     checks = F64Checks()
+    checks.add_oracle("unfused", spec, cold, final)
     warm_f = dataclasses.replace(warm, fused="auto")
     rescue_f = dataclasses.replace(rescue_set, fused="auto")
     k2a_rows = k2a_phase(spec, warm_f, rescue_f, settled, checks)
@@ -1323,9 +1482,10 @@ def main():
     # ---- 8. main path, fused, from the same cold solve --------------------- #
     reset_counts()
     t0 = time.perf_counter()
-    extra_f, settled_f, secs_f, cycle_f, _, k1_in_cycles, _ = main_path(
+    extra_f, settled_f, secs_f, cycle_f, _, k1_in_cycles, final_f = main_path(
         spec, cold, warm_f, rescue_f, device, cold_start=cold_start
     )
+    checks.add_oracle("fused", spec, cold, final_f)
     k2a_launches = k2a.fused_solve_cuda.launches
     k1_fused = riccati_cuda.lqr_solve_cuda.launches
     by_rule = rule_counts()
@@ -1337,9 +1497,9 @@ def main():
     if k2a_launches != 2 * (SETTLE_CYCLES + TIMED_CYCLES):
         _fail(f"K2a launched {k2a_launches} times on the fused path, expected "
               f"{2 * (SETTLE_CYCLES + TIMED_CYCLES)}")
-    if k1_in_cycles != 0 or k1_fused != cold.n_al * cold.n_sqp:
+    if k1_in_cycles != 0 or k1_fused != 0:
         _fail(f"K1 launched {k1_in_cycles} times in the fused warm cycles and {k1_fused} "
-              f"in all, expected 0 and {cold.n_al * cold.n_sqp} (the oracle)")
+              "in all, expected 0 (the cold solve is the build phase's)")
     if not extra_f["converged_frac"] >= 0.5:
         _fail(f"fused converged_frac {extra_f['converged_frac']} below the 0.5 floor")
 
@@ -1354,14 +1514,15 @@ def main():
     lap("8_10_fused")
 
     # ---- 11. K1 without the free δτ (config #2, fixed dt) ------------------- #
-    spec2, cold2, warm2, rescue2 = fleet_settings(config2())
+    spec2, cold2, warm2, rescue2, _ = path_settings("config2")
     kernel_phase(spec2, warm2, device, batches=(BATCH,), tag="K1 config2")
 
     # ---- 12. config #2 main path, fused ------------------------------------- #
     warm2_f = dataclasses.replace(warm2, fused="auto")
     rescue2_f = dataclasses.replace(rescue2, fused="auto")
     extra2, settled2, cycle2, fused2, _ = fused_path(
-        "config2_fused", spec2, cold2, warm2_f, rescue2_f, device, card, 0.25
+        "config2_fused", spec2, cold2, warm2_f, rescue2_f, device, card, 0.25, checks,
+        cold_start=load_cold_start(cold_files["config2"]),
     )
 
     # ---- 13. the kernel against its plain version on config #2 -------------- #
@@ -1372,14 +1533,12 @@ def main():
     lap("11_16_config2")
 
     # ---- 17-19. path A: the reference's car-like config (two discs) --------- #
-    from mpc_local_planner_tpu_torch.benchmarks import family_spec
-
-    specA, coldA, warmA, rescueA = fleet_settings(family_spec("canonical_carlike", N=30))
+    specA, coldA, warmA, rescueA, _ = path_settings("canonical_carlike")
     warmA_f = dataclasses.replace(warmA, fused="auto")
     rescueA_f = dataclasses.replace(rescueA, fused="auto")
     extraA, settledA, cycleA, fusedA, _ = fused_path(
         "canonical_carlike_fused", specA, coldA, warmA_f, rescueA_f, device, card, 0.5,
-        family="canonical_carlike",
+        checks, cold_start=load_cold_start(cold_files["canonical_carlike"]),
     )
     rows_a = k2a_phase(specA, warmA_f, rescueA_f, settledA, checks, name="pathA")
     gate_and_trace("canonical_carlike", specA, warmA, warmA_f, settledA, cycleA,
@@ -1387,27 +1546,27 @@ def main():
     lap("17_19_path_a")
 
     # ---- 20-22. path B: the wall world (line slots), warm 4x4, chained ------ #
-    specB, coldB, warmB, _ = fleet_settings(family_spec("converter_lines", N=30))
+    specB, coldB, warmB, _, _ = path_settings("converter_lines")
     warmB = dataclasses.replace(warmB, n_al=4)
     warmB_f = dataclasses.replace(warmB, fused="auto")
     rescueB_f = dataclasses.replace(warmB_f, alphas=rescue_set.alphas)
     extraB, settledB, cycleB, fusedB, finalB = fused_path(
         "converter_lines_fused", specB, coldB, warmB_f, rescueB_f, device, card, 0.25,
-        family="converter_lines", slots=LINES_RESCUE_SLOTS, chain=2, stuck_restart=2,
-        plan_seed=True,
+        checks, oracle=False, cold_start=load_cold_start(cold_files["converter_lines"]),
+        slots=LINES_RESCUE_SLOTS, chain=2, stuck_restart=2,
     )
     print(json.dumps({"pathB_seed": "astar", "astar_plans": extraB["astar_plans"],
                       "of": BATCH, **{k: extraB[k] for k in (
-                          "astar_build_s", "astar_oracle_build_s", "converged_frac",
-                          "feasible_frac_cold_oracle", "conv_on_feasible")},
+                          "astar_build_parallel_s", "converged_frac")},
                       "straight_line_converged_frac_of_record":
                           LINES_STRAIGHT_LINE_CONVERGED_FRAC, "device": card}))
     rows_b = k2a_phase(specB, warmB_f, rescueB_f, settledB, checks, name="pathB",
                        slots=LINES_RESCUE_SLOTS)
     gate_and_trace("converter_lines", specB, warmB, warmB_f, settledB, cycleB,
                    extraB["cycle_ms"])
-    # phases 36, 37 and 39 run at the end beside the float64 checks
-    checks.add_solver_phases(specB, finalB)
+    # phases 36, 37 and 39 run at the end beside the float64 checks; 36 and
+    # 37 run path B's oracle (A* re-planned at the current states) first
+    checks.add_solver_phases("converter_lines_fused", specB, coldB, finalB)
     lap("20_22_path_b")
 
     # ---- 38. the horizon-parallel Riccati solve on K1's inputs ------------ #
@@ -1415,12 +1574,12 @@ def main():
     lap("38_pscan")
 
     # ---- 24-26. path C: the polygon-footprint family (a moving rectangle) -- #
-    specC, coldC, warmC, rescueC = fleet_settings(family_spec("polygon_footprint", N=30))
+    specC, coldC, warmC, rescueC, _ = path_settings("polygon_footprint")
     warmC_f = dataclasses.replace(warmC, fused="auto")
     rescueC_f = dataclasses.replace(rescueC, fused="auto")
     extraC, settledC, cycleC, fusedC, _ = fused_path(
         "polygon_footprint_fused", specC, coldC, warmC_f, rescueC_f, device, card, 0.5,
-        family="polygon_footprint",
+        checks, cold_start=load_cold_start(cold_files["polygon_footprint"]),
     )
     rows_c = k2a_phase(specC, warmC_f, rescueC_f, settledC, checks, name="pathC")
     gate_and_trace("polygon_footprint", specC, warmC, warmC_f, settledC, cycleC,
@@ -1428,35 +1587,36 @@ def main():
     lap("24_26_path_c")
 
     # ---- 27-29. path D: the via-points family (K2d) ------------------------ #
-    specD, coldD, warmD, rescueD = fleet_settings(family_spec("via_points", N=30))
+    specD, coldD, warmD, rescueD, _ = path_settings("via_points")
     warmD_f = dataclasses.replace(warmD, fused="auto")
     rescueD_f = dataclasses.replace(rescueD, fused="auto")
     extraD, settledD, cycleD, fusedD, _ = fused_path(
         "via_points_fused", specD, coldD, warmD_f, rescueD_f, device, card, 0.5,
-        family="via_points",
+        checks, cold_start=load_cold_start(cold_files["via_points"]),
     )
     rows_d = k2a_phase(specD, warmD_f, rescueD_f, settledD, checks, name="pathD")
     gate_and_trace("via_points", specD, warmD, warmD_f, settledD, cycleD, extraD["cycle_ms"])
     lap("27_29_path_d")
 
     # ---- 30-32. path E: the non-uniform grid (K2f) ------------------------ #
-    specE, coldE, warmE, rescueE = fleet_settings(family_spec("nonuniform", N=30))
+    specE, coldE, warmE, rescueE, _ = path_settings("nonuniform")
     warmE_f = dataclasses.replace(warmE, fused="auto")
     rescueE_f = dataclasses.replace(rescueE, fused="auto")
     extraE, settledE, cycleE, fusedE, _ = fused_path(
         "nonuniform_fused", specE, coldE, warmE_f, rescueE_f, device, card, 0.5,
-        family="nonuniform",
+        checks, cold_start=load_cold_start(cold_files["nonuniform"]),
     )
     rows_e = k2a_phase(specE, warmE_f, rescueE_f, settledE, checks, name="pathE")
     gate_and_trace("nonuniform", specE, warmE, warmE_f, settledE, cycleE, extraE["cycle_ms"])
     lap("30_32_path_e")
 
     # ---- 33-35. path F: the Crank–Nicolson flagship (K2b) ---------------- #
-    specF, coldF, warmF, rescueF = fleet_settings(crank_nicolson_flagship())
+    specF, coldF, warmF, rescueF, _ = path_settings("crank_nicolson")
     warmF_f = dataclasses.replace(warmF, fused="auto")
     rescueF_f = dataclasses.replace(rescueF, fused="auto")
     extraF, settledF, cycleF, fusedF, _ = fused_path(
         "crank_nicolson_fused", specF, coldF, warmF_f, rescueF_f, device, card, 0.5,
+        checks, cold_start=load_cold_start(cold_files["crank_nicolson"]),
     )
     rows_f = k2a_phase(specF, warmF_f, rescueF_f, settledF, checks, name="pathF")
     gate_and_trace("crank_nicolson", specF, warmF, warmF_f, settledF, cycleF,
@@ -1468,6 +1628,12 @@ def main():
     robot = controller_robot_phase(device, card)
     controller_surface_phase(device, card)
     lap("41_43_controller")
+
+    # ---- 44-45. serving and the planner shell ---------------------------- #
+    serving = serving_phase(device, card, checks)
+    lap("44_serving")
+    shell = shell_phase(device, card)
+    lap("45_shell")
     paths_s = time.perf_counter() - t_start - build_s
 
     # ---- the paths' f64 checks; 14 and 23: the other models, config #1, the
@@ -1475,11 +1641,11 @@ def main():
     t_cases = time.perf_counter()
     case_rows = last_phase(checks, [name for name, _, _ in all_cases()])
     print(json.dumps({"smoke_split_s": {
-        "build": build_s, "phases_3_to_43": paths_s,
+        "build_and_cold_solves": build_s, "builds": built_s, "phases_3_to_45": paths_s,
         "f64_checks_and_cases": time.perf_counter() - t_cases,
         "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
 
-    # ---- 44. summary ---------------------------------------------------- #
+    # ---- 46. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
     from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX
 
@@ -1506,7 +1672,8 @@ def main():
         return row
 
     k1_by_path = {"unfused_main": launches, "controller_fleet": fleet["k1_launches"],
-                  "controller_robot": robot["k1_launches"]}
+                  "controller_robot": robot["k1_launches"], "serving": serving["k1_launches"],
+                  "shell": shell["k1_launches"]}
     print(json.dumps({"kernels": [{
         "name": "K1 riccati_sweep",
         "route": "cuda",
@@ -1758,6 +1925,14 @@ def _load_libraries(spec, device):
     if device.type == "cuda":
         riccati_cuda._load()
         fused_al_sqp_cuda._load(fused_al_sqp_cuda.group(spec, torch.float32))
+
+
+def _load_k1(device):
+    """Load K1's library before a timed path that launches no fused kernel."""
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    if device.type == "cuda":
+        riccati_cuda._load()
 
 
 def _recording(ctrl):
@@ -2084,10 +2259,365 @@ def controller_surface_phase(device, card):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# serving and the planner shell (phases 44-45)
+# --------------------------------------------------------------------------- #
+SERVE_JOURNEYS = 16      # examples/demo_serving.py's E
+SERVE_BLOCK = 4          # cycles a block (the demo's 32, cut for the smoke's time)
+SERVE_TIMED_BLOCKS = 2   # after one settling block
+SHELL_CYCLES = 60        # the planner shell's closed loop, at most
+SHELL_SUBSTEPS = 6       # the demo's ZOH substeps a cycle
+# examples/cfg/diff_drive_quadratic_form.yaml written out (no YAML reader on
+# the card's machine; tests/test_torch_config.py holds the two equal)
+DIFF_DRIVE_QUADRATIC_FORM = {
+    "robot": {"type": "unicycle", "unicycle": {
+        "max_vel_x": 0.4, "max_vel_x_backwards": 0.2, "max_vel_theta": 0.3}},
+    "grid": {"grid_size_ref": 20, "dt_ref": 0.3,
+             "collocation_method": "forward_differences",
+             "variable_grid": {"enable": False}},
+    "planning": {
+        "objective": {"type": "quadratic_form", "quadratic_form": {
+            "state_weights": [2.0, 2.0, 2.0], "control_weights": [1.0, 1.0],
+            "integral_form": False}},
+        "terminal_cost": {"type": "quadratic", "quadratic": {
+            "final_state_weights": [10.0, 10.0, 10.0]}},
+        "terminal_constraint": {"type": "none"},
+    },
+    "collision": {"min_obstacle_dist": 0.2, "obstacle_capacity": 30},
+    "footprint_model": {"type": "circular", "radius": 0.2},
+}
+
+
+def serving_settings():
+    """bench.py::serving_mode's stream: the flagship (N=30, 8 circle
+    slots), the early-exit warm 8×4 preset, ``StreamSettings()``."""
+    from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import SolverSettings
+
+    spec = config3_carlike_min_time(N=30, obstacle_cap=8)
+    warm = SolverSettings(n_al=8, n_sqp=4, rho0=120.0, reg0=1.0, tol_eq=1e-3, tol_ineq=1e-3,
+                          alphas=(1.0, 0.5, 0.22), early_exit=True)
+    return spec, warm
+
+
+def journey_stream(device):
+    from mpc_local_planner_tpu_torch.benchmarks import random_ensemble
+    from mpc_local_planner_tpu_torch.planner.serving import JourneyStream, StreamSettings
+
+    spec, warm = serving_settings()
+    return JourneyStream(spec, warm, settings=StreamSettings(), device=device,
+                         redraw_fn=lambda gen, n: random_ensemble(spec, n, gen, device=device))
+
+
+class SqpCount:
+    """Counts the SQP iterations the un-fused solve runs (each launches K1
+    once on the card), by wrapping ``al_sqp._sqp_iteration`` while open."""
+
+    def __enter__(self):
+        from mpc_local_planner_tpu_torch.solvers import al_sqp
+
+        self.n, self._orig = 0, al_sqp._sqp_iteration
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._orig(*args, **kwargs)
+
+        al_sqp._sqp_iteration = counted
+        return self
+
+    def __exit__(self, *exc):
+        from mpc_local_planner_tpu_torch.solvers import al_sqp
+
+        al_sqp._sqp_iteration = self._orig
+
+
+def serving_phase(device, card, checks=None):
+    """Phase 44: ``JourneyStream`` as bench.py::serving_mode runs it (the
+    flagship, warm 8×4 early-exit, ``StreamSettings()``) over E=16 journeys
+    of ``random_ensemble`` seed 0: ``init`` (the cold 16×15 solve), one
+    settling block of 4 cycles, two timed blocks of 4. Every solve is the
+    un-fused one: K1 once per SQP iteration (counted apart from the
+    launches), the fused kernel never. The amortized cycle is the median of
+    the timed blocks; one more cycle runs under torch.profiler. The final
+    state and the abandoned journeys go to the last phase's oracle and
+    audit (``checks``)."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.planner.serving import JourneyStream
+
+    stream = journey_stream(device)
+    _load_k1(device)
+    run = stream.block_fn(SERVE_BLOCK)
+    per_cycle = []
+    cycle = stream.cycle
+
+    def counted_cycle(state):
+        before, n0 = launch_counts(), sqp.n
+        out = cycle(state)
+        now = launch_counts()
+        per_cycle.append((now[0] - before[0], now[1] - before[1], sqp.n - n0))
+        return out
+
+    stream.cycle = counted_cycle
+    reset_counts()
+    t_path = time.perf_counter()
+    with SqpCount() as sqp:
+        t0 = time.perf_counter()
+        state = stream.init(SERVE_JOURNEYS, torch.Generator().manual_seed(0))
+        n_conv0 = int(torch.sum(state.result.converged))
+        init_s = time.perf_counter() - t0
+        init_k1, init_sqp = launch_counts()[0], sqp.n
+        blocks, block_ms, ab_rows = [], [], []
+        for b in range(1 + SERVE_TIMED_BLOCKS):
+            _sync(device)
+            t0 = time.perf_counter()
+            state, stats = run(state)
+            n_conv = int(torch.sum(stats.converged))  # host fetch waits for the block
+            ms = (time.perf_counter() - t0) * 1e3 / SERVE_BLOCK
+            if b:
+                block_ms.append(ms)
+            rows, n_ab = JourneyStream.collect_abandoned(stats)
+            if n_ab:
+                ab_rows.append(rows)
+            blocks.append({"converged": n_conv, "reached": int(torch.sum(stats.reached)),
+                           "abandoned": n_ab, "ms_per_cycle": ms})
+        k1, fused = launch_counts()
+        n_sqp = sqp.n
+    path_s = time.perf_counter() - t_path
+    stream.cycle = cycle
+    timed = blocks[1:]
+    cycle_ms = statistics.median(block_ms)
+    trace = {"device_busy_frac": None}
+    if device.type == "cuda":  # one more cycle, under torch.profiler
+        trace = trace_phase(lambda st, _r: stream.cycle(st), (state, None), cycle_ms)
+    line = {
+        "journeys": SERVE_JOURNEYS, "N": stream.spec.N, "warm": [stream.warm.n_al,
+                                                                  stream.warm.n_sqp],
+        "early_exit": stream.warm.early_exit, "block_cycles": SERVE_BLOCK,
+        "timed_blocks": SERVE_TIMED_BLOCKS,
+        "serving_amortized_cycle_ms_n30_carlike": cycle_ms, "block_ms_per_cycle": block_ms,
+        "init_cold_s": init_s, "init_converged": n_conv0,
+        "init_k1_launches": init_k1, "init_sqp_iterations": init_sqp,
+        "converged": sum(b["converged"] for b in timed),
+        "reached": sum(b["reached"] for b in timed),
+        "abandoned": sum(b["abandoned"] for b in timed),
+        "lane_cycles": SERVE_JOURNEYS * SERVE_BLOCK * SERVE_TIMED_BLOCKS, "blocks": blocks,
+        "k1_launches_per_cycle": [c[0] for c in per_cycle],
+        "sqp_iterations_per_cycle": [c[2] for c in per_cycle],
+        "k1_launches": k1, "sqp_iterations": n_sqp, "fused_launches": fused,
+        "device_busy_frac": trace["device_busy_frac"], "trace": trace, "path_s": path_s,
+        "device": card,
+    }
+    print(json.dumps({"serving": line}))
+    if fused != 0:
+        _fail(f"the serving stream launched the fused kernel {fused} times")
+    if k1 != n_sqp or any(c[0] != c[2] for c in per_cycle) or init_k1 != init_sqp:
+        _fail(f"the serving stream launched K1 {k1} times over {n_sqp} SQP iterations")
+    if not bool(torch.isfinite(state.result.primal.xs).all()) or state.scen.x0.shape != (
+            SERVE_JOURNEYS, 3):
+        _fail("the serving stream's final state is not finite of E journeys")
+    if line["converged"] == 0:
+        _fail("no journey of the serving stream converged in the timed blocks")
+    if checks is not None:
+        path = f"{checks.dir.name}/serving_final.pt"
+        rows = None
+        if ab_rows:
+            from mpc_local_planner_tpu_torch.core.tree import tree_map
+
+            rows = tree_map(lambda *xs: torch.cat(xs), ab_rows[0], *ab_rows[1:])
+        torch.save({"scen": state.scen, "result": state.result, "rows": rows}, path)
+        checks.add_serving(path)
+    return line
+
+
+def serving_oracle_worker(path):
+    """``chip_smoke.py --serving-oracle FILE``: the stream's sampled oracle
+    (``sample_oracle``: the cold preset on the final journeys) and the
+    false-abandon audit (``audit_abandoned``) of every journey it
+    abandoned, in a process of its own."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.planner.serving import StreamState
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import SolverSettings
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    job = torch.load(path, map_location="cuda:0", weights_only=False)
+    device = torch.device("cuda", 0)
+    stream = journey_stream(device)
+    cold = SolverSettings.for_spec(stream.spec)
+    state = StreamState(scen=job["scen"], result=job["result"], stuck=None, generator=None)
+    reset_counts()
+    t0 = time.perf_counter()
+    feas, conv = stream.sample_oracle(state)
+    n_feas = int(torch.sum(feas))
+    oracle_parallel_s = time.perf_counter() - t0
+    k1 = launch_counts()[0]
+    rows = job["rows"]
+    t0 = time.perf_counter()
+    audit = stream.audit_abandoned(rows) if rows is not None else {
+        "n_abandoned": 0, "false_abandon_oracle": 0}
+    line = {"path": "serving", "journeys": SERVE_JOURNEYS,
+            "feasible_frac_cold_oracle": n_feas / SERVE_JOURNEYS,
+            "conv_on_feasible": int(torch.sum(feas & conv)) / max(n_feas, 1),
+            "oracle_parallel_s": oracle_parallel_s, "k1_launches": k1, "audit": audit,
+            "audit_s": time.perf_counter() - t0, "device": card_line()}
+    print(json.dumps({"oracle": line}))
+    if k1 != cold.n_al * cold.n_sqp:
+        _fail(f"K1 launched {k1} times in the serving oracle, expected "
+              f"{cold.n_al * cold.n_sqp}")
+    print_peak_memory("serving oracle and audit")
+
+
+def shell_phase(device, card):
+    """Phase 45: ``LocalPlanner`` on examples/demo_planner.py's scenario
+    (examples/cfg/diff_drive_quadratic_form.yaml: unicycle, N=20, the
+    quadratic form, 30 point slots; the 60×80 costmap with its two lethal
+    blocks; the cosine plan to (3, 1)) in a closed loop of at most 60 cycles,
+    the robot driving each cycle's planned controls by the demo's six ZOH
+    substeps, until ``is_goal_reached``. The obstacles come from the native
+    costmap scan (built from native/costmap.cpp), the post-solve veto from
+    its trajectory check. Every cycle launches K1 once per SQP iteration of
+    its budget (cold after a reset, warm otherwise) and the fused kernel
+    never. Fails when the native library is not available, or when the
+    robot came no closer than half its start distance."""
+    import numpy as np
+    import torch
+
+    from mpc_local_planner_tpu_torch import native
+    from mpc_local_planner_tpu_torch.planner import LocalPlanner, load_config
+    from mpc_local_planner_tpu_torch.planner.local_planner import Costmap
+
+    if not native.available():
+        _fail("the native costmap runtime is not available (no C++ compiler)")
+    t0 = time.perf_counter()
+    lib = str(native.build())
+    native_build_s = time.perf_counter() - t0
+    cfg = load_config(DIFF_DRIVE_QUADRATIC_FORM)
+    lp = LocalPlanner(cfg, device=device)
+    ctrl = lp.controller
+    spec = ctrl.spec
+    _load_k1(device)
+    t = np.linspace(0, 1, 40)
+    plan = np.stack([3.0 * t, 0.5 * (1 - np.cos(np.pi * t)), np.zeros_like(t)], axis=1)
+    lp.set_plan(plan)
+    data = np.zeros((60, 80), dtype=np.uint8)
+    data[24:26, 19:22] = 254   # world ≈ (1.5, 1.0), near the path
+    data[32:36, 55:58] = 254   # world ≈ (5.2, 1.8), off the path
+    cm = Costmap(data=data, origin=(-0.5, -1.5), resolution=0.1)
+    step_ms = []
+    step = ctrl.step
+
+    def timed_step(*args, **kwargs):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ctrl.step = timed_step
+    goal = plan[-1]
+    x, u_prev = np.zeros(3), np.zeros(2)
+    rows, reached, closest, vetoes = [], None, None, 0
+    h = cfg.grid.dt_ref / SHELL_SUBSTEPS
+    cold_iters = ctrl.settings.n_al * ctrl.settings.n_sqp
+    warm_iters = ctrl.warm_settings.n_al * ctrl.warm_settings.n_sqp
+    reset_counts()
+    t_path = time.perf_counter()
+    for cycle in range(SHELL_CYCLES):
+        cold = ctrl._primal is None
+        before, n_step = launch_counts(), len(step_ms)
+        _sync(device)
+        t0 = time.perf_counter()
+        twist, res = lp.compute_velocity_commands(x, u_prev, costmap=cm)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        now = launch_counts()
+        stepped = step_ms[n_step] if len(step_ms) > n_step else 0.0
+        rows.append({"cycle": cycle, "ms": ms, "shell_ms": ms - stepped, "cold": cold,
+                     "k1": now[0] - before[0], "fused": now[1] - before[1],
+                     "vetoed": res is None})
+        if not np.all(np.isfinite(twist)) or twist.shape != (3,):
+            _fail("the planner shell's twist is not finite of shape (3,)")
+        if res is None:
+            vetoes += 1
+            continue
+        for s in range(SHELL_SUBSTEPS):
+            u_prev = res.u_seq.interpolate((s + 0.5) * h, mode="zoh").cpu().numpy()
+            x = x + h * spec.model.f(torch.from_numpy(x), torch.from_numpy(u_prev)).numpy()
+        dist = float(np.linalg.norm(x[:2] - goal[:2]))
+        if closest is None or dist < closest[0]:
+            closest = (dist, cycle + 1)
+        if lp.is_goal_reached(x):
+            reached = cycle + 1
+            break
+    path_s = time.perf_counter() - t_path
+    ctrl.step = step
+    k1, fused = launch_counts()
+    warm_rows = [r for r in rows if not r["cold"]]
+    warm_ms = sorted(r["ms"] for r in warm_rows)
+    start = float(np.linalg.norm(goal[:2]))
+    line = {
+        "N": spec.N, "slots": spec.obstacle_cap, "cold": [ctrl.settings.n_al, ctrl.settings.n_sqp],
+        "warm": [ctrl.warm_settings.n_al, ctrl.warm_settings.n_sqp],
+        "cycles_to_goal": reached, "cycles": len(rows), "vetoes": vetoes,
+        "final_state": x.tolist(), "goal": goal.tolist(), "start_distance_m": start,
+        "closest_m_cycle": list(closest) if closest else None,
+        "cold_cycle_ms": rows[0]["ms"],
+        "median_cycle_ms": statistics.median(warm_ms) if warm_ms else None,
+        "p90_cycle_ms": warm_ms[int(0.9 * (len(warm_ms) - 1))] if warm_ms else None,
+        "median_shell_host_ms": statistics.median(r["shell_ms"] for r in rows),
+        "k1_launches_per_warm_cycle": sorted({r["k1"] for r in warm_rows}),
+        "k1_launches": k1, "fused_launches": fused,
+        "native": native.available(), "native_library": os.path.basename(lib),
+        "native_build_s": native_build_s, "path_s": path_s,
+        "cycles_ms_k1": [[round(r["ms"], 2), r["k1"]] for r in rows], "device": card,
+    }
+    print(json.dumps({"shell": line}))
+    if fused != 0:
+        _fail(f"the planner shell launched the fused kernel {fused} times")
+    if any(r["k1"] != (cold_iters if r["cold"] else warm_iters) for r in rows):
+        _fail(f"the planner shell's K1 launches by cycle: {[r['k1'] for r in rows]}")
+    if reached is None and not (closest is not None and closest[0] < 0.5 * start):
+        _fail(f"the planner shell's robot came no closer than {closest} m to its goal "
+              f"({start:.3f} m away at the start)")
+    return line
+
+
+def shell_phases():
+    """``chip_smoke.py --shell-phases``: build K1 and run phases 44-45 alone
+    (their oracle and audit in this process after them)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+
+    card = card_line()
+    print(f"device: {card}")
+    t0 = time.perf_counter()
+    riccati_cuda.build()
+    t1 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    checks = F64Checks()
+    serving_phase(device, card, checks)
+    t2 = time.perf_counter()
+    shell_phase(device, card)
+    t3 = time.perf_counter()
+    for _, argv in checks.oracles:
+        subprocess.run(argv, check=True)
+    print(json.dumps({"shell_phases_s": {"build": t1 - t0, "serving": t2 - t1,
+                                         "shell": t3 - t2,
+                                         "serving_oracle": time.perf_counter() - t3}}))
+
+
 def solver_worker(name, path):
     """``chip_smoke.py --solver-phase NAME FILE``: phase 36 (golden), 37
     (f64_tier) or 39 (lm) in a process of its own; FILE holds path B's
-    final state."""
+    final state, whose oracle phases 36 and 37 run first (phase 36 prints
+    its line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2097,8 +2627,35 @@ def solver_worker(name, path):
         lm_phase()
     else:
         job = torch.load(path, map_location="cuda:0", weights_only=False)
-        {"golden": golden_phase, "f64_tier": f64_tier_phase}[name](job["spec"], job["final"])
+        feas, seed = oracle_phase(job, quiet=name != "golden")
+        {"golden": golden_phase, "f64_tier": f64_tier_phase}[name](
+            job["spec"], (*job["final"], feas, seed))
     print_peak_memory(f"solver phase {name}")
+
+
+def cold_worker(tag, path):
+    """``chip_smoke.py --cold TAG FILE``: a main path's cold start
+    (``cold_phase``) in a process of its own."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    cold_phase(tag, path)
+    print_peak_memory(f"cold {tag}")
+
+
+def oracle_worker(path):
+    """``chip_smoke.py --oracle FILE``: a main path's cold oracle
+    (``oracle_phase``) in a process of its own."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    job = torch.load(path, map_location="cuda:0", weights_only=False)
+    oracle_phase(job)
+    print_peak_memory(f"oracle {job['tag']}")
 
 
 def family_worker(name, save=None):
@@ -2166,5 +2723,13 @@ if __name__ == "__main__":
         f64_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--solver-phase"]:
         solver_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--cold"]:
+        cold_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--oracle"]:
+        oracle_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--serving-oracle"]:
+        serving_oracle_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--shell-phases"]:
+        shell_phases()
     else:
         main()

@@ -70,7 +70,8 @@ def to_numpy(obj) -> dict:
     return out
 
 
-def _leaf_numpy(a):
+def leaf_numpy(a) -> np.ndarray:
+    """A tensor on any device, or an array-like, as a numpy array."""
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -79,7 +80,7 @@ def _leaf_numpy(a):
 def _tree_numpy(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: _tree_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
-    return _leaf_numpy(obj)
+    return leaf_numpy(obj)
 
 
 def controller_state_to_numpy(controller) -> dict:
@@ -92,7 +93,7 @@ def controller_state_to_numpy(controller) -> dict:
     }
     for key, attr in _CONTROLLER_LEAVES.items():
         v = getattr(controller, attr)
-        state[key] = None if v is None else _leaf_numpy(v)
+        state[key] = None if v is None else leaf_numpy(v)
     return state
 
 

@@ -1,5 +1,6 @@
-"""Planner layer of the PyTorch port: the config tree, the Controller and
-the fleet cycle (the planner shell, ``LocalPlanner``, is ROADMAP item M13).
+"""Planner layer of the PyTorch port: the config tree, the Controller, the
+fleet cycle, the planner shell (``LocalPlanner``) and the serving stream
+(``JourneyStream``).
 """
 
 from mpc_local_planner_tpu_torch.planner.config import (
@@ -8,6 +9,8 @@ from mpc_local_planner_tpu_torch.planner.config import (
     reconfigure_config,
 )
 from mpc_local_planner_tpu_torch.planner.controller import Controller, ControlResult
+from mpc_local_planner_tpu_torch.planner.local_planner import LocalPlanner
+from mpc_local_planner_tpu_torch.planner.serving import JourneyStream, StreamSettings
 
 __all__ = [
     "PlannerConfig",
@@ -15,4 +18,7 @@ __all__ = [
     "reconfigure_config",
     "Controller",
     "ControlResult",
+    "LocalPlanner",
+    "JourneyStream",
+    "StreamSettings",
 ]

@@ -14,6 +14,22 @@ class BaseRobotSE2:
 
     state_dim: int = 3
 
+    # --- pose/state conversions (trivial for SE(2) state = pose) ---
+    def position_from_state(self, x):
+        return x[..., :2]
+
+    def pose_from_state(self, x):
+        return x
+
+    def steady_state_from_pose(self, pose):
+        return pose
+
+    def merge_state_feedback_and_odom(self, x_feedback, x_odom, prefer_feedback: bool):
+        """RobotDynamicsInterface::mergeStateFeedbackAndOdomFeedback: for
+        3-dim SE(2) models the two sources are the same quantity, so one is
+        taken wholesale (the prefer_x_feedback parameter)."""
+        return x_feedback if prefer_feedback else x_odom
+
     # --- linearization (single sample; vmap for batches) ---
     def jac_x(self, x, u):
         return torch.func.jacfwd(self.f, argnums=0)(x, u)

@@ -174,3 +174,16 @@ def test_torch_chip_smoke_config_literals_load_like_the_example_and_the_demo():
     assert (type(fspec.model).__name__, type(fspec.footprint).__name__,
             fspec.footprint.radius, fspec.objective) == (
         "SimpleCarModel", "CircularFootprint", 0.2, "minimum_time")
+
+
+def test_torch_chip_smoke_shell_literal_loads_like_the_example():
+    """The planner shell phase's dict is examples/cfg/diff_drive_quadratic_form.yaml
+    written out (examples/demo_planner.py's default config)."""
+    smoke = _smoke()
+    yaml_path = str(ROOT / "examples" / "cfg" / "diff_drive_quadratic_form.yaml")
+    literal = t_config.load_config(smoke.DIFF_DRIVE_QUADRATIC_FORM)
+    assert literal == t_config.load_config(yaml_path)
+    assert_same_config(literal, j_config.load_config(yaml_path))
+    spec = literal.to_ocp_spec()
+    assert (spec.N, spec.obstacle_cap, type(spec.model).__name__, spec.objective) == (
+        20, 30, "UnicycleModel", "quadratic_form")

@@ -54,6 +54,16 @@ def test_torch_port_and_chip_smoke_import_no_jax():
         "planner/config.py",
         "planner/controller.py",
         "core/time_series.py",
+        "native.py",
+        "msgs.py",
+        "planner/serving.py",
+        "utils/conversion.py",
+        "utils/publisher.py",
+        "examples/demo_planner.py",
+        "examples/demo_rooms.py",
+        "examples/demo_dynamic_obstacle.py",
+        "examples/demo_fleet.py",
+        "examples/demo_serving.py",
     ],
 )
 def test_torch_host_and_solver_modules_import_no_jax(module):
