@@ -205,6 +205,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                runtime built from native/costmap.cpp: cycles to the goal,
                vetoes, the cycle's and the shell's own host times, K1 once
                per SQP iteration, the fused kernel never
+ 46. parallel — the parallel layer from phase 8's final state (4096 lanes):
+               ``make_sharded_solver`` (warm 3×4, the 1024-slot 4×4 rescue)
+               on a 1×1 mesh of the card, bit-equal to ``make_solver`` then
+               ``make_rescue``, and on a 2×2 mesh of the one card (four
+               shards of 1024 lanes, 256 slots each), bit-equal to the
+               per-block reference; ``dryrun_multichip`` on that mesh (256
+               lanes a shard at 1×1, then its cross-shard, rescue and
+               early-exit checks at 32 lanes a shard, the solves they
+               compare with converged and unconverged lanes); a cluster of two ``parallel.dryrun``
+               processes on the card (gloo, 2 × 2048 lanes of the flagship
+               at the fleet rescue's 4×4 budget, one fused launch each) whose
+               identical RESULT lines equal ``ensemble_summary`` of the
+               single-process solve of all 4096 lanes, and a one-rank NCCL
+               group running the same all_reduce (started first, beside the
+               in-process checks); the mixed ensemble of the flagship and
+               config #2 at 2048 lanes each, bit-equal per group
+ 47. aux     — ``ClosedLoopControlTask`` with JAX
+               test_controllers_plants_tasks.py:118's Controller config (at
+               most 10 cycles: K1 8 a warm cycle, never fused);
+               ``run_feedback_loop`` of an LQR law over 4096 plants;
+               ``save_controller_state``/``load_controller_state`` of phase
+               41's fleet Controller, the resumed warm step bit-equal;
+               ``profile_solver_phases`` at B=4096; ``torch_trace`` around one
+               fused solve (the trace names the fused kernel); the
+               convergence and active-constraint reports of phase 8's result
  last    — the cold oracles of phases 4, 8, 12, 17, 24, 27, 30 and 33
                (each path saves its final state) and of the serving stream
                (with its abandon audit), the float64 checks of phases 7,
@@ -214,7 +239,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                (started first; 36 and 37 run path B's oracle) and the
                B=1024 cases of phases 14 and 23: 45 processes, at most 17
                at once (``last_phase``)
- 46. summary — the seconds of the build, of each path and of the last
+ 48. summary — the seconds of the build, of each path and of the last
                phase (``smoke_split_s``), the kernels line, the card line,
                then the result line
 
@@ -341,6 +366,7 @@ def reset_counts():
     riccati_cuda.lqr_solve_cuda.launches = 0
     k2a.fused_solve_cuda.launches = 0
     k2a.fused_solve_cuda.launches_by_rule.clear()
+    k2a.fused_solve_cuda.launches_by_group.clear()
 
 
 def rule_counts():
@@ -1624,7 +1650,7 @@ def main():
     lap("33_35_path_f")
 
     # ---- 41-43. the Controller: the fleet, one robot, the rest ------------ #
-    fleet = controller_fleet_phase(device, card)
+    fleet, fleet_ctrl, fleet_scen = controller_fleet_phase(device, card)
     robot = controller_robot_phase(device, card)
     controller_surface_phase(device, card)
     lap("41_43_controller")
@@ -1634,6 +1660,12 @@ def main():
     lap("44_serving")
     shell = shell_phase(device, card)
     lap("45_shell")
+
+    # ---- 46-47. the parallel layer and the aux surface --------------------- #
+    par = parallel_phase(device, card, spec, warm_f, rescue_f, final_f)
+    lap("46_parallel")
+    aux = aux_phase(device, card, spec, warm_f, final_f, fleet_ctrl, fleet_scen)
+    lap("47_aux")
     paths_s = time.perf_counter() - t_start - build_s
 
     # ---- the paths' f64 checks; 14 and 23: the other models, config #1, the
@@ -1641,11 +1673,11 @@ def main():
     t_cases = time.perf_counter()
     case_rows = last_phase(checks, [name for name, _, _ in all_cases()])
     print(json.dumps({"smoke_split_s": {
-        "build_and_cold_solves": build_s, "builds": built_s, "phases_3_to_45": paths_s,
+        "build_and_cold_solves": build_s, "builds": built_s, "phases_3_to_47": paths_s,
         "f64_checks_and_cases": time.perf_counter() - t_cases,
         "total_before_summary": time.perf_counter() - t_start, "paths": laps}}))
 
-    # ---- 46. summary ---------------------------------------------------- #
+    # ---- 48. summary ---------------------------------------------------- #
     row, row2, row3 = k1[BATCH], k2a_rows[BATCH], k2_rows[BATCH]
     from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX
 
@@ -1673,7 +1705,11 @@ def main():
 
     k1_by_path = {"unfused_main": launches, "controller_fleet": fleet["k1_launches"],
                   "controller_robot": robot["k1_launches"], "serving": serving["k1_launches"],
-                  "shell": shell["k1_launches"]}
+                  "shell": shell["k1_launches"],
+                  **{p: n for line in (par, aux) for p, n in line["k1_launches_by_path"].items()}}
+    k2a_by_path = {"fused_main": k2a_launches, "controller_fleet": fleet["fused_launches"],
+                   **{p: n for line in (par, aux)
+                      for p, n in line["fused_launches_by_path"].items()}}
     print(json.dumps({"kernels": [{
         "name": "K1 riccati_sweep",
         "route": "cuda",
@@ -1689,11 +1725,10 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
     },
-        fused_row("K2a fused_al_sqp", k2a_launches, row2,
-                  by_path={"fused_main": k2a_launches,
-                           "controller_fleet": fleet["fused_launches"]}),
+        fused_row("K2a fused_al_sqp", k2a_launches, row2, by_path=k2a_by_path),
         fused_row("K2 fused_al_sqp: unicycle, quadratic form, terminal ball, fixed dt "
-                  "(config #2)", fused2, row3),
+                  "(config #2)", fused2, row3,
+                  by_path={"config2_main": fused2, **par["config2_fused_launches_by_path"]}),
         fused_row("K2 fused_al_sqp: simple car, two-disc footprint (K2c; the reference's "
                   "car-like config, path A)", fusedA, rows_a[BATCH]),
         fused_row("K2 fused_al_sqp: simple car, disc, line slots (K2c; the wall world, "
@@ -1964,7 +1999,9 @@ def controller_fleet_phase(device, card, batch=BATCH):
     ``force_reinit_new_goal_dist``. K1 must carry the cold step (240
     launches) and the fused kernel each warm step (the warm solve and the
     rescue: 2 launches); the last warm step's solve is held against the
-    un-fused solve on the same inputs with bench.py's gate."""
+    un-fused solve on the same inputs with bench.py's gate. Returns the
+    line, the live Controller and its last scenario (phase 47 resumes it
+    from a snapshot)."""
     import torch
 
     from mpc_local_planner_tpu_torch.benchmarks import random_ensemble
@@ -2063,7 +2100,7 @@ def controller_fleet_phase(device, card, batch=BATCH):
         _fail(f"the fleet Controller's fused warm solve fails the gate: {gate}")
     if not steps[-1]["converged_frac"] >= 0.5:
         _fail(f"the fleet Controller's converged_frac {steps[-1]['converged_frac']} < 0.5")
-    return line
+    return line, ctrl, scen
 
 
 def _drive(model, x, u_seq, period, substeps):
@@ -2586,31 +2623,470 @@ def shell_phase(device, card):
     return line
 
 
-def shell_phases():
-    """``chip_smoke.py --shell-phases``: build K1 and run phases 44-45 alone
-    (their oracle and audit in this process after them)."""
+# --------------------------------------------------------------------------- #
+# the parallel layer and the aux surface (phases 46-47)
+# --------------------------------------------------------------------------- #
+CLUSTER_RANKS = 2        # processes of the cluster on the one card (gloo)
+CLUSTER_TIMEOUT_S = 300  # each rank's wait, a hang fails the phase
+TASK_CYCLES = 10         # the closed-loop task's cycles, at most
+# JAX tests/test_controllers_plants_tasks.py:118's Controller config (the
+# unicycle at N=10, the quadratic form, no obstacle slot, 5×6 cold)
+TASK_CONFIG = {
+    "grid": {"grid_size_ref": 10, "dt_ref": 0.3},
+    "planning": {"objective_type": "quadratic_form", "terminal_cost_type": "quadratic",
+                 "final_state_weights": [10.0, 10.0, 10.0]},
+    "collision": {"obstacle_capacity": 0},
+    "solver": {"iterations": 5, "inner_iterations": 6},
+}
+TASK_GOAL = (1.0, 0.5, 0.4636476090008061)  # atan2(0.5, 1.0), JAX's test's
+FEEDBACK_CYCLES = 100    # run_feedback_loop's cycles over BATCH plants
+FEEDBACK_CPU_LANES = 64  # of them run again on the CPU
+PROFILE_ITERS = 3
+
+
+# dryrun_multichip's fused launches on a mesh of n shards: n (its 1×1
+# flagship), n + 1 (the cross-shard check's sharded and unsharded solves),
+# 3n (the per-shard rescue's solve and rescue a shard, and the per-block
+# reference's rescues); its early-exit checks run un-fused, K1 once per SQP
+# iteration
+def dryrun_fused_launches(n):
+    return 5 * n + 1
+
+
+# the cluster's mean cost against the single process's: float32 per-lane
+# costs summed in float64 in another order
+SUMMARY_RTOL = 1e-6
+
+
+def _trees_equal(a, b):
+    """Every leaf of two results equal bit for bit."""
     import torch
 
-    if not torch.cuda.is_available():
-        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.core.tree import tree_map
 
-    card = card_line()
-    print(f"device: {card}")
+    flags = []
+    tree_map(lambda x, y: flags.append(torch.equal(x, y)) or x, a, b)
+    return all(flags)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_argv(rank, world, port):
+    return [sys.executable, "-m", "mpc_local_planner_tpu_torch.parallel.dryrun", "--rank",
+            str(rank), "--world-size", str(world), "--coordinator", f"127.0.0.1:{port}",
+            "--device", "cuda", "--batch", str(BATCH)]
+
+
+def _rank_results(procs):
+    """Wait for each rank process; its RESULT line's JSON and its backend."""
+    import re
+
+    out = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=CLUSTER_TIMEOUT_S)
+            m = re.search(r"^RESULT rank=\d+ (\{.*\})$", text, re.M)
+            if p.returncode != 0 or m is None:
+                _fail(f"a rank of the cluster failed (rc {p.returncode}):\n{text[-4000:]}")
+            out.append(json.loads(m.group(1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def _summary_agrees(got, want):
+    return got["n_converged"] == want["n_converged"] and all(
+        math.isclose(got[k], want[k], rel_tol=SUMMARY_RTOL)
+        for k in ("mean_cost", "max_eq_norm", "max_ineq_viol"))
+
+
+def parallel_phase(device, card, spec, warm_f, rescue_f, final):
+    """Phase 46: the parallel layer (``parallel/``) on the card, from the
+    fused flagship's final state (``final``: 4096 lanes, warm-started from
+    their iterate): ``make_sharded_solver`` (warm 3×4 and the 4×4 rescue) on a
+    1×1 mesh, bit-equal to ``make_solver`` then ``make_rescue`` unsharded, and
+    on a 2×2 mesh of the one card (four shards of 1024 lanes, 256 rescue
+    slots each), bit-equal to the per-block reference; ``dryrun_multichip``
+    on that mesh (the solves its checks compare must leave converged and
+    unconverged lanes; its fused launches ``dryrun_fused_launches``, its K1
+    launches its early-exit SQP iterations, counted by ``SqpCount``); a
+    cluster of two ``parallel.dryrun`` processes on the card (gloo, 2048
+    lanes each of the flagship, seed 0, ``CHECK_SETTINGS``) whose identical
+    RESULT lines equal ``ensemble_summary`` of the single-process solve of
+    all 4096 lanes, and a one-rank NCCL group running the same all_reduce
+    (both started first, beside the in-process checks); the mixed ensemble
+    of the flagship and config #2 at 2048 lanes each, each group bit-equal
+    to its own ``make_solver`` and launched once, counted under its library
+    group. Returns the launches by path, config #2's apart."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.benchmarks import random_ensemble
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda
+    from mpc_local_planner_tpu_torch.parallel.dryrun import CHECK_SETTINGS, dryrun_multichip
+    from mpc_local_planner_tpu_torch.parallel.ensembles import MixedEnsembleSolver
+    from mpc_local_planner_tpu_torch.parallel.sharding import (
+        ensemble_summary,
+        make_mesh,
+        make_sharded_solver,
+    )
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import default_init, make_solver
+    from mpc_local_planner_tpu_torch.solvers.rescue import make_rescue
+
+    t_phase = time.perf_counter()
+    port, nccl_port = _free_port(), _free_port()
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the one-rank group's bootstrap: localhost
+    ranks = [subprocess.Popen(_rank_argv(r, CLUSTER_RANKS, port), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(CLUSTER_RANKS)]
+    nccl = subprocess.Popen(_rank_argv(0, 1, nccl_port), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    line, k1, k2a = {"device": card}, {}, {}
+    scen, r = final
+    init, duals = r.primal, r.duals
+    solve = make_solver(spec, warm_f, device)
+
+    def run(tag, fn):
+        reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        line[f"{tag}_s"] = time.perf_counter() - t0
+        k1[tag], k2a[tag] = launch_counts()
+        return out
+
+    # the flagship through the sharded solver on a 1×1 mesh of the card
+    mesh1 = make_mesh(1, 1, devices=[device])
+    out1 = run("sharded_1x1", lambda: make_sharded_solver(
+        spec, warm_f, mesh1, rescue_slots=RESCUE_SLOTS, rescue_settings=rescue_f)(
+        scen, init, duals))
+    ref1 = make_rescue(spec, warm_f, RESCUE_SLOTS, rescue_settings=rescue_f, device=device)(
+        scen, solve(scen, init, duals))
+    line["sharded_1x1_bit_equal"] = _trees_equal(out1.blocks[0], ref1)
+    line["converged_frac"] = float(ref1.converged.float().mean())
+
+    # four shards of 1024 lanes on the one card, 256 rescue slots each
+    mesh4 = make_mesh(2, 2, devices=[device] * 4)
+    per, slots = BATCH // 4, RESCUE_SLOTS // 4
+    out4 = run("sharded_2x2", lambda: make_sharded_solver(
+        spec, warm_f, mesh4, rescue_slots=slots, rescue_settings=rescue_f)(scen, init, duals))
+    rescue4 = make_rescue(spec, warm_f, slots, rescue_settings=rescue_f, device=device)
+    blocks_equal = []
+    for i in range(4):
+        blk = [_lanes(t, slice(i * per, (i + 1) * per)) for t in (scen, init, duals)]
+        blocks_equal.append(_trees_equal(out4.blocks[i], rescue4(blk[0], solve(*blk))))
+    line["sharded_2x2_blocks_bit_equal"] = blocks_equal
+    line["sharded_2x2_converged_frac"] = float(
+        torch.cat([b.converged for b in out4.blocks]).float().mean())
+
+    # the dry run's three checks on that mesh (it raises on a mismatch)
+    with SqpCount() as sqp:
+        line["dryrun"] = run("dryrun", lambda: dryrun_multichip(mesh4, device))
+    line["dryrun_sqp_iterations"] = sqp.n
+
+    # the mixed ensemble: the flagship and config #2, 2048 lanes each
+    spec2, _, warm2, _, _ = path_settings("config2")
+    groups = [(spec, warm_f), (spec2, dataclasses.replace(warm2, fused="auto"))]
+    mixed = MixedEnsembleSolver(groups, device=device)
+    scens = [random_ensemble(s, BATCH // 2, torch.Generator().manual_seed(g + 1), device=device)
+             for g, (s, _) in enumerate(groups)]
+    states = [mixed.init_state(g, scens[g]) for g in range(2)]
+    results = run("mixed_ensemble", lambda: mixed.solve_all(
+        scens, [s[0] for s in states], [s[1] for s in states]))
+    # each group's launches in that run, under its library group
+    mixed_groups = [fused_al_sqp_cuda.group(s, torch.float32) for s, _ in groups]
+    by_group = fused_al_sqp_cuda.fused_solve_cuda.launches_by_group
+    mixed_total, mixed_by_group = k2a["mixed_ensemble"], [by_group[g] for g in mixed_groups]
+    line["mixed_fused_launches_by_group"] = mixed_by_group
+    k2a["mixed_ensemble"] = mixed_by_group[0]
+    line["config2_fused_launches_by_path"] = {"mixed_ensemble": mixed_by_group[1]}
+    line["mixed_groups_bit_equal"] = [
+        _trees_equal(results[g], make_solver(s, st, device)(scens[g], *states[g]))
+        for g, (s, st) in enumerate(groups)]
+    line["mixed_summary"] = mixed.summary(results)
+
+    # the cluster against the single process's solve of all 4096 lanes
+    scen_c = random_ensemble(spec, BATCH, torch.Generator().manual_seed(0), device=device)
+    single = ensemble_summary(make_solver(spec, CHECK_SETTINGS, device)(
+        scen_c, *default_init(spec, CHECK_SETTINGS, scen_c)))._asdict()
     t0 = time.perf_counter()
-    riccati_cuda.build()
-    t1 = time.perf_counter()
-    device = torch.device("cuda", 0)
-    checks = F64Checks()
-    serving_phase(device, card, checks)
-    t2 = time.perf_counter()
-    shell_phase(device, card)
-    t3 = time.perf_counter()
-    for _, argv in checks.oracles:
-        subprocess.run(argv, check=True)
-    print(json.dumps({"shell_phases_s": {"build": t1 - t0, "serving": t2 - t1,
-                                         "shell": t3 - t2,
-                                         "serving_oracle": time.perf_counter() - t3}}))
+    got = _rank_results(ranks)
+    nccl_got = _rank_results([nccl])[0]
+    line["cluster_wait_s"] = time.perf_counter() - t0
+    line.update({"single_process_summary": single, "cluster_results": got,
+                 "nccl_result": nccl_got})
+    k1["cluster_ranks"] = sum(g["k1_launches"] for g in got)
+    k2a["cluster_ranks"] = sum(g["fused_launches"] for g in got)
+    k1["nccl_rank"], k2a["nccl_rank"] = nccl_got["k1_launches"], nccl_got["fused_launches"]
+    line["k1_launches_by_path"], line["fused_launches_by_path"] = k1, k2a
+    line["parallel_phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"parallel": line}))
+
+    if not line["sharded_1x1_bit_equal"]:
+        _fail("the 1x1 sharded flagship differs from make_solver + make_rescue")
+    if not all(blocks_equal):
+        _fail(f"the 2x2 sharded flagship differs from its per-block reference: {blocks_equal}")
+    dry = line["dryrun"]
+    if not all(0 < dry[k] < dry["checks_lanes"] for k in (
+            "cross_shard_converged", "early_exit_converged")):
+        _fail(f"the dry run's checks saw no mix of converged and unconverged lanes: {dry}")
+    if not 0 < single["n_converged"] < BATCH:
+        _fail(f"the cluster's ensemble converged {single['n_converged']} of {BATCH} lanes")
+    if not all(line["mixed_groups_bit_equal"]):
+        _fail(f"a mixed-ensemble group differs from its own solver: "
+              f"{line['mixed_groups_bit_equal']}")
+    if (k1["sharded_1x1"], k2a["sharded_1x1"]) != (0, 2) or (
+            k1["sharded_2x2"], k2a["sharded_2x2"]) != (0, 8) or (
+            k1["mixed_ensemble"], mixed_total) != (0, 2):
+        _fail(f"the sharded and mixed solves launched (K1, fused) {k1}, {k2a}")
+    if mixed_groups[0] == mixed_groups[1] or mixed_by_group != [1, 1]:
+        _fail(f"the mixed ensemble's groups {mixed_groups} launched {mixed_by_group} times, "
+              "expected once each")
+    if (k1["dryrun"], k2a["dryrun"]) != (sqp.n, dryrun_fused_launches(4)) or sqp.n == 0:
+        _fail(f"the dry run launched (K1, fused) ({k1['dryrun']}, {k2a['dryrun']}), expected "
+              f"({sqp.n}, its early-exit SQP iterations; {dryrun_fused_launches(4)})")
+    comparable = [{k: g[k] for k in single} for g in got]
+    if any(c != comparable[0] for c in comparable) or any(
+            g["backend"] != "gloo" or g["world_size"] != CLUSTER_RANKS for g in got):
+        _fail(f"the cluster's ranks disagree: {got}")
+    if not _summary_agrees(comparable[0], single):
+        _fail(f"the cluster's summary {comparable[0]} differs from one process's {single}")
+    if nccl_got["backend"] != "nccl" or not _summary_agrees(nccl_got, single):
+        _fail(f"the one-rank NCCL group's result {nccl_got} (single process {single})")
+    if any(g["fused_launches"] != 1 or g["k1_launches"] != 0 for g in got + [nccl_got]):
+        _fail(f"a rank's solve launched (K1, fused) other than (0, 1): {got}, {nccl_got}")
+    return line
+
+
+def _lanes(tree, lanes):
+    from mpc_local_planner_tpu_torch.core.tree import tree_map
+
+    return tree_map(lambda a: a[lanes], tree)
+
+
+class _CountedController:
+    """A Controller whose steps record (cold, K1 launches, fused launches)."""
+
+    def __init__(self, ctrl):
+        self._ctrl, self.rows = ctrl, []
+
+    def __getattr__(self, name):
+        return getattr(self._ctrl, name)
+
+    def step(self, scenario, **kw):
+        cold = self._ctrl._primal is None
+        before = launch_counts()
+        res = self._ctrl.step(scenario, **kw)
+        now = launch_counts()
+        self.rows.append((cold, now[0] - before[0], now[1] - before[1]))
+        return res
+
+
+class PlanarDoubleIntegrator:
+    """ẋ = (v, a) on two axes: state (px, py, vx, vy), control (ax, ay) (the
+    aux phase's linear plant for ``run_feedback_loop``)."""
+
+    control_dim = 2
+    state_dim = 4
+
+    def f(self, x, u):
+        import torch
+
+        return torch.cat([x[..., 2:], u], dim=-1)
+
+    def linearize(self, x, u):
+        import torch
+
+        return (torch.func.jacfwd(self.f, argnums=0)(x, u),
+                torch.func.jacfwd(self.f, argnums=1)(x, u))
+
+
+def aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen):
+    """Phase 47: the aux surface on the card. ``ClosedLoopControlTask`` with
+    JAX test_controllers_plants_tasks.py:118's Controller config for at most
+    TASK_CYCLES cycles (the distance to the goal shrinks, the log's shapes
+    agree, K1 once per SQP iteration of each cycle's budget, 8 a warm cycle,
+    the fused kernel never); ``run_feedback_loop`` of an LQR law
+    (``LqrController.make``) over 4096 planar double integrators, the first
+    64 again on the CPU; ``save_controller_state`` and
+    ``load_controller_state`` of phase 41's fleet Controller into a fresh
+    one, whose next warm step is bit-equal to the original's;
+    ``profile_solver_phases`` at B=4096 on the flagship's final state;
+    ``torch_trace`` around one fused solve in a process of its own
+    (``trace_worker``: the trace file's kernel events must name the fused
+    kernel) and again in this process, whose trace is printed and not
+    checked (ROADMAP §3, F6: after phases 3-46 it has recorded no kernel);
+    ``convergence_report`` and ``active_constraints_report`` on the
+    flagship's last result. Returns the launches by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mpc_local_planner_tpu_torch.checkpoint import (
+        load_controller_state,
+        save_controller_state,
+    )
+    from mpc_local_planner_tpu_torch.controllers import LqrController
+    from mpc_local_planner_tpu_torch.planner import Controller, load_config
+    from mpc_local_planner_tpu_torch.plants import SimulatedPlant
+    from mpc_local_planner_tpu_torch.profiling import (
+        active_constraints_report,
+        convergence_report,
+        profile_solver_phases,
+    )
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import make_solver
+    from mpc_local_planner_tpu_torch.tasks.closed_loop import (
+        ClosedLoopControlTask,
+        run_feedback_loop,
+    )
+
+    t_phase = time.perf_counter()
+    line, k1, k2a = {"device": card}, {}, {}
+    scen, r = final
+    # torch_trace around one fused solve, in a process of its own (started
+    # first, it runs beside the steps below): in the smoke's own process,
+    # after phases 3-46, the profiler has recorded no CUDA kernel here
+    # (ROADMAP §3, F6), so the check reads the worker's trace
+    tmp_trace = tempfile.TemporaryDirectory()
+    job = os.path.join(tmp_trace.name, "trace_job.pt")
+    torch.save({"spec": spec, "warm": warm_f, "scen": scen, "r": r}, job)
+    tracer = subprocess.Popen([sys.executable, __file__, "--trace-check", job],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # the closed-loop task on the port's unbatched Controller
+    ctrl = Controller(load_config(TASK_CONFIG), device=device)
+    counted = _CountedController(ctrl)
+    _load_k1(device)
+    plant = SimulatedPlant(model=ctrl.spec.model, method="rk4")
+    reset_counts()
+    t0 = time.perf_counter()
+    log = ClosedLoopControlTask(counted, plant, sim_dt=ctrl.config.grid.dt_ref).perform(
+        np.zeros(3), TASK_GOAL, n_cycles=TASK_CYCLES)
+    line["task_s"] = time.perf_counter() - t0
+    k1["closed_loop"], k2a["closed_loop"] = launch_counts()
+    xs = log.states.values
+    goal = torch.tensor(TASK_GOAL)
+    dist = [float(torch.linalg.norm(x[:2] - goal[:2])) for x in (xs[0], xs[-1])]
+    cold_it = ctrl.settings.n_al * ctrl.settings.n_sqp
+    warm_it = ctrl.warm_settings.n_al * ctrl.warm_settings.n_sqp
+    line["task"] = {"cycles": len(log.solve_ms), "goal_reached": log.goal_reached,
+                    "distance_start_end_m": dist, "states_shape": list(xs.shape),
+                    "controls_shape": list(log.controls.values.shape),
+                    "solve_ms": [round(v, 2) for v in log.solve_ms.tolist()],
+                    "cold_warm_iterations": [cold_it, warm_it],
+                    "k1_fused_by_cycle": [[k, f] for _, k, f in counted.rows]}
+
+    # an LQR law over 4096 planar double integrators, and 64 of them on the CPU
+    model = PlanarDoubleIntegrator()
+    q, rr = (2.0, 2.0, 1.0, 1.0), (1.0, 1.0)
+    x0 = torch.randn((BATCH, 4), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
+    lqr = LqrController.make(model, torch.zeros(4), torch.zeros(2), q_diag=q, r_diag=rr,
+                             dt=0.1, se2_state=False, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    fx, fu = run_feedback_loop(lqr.control, SimulatedPlant(model=model), x0.to(device), 0.1,
+                               FEEDBACK_CYCLES)
+    _sync(device)
+    line["feedback_loop_ms"] = (time.perf_counter() - t0) * 1e3
+    lqr_cpu = LqrController.make(model, torch.zeros(4), torch.zeros(2), q_diag=q, r_diag=rr,
+                                 dt=0.1, se2_state=False, device="cpu")
+    cx, _ = run_feedback_loop(lqr_cpu.control, SimulatedPlant(model=model),
+                              x0[:FEEDBACK_CPU_LANES], 0.1, FEEDBACK_CYCLES)
+    line["feedback"] = {
+        "plants": BATCH, "cycles": FEEDBACK_CYCLES, "shape": list(fx.shape),
+        "max_abs_x0": float(x0.abs().max()), "max_abs_x_end": float(fx[-1].abs().max()),
+        "gain_max_abs_err_vs_cpu": float((lqr.K.cpu() - lqr_cpu.K).abs().max()),
+        "max_abs_err_vs_cpu": float((fx[:, :FEEDBACK_CPU_LANES].cpu() - cx).abs().max()),
+        "finite": bool(torch.isfinite(fx).all() and torch.isfinite(fu).all())}
+
+    # the fleet Controller's snapshot, resumed by a fresh Controller
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet.npz")
+        t0 = time.perf_counter()
+        save_controller_state(path, fleet_ctrl)
+        twin = Controller(fleet_ctrl.config, batch=fleet_ctrl.batch, device=device)
+        loaded = load_controller_state(path, twin)
+        line["checkpoint_save_load_s"] = time.perf_counter() - t0
+        line["checkpoint_bytes"] = os.path.getsize(path)
+    reset_counts()
+    a, b = fleet_ctrl.step(fleet_scen), twin.step(fleet_scen)
+    _sync(device)
+    k1["checkpoint_resume"], k2a["checkpoint_resume"] = launch_counts()
+    line["checkpoint_resume_bit_equal"] = bool(
+        loaded and torch.equal(a.u0, b.u0) and _trees_equal(a.solve, b.solve))
+
+    # one SQP iteration's phases at B=4096
+    reset_counts()
+    line["profile_solver_phases_ms"] = profile_solver_phases(
+        spec, dataclasses.replace(warm_f, fused="off"), scen, r.primal, r.duals,
+        iters=PROFILE_ITERS)
+    k1["profiling"], k2a["profiling"] = launch_counts()
+
+    # the torch_trace worker's result (started at the top of the phase)
+    text, _ = tracer.communicate(timeout=CLUSTER_TIMEOUT_S)
+    tmp_trace.cleanup()
+    found = [json.loads(ln)["torch_trace"] for ln in text.splitlines()
+             if ln.startswith('{"torch_trace"')]
+    if tracer.returncode != 0 or not found:
+        _fail(f"the torch_trace worker failed (rc {tracer.returncode}):\n{text[-4000:]}")
+    line["torch_trace"] = found[0]
+    names = found[0]["names_fused_kernel"]
+    k1["torch_trace"], k2a["torch_trace"] = found[0]["k1_launches"], found[0]["fused_launches"]
+    # the same trace in this process, printed to keep fault F6 in view (ROADMAP §3)
+    inproc = trace_fused_solve(spec, warm_f, scen, r, device)
+    line["torch_trace_in_process"] = inproc
+    line["names_fused_kernel_in_process"] = inproc["names_fused_kernel"]
+    k1["torch_trace_in_process"] = inproc["k1_launches"]
+    k2a["torch_trace_in_process"] = inproc["fused_launches"]
+
+    line["convergence_report"] = convergence_report(r)
+    line["active_constraints_report"] = active_constraints_report(spec, r, scen)
+    line["k1_launches_by_path"], line["fused_launches_by_path"] = k1, k2a
+    line["aux_phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"aux": line}))
+
+    task = line["task"]
+    want = [[cold_it if cold else warm_it, 0] for cold, _, _ in counted.rows]
+    if task["k1_fused_by_cycle"] != want or counted.rows[0][0] is not True or any(
+            c for c, _, _ in counted.rows[1:]):
+        _fail(f"the closed-loop task launched (K1, fused) {task['k1_fused_by_cycle']} by "
+              f"cycle, expected {want}")
+    if warm_it != 8 or not dist[1] < dist[0]:
+        _fail(f"the closed-loop task: warm iterations {warm_it}, distance {dist}")
+    if task["states_shape"] != [task["cycles"] + 1, 3] or task["controls_shape"] != [
+            task["cycles"], 2]:
+        _fail(f"the closed-loop log's shapes {task['states_shape']}, {task['controls_shape']}")
+    fb = line["feedback"]
+    if not (fb["finite"] and fb["max_abs_x_end"] < 0.05 * fb["max_abs_x0"]
+            and fb["max_abs_err_vs_cpu"] <= 1e-9 * max(1.0, fb["max_abs_x0"])):
+        _fail(f"run_feedback_loop: {fb}")
+    if not line["checkpoint_resume_bit_equal"] or (
+            k1["checkpoint_resume"], k2a["checkpoint_resume"]) != (0, 4):
+        _fail(f"the resumed fleet Controller's warm step differs, or launched (K1, fused) "
+              f"({k1['checkpoint_resume']}, {k2a['checkpoint_resume']}), expected (0, 4)")
+    if (k1["profiling"], k2a["profiling"]) != (1 + PROFILE_ITERS, 0) or not all(
+            v > 0 for v in line["profile_solver_phases_ms"].values()):
+        _fail(f"profile_solver_phases: {line['profile_solver_phases_ms']}, launches "
+              f"({k1['profiling']}, {k2a['profiling']})")
+    if not names or (k1["torch_trace"], k2a["torch_trace"]) != (0, 1):
+        _fail(f"the torch_trace file does not name the fused kernel: {line['torch_trace']}")
+    if (k1["torch_trace_in_process"], k2a["torch_trace_in_process"]) != (0, 1):
+        _fail(f"the in-process torch_trace's solve launched (K1, fused) other than (0, 1): "
+              f"{inproc}")
+    if line["convergence_report"]["n_scenarios"] != BATCH:
+        _fail(f"convergence_report: {line['convergence_report']}")
+    return line
 
 
 def solver_worker(name, path):
@@ -2688,35 +3164,127 @@ def print_peak_memory(tag):
     print(f"{tag}: peak resident memory {peak:.2f} GiB")
 
 
-def controller_phases():
-    """``chip_smoke.py --controller-phases``: build K1 and the flagship's
-    group and run phases 41-43 alone (a few minutes)."""
+def trace_fused_solve(spec, warm, scen, r, device):
+    """``torch_trace`` around one fused warm solve of the flagship state
+    (``scen``, ``r``): the trace file's kernel events, its events by
+    category, and the launches (``reset_counts`` first)."""
+    import collections
+    import glob
+    import tempfile
+
+    from mpc_local_planner_tpu_torch.profiling import torch_trace
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import make_solver
+
+    solve = make_solver(spec, warm, device)
+    _load_libraries(spec, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with torch_trace(tmp):
+            solve(scen, r.primal, r.duals)
+            _sync(device)
+        k1, fused = launch_counts()
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        events = []
+        for f in files:
+            with open(f) as fh:
+                events += json.load(fh).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"files": [os.path.basename(f) for f in files], "kernel_events": len(kernels),
+            "events_by_category": dict(collections.Counter(str(e.get("cat")) for e in events)),
+            "kernels": [k[:60] for k in kernels[:8]],
+            "names_fused_kernel": any("k2a_kernel" in k for k in kernels),
+            "k1_launches": k1, "fused_launches": fused}
+
+
+def trace_worker(path):
+    """``chip_smoke.py --trace-check FILE``: ``trace_fused_solve`` on FILE's
+    flagship state (phase 47), in a process of its own; prints its result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.set_num_threads(1)
+    job = torch.load(path, map_location="cuda:0", weights_only=False)
+    print(json.dumps({"torch_trace": trace_fused_solve(
+        job["spec"], job["warm"], job["scen"], job["r"], torch.device("cuda", 0))}))
+
+
+LATE_PHASES = (41, 42, 43, 44, 45, 46, 47)
+
+
+def late_phases(selected):
+    """``chip_smoke.py --phases 41,46,47``: build K1 and the flagship's and
+    config #2's groups, then run the selected phases among 41-47 alone, in
+    order (a few minutes each; the whole smoke runs them all after path F).
+    Phase 47 resumes phase 41's fleet Controller, so selecting it runs 41
+    too; phases 46-47 start from one fused warm solve of the flagship's
+    ensemble from the straight-line seed in place of phase 8's final state;
+    phase 44's oracle and audit run after the phases, a process each."""
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import default_init, make_solver
 
+    if not selected or not set(selected) <= set(LATE_PHASES):
+        _fail(f"--phases takes a comma-separated list of {LATE_PHASES}, got {sorted(selected)}")
+    selected = set(selected) | ({41} if 47 in selected else set())
     card = card_line()
     print(f"device: {card}")
-    t0 = time.perf_counter()
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(tag):
+        now = time.perf_counter()
+        laps[tag] = now - t_lap[0]
+        t_lap[0] = now
+
     riccati_cuda.build()
-    fused_al_sqp_cuda.build([fused_al_sqp_cuda.group(flagship()[0], torch.float32)])
-    t1 = time.perf_counter()
-    device = torch.device("cuda", 0)
-    controller_fleet_phase(device, card)
-    t2 = time.perf_counter()
-    controller_robot_phase(device, card)
-    t3 = time.perf_counter()
-    controller_surface_phase(device, card)
-    print(json.dumps({"controller_phases_s": {"build": t1 - t0, "fleet": t2 - t1,
-                                              "robot": t3 - t2,
-                                              "surface": time.perf_counter() - t3}}))
+    spec, _, warm, rescue_set, _ = path_settings("flagship")
+    fused_al_sqp_cuda.build([fused_al_sqp_cuda.group(s, torch.float32)
+                             for s in (spec, config2())])
+    lap("build")
+    device, checks = torch.device("cuda", 0), F64Checks()
+    if 41 in selected:
+        _, fleet_ctrl, fleet_scen = controller_fleet_phase(device, card)
+        lap("41_fleet")
+    if 42 in selected:
+        controller_robot_phase(device, card)
+        lap("42_robot")
+    if 43 in selected:
+        controller_surface_phase(device, card)
+        lap("43_surface")
+    if 44 in selected:
+        serving_phase(device, card, checks)
+        lap("44_serving")
+    if 45 in selected:
+        shell_phase(device, card)
+        lap("45_shell")
+    warm_f = dataclasses.replace(warm, fused="auto")
+    if selected & {46, 47}:
+        scen = ensemble(spec, BATCH, device)
+        final = (scen, make_solver(spec, warm_f, device)(
+            scen, *default_init(spec, warm_f, scen)))
+    if 46 in selected:
+        parallel_phase(device, card, spec, warm_f,
+                       dataclasses.replace(rescue_set, fused="auto"), final)
+        lap("46_parallel")
+    if 47 in selected:
+        aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen)
+        lap("47_aux")
+    for _, argv in checks.oracles:
+        subprocess.run(argv, check=True)
+    if checks.oracles:
+        lap("44_oracle")
+    print(json.dumps({"phases_s": laps}))
+    print(card)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--controller-phases"]:
-        controller_phases()
+    if sys.argv[1:2] == ["--phases"]:
+        late_phases({int(p) for p in sys.argv[2].split(",")})
+    elif sys.argv[1:2] == ["--trace-check"]:
+        trace_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--family-case"]:
         family_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--f64-check"]:
@@ -2729,7 +3297,5 @@ if __name__ == "__main__":
         oracle_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--serving-oracle"]:
         serving_oracle_worker(sys.argv[2])
-    elif sys.argv[1:2] == ["--shell-phases"]:
-        shell_phases()
     else:
         main()

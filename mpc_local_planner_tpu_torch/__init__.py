@@ -9,6 +9,19 @@ CUDA fused kernel (``ops/fused_al_sqp_cuda.py``); the other solves take the
 un-fused path, whose KKT solve is the hand-written CUDA kernel K1
 (``ops/riccati_cuda.py``). ``planner.Controller`` (with ``load_config``)
 drives a fleet or one robot cycle by cycle, as the JAX Controller does.
+
+The parallel surface (``parallel/``): device meshes, the sharded solver
+with its per-shard rescue, ``ensemble_summary`` all-reduced over a
+``torch.distributed`` group, the mixed-model ensemble, the multi-process
+cluster and its dry run (``python -m
+mpc_local_planner_tpu_torch.parallel.dryrun``). The aux surface: the
+control-theory solvers and finite differences (``numerics/``), the LQR,
+PID, state-feedback and dual-mode controllers (``controllers/``), the
+simulated plant (``plants/``), the closed-loop task (``tasks/``), the
+Controller's checkpoint (``checkpoint.py``, the JAX package's ``.npz``
+layout), the profiling helpers (``profiling.py``), the references, signals
+and comparisons of ``core/`` and the native libraries' build cache
+(``utils/compilation_cache.py``).
 """
 
 from mpc_local_planner_tpu_torch.benchmarks import (

@@ -1,11 +1,14 @@
 """Carry state between numpy arrays and the port's containers.
 
 ``from_numpy(cls, tree, device)`` builds a ``Scenario``, ``ObstacleSet``,
-``Primal``, ``DualState`` or ``SolveResult`` from a mapping (or any object
-with the same attribute names) whose leaves are array-likes;
-``to_numpy(obj)`` returns the nested dict of numpy arrays. Field names,
-shapes and dtypes are the JAX package's, so a JAX object handed over through
-``np.asarray`` round-trips.
+``Primal``, ``DualState`` or ``SolveResult``, a plant's ``PlantState``, a
+``PidState`` or a controller (``LqrController``, ``SimpleStateController``,
+``PidController``, ``DualModeController``: its gains and references) from a
+mapping (or any object with the same attribute names) whose leaves are
+array-likes; ``to_numpy(obj)`` returns the nested dict of numpy arrays.
+Field names, shapes and dtypes are the JAX package's, so a JAX object handed
+over through ``np.asarray`` round-trips. A static field (configuration: a
+controller's ``se2_state``, a limit, a radius) is copied as a Python value.
 
 ``controller_state_to_numpy(controller)`` and
 ``controller_state_from_numpy(controller, state)`` carry a Controller's warm
@@ -23,6 +26,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from mpc_local_planner_tpu_torch.controllers.dual_mode import DualModeController
+from mpc_local_planner_tpu_torch.controllers.lqr import LqrController
+from mpc_local_planner_tpu_torch.core.tree import is_static
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
 from mpc_local_planner_tpu_torch.ocp.spec import Scenario
@@ -40,7 +46,14 @@ _CONTROLLER_LEAVES = {
 _NESTED = {
     Scenario: {"obstacles": ObstacleSet},
     SolveResult: {"primal": Primal, "duals": DualState},
+    DualModeController: {"lqr": LqrController},
 }
+
+
+def _static(value):
+    """A static field's value as a Python scalar (a JAX leaf may be a 0-d
+    array)."""
+    return value.item() if hasattr(value, "item") else value
 
 
 def _field(tree, name):
@@ -53,7 +66,9 @@ def from_numpy(cls, tree, device):
     kwargs = {}
     for f in dataclasses.fields(cls):
         leaf = _field(tree, f.name)
-        if f.name in nested:
+        if is_static(f):
+            kwargs[f.name] = _static(leaf)
+        elif f.name in nested:
             kwargs[f.name] = from_numpy(nested[f.name], leaf, device)
         else:
             arr = np.array(leaf)  # a writable copy: torch refuses read-only buffers
@@ -66,7 +81,10 @@ def to_numpy(obj) -> dict:
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        out[f.name] = to_numpy(v) if dataclasses.is_dataclass(v) else v.detach().cpu().numpy()
+        if is_static(f):
+            out[f.name] = v
+        else:
+            out[f.name] = to_numpy(v) if dataclasses.is_dataclass(v) else v.detach().cpu().numpy()
     return out
 
 

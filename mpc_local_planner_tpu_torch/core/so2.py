@@ -33,6 +33,23 @@ def interpolate_angle(a, b, t):
     return normalize_angle(a + t * angle_diff(b, a))
 
 
+def average_angles(angles, axis=None, weights=None):
+    """Circular mean of angles (parity: math_utils.h::average_angles); over
+    every element when ``axis`` is None."""
+    angles = torch.as_tensor(angles)
+    s, c = torch.sin(angles), torch.cos(angles)
+    if weights is not None:
+        s, c = s * weights, c * weights
+    if axis is None:
+        return torch.atan2(s.sum(), c.sum())
+    return torch.atan2(s.sum(dim=axis), c.sum(dim=axis))
+
+
+def distance_points2d(p1, p2):
+    """Euclidean distance between 2D points (last dim = 2)."""
+    return torch.linalg.norm(torch.as_tensor(p1) - torch.as_tensor(p2), dim=-1)
+
+
 def rot2d(theta):
     """2x2 rotation matrix(es); theta (...,) -> (..., 2, 2)."""
     c, s = torch.cos(theta), torch.sin(theta)

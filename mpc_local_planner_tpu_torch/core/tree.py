@@ -1,7 +1,8 @@
 """Select and map helpers over the port's containers.
 
 The containers (``Primal``, ``DualState``, ``SolveResult``, ``Scenario``,
-``ObstacleSet``) are frozen dataclasses of tensors, possibly nested. These
+``ObstacleSet``, the controllers and the plant's state) are frozen
+dataclasses of tensors, possibly nested. These
 helpers walk them field by field, the way ``jax.tree_util.tree_map`` walks a
 JAX pytree.
 """
@@ -13,8 +14,15 @@ import dataclasses
 import torch
 
 
+def is_static(field: dataclasses.Field) -> bool:
+    """A field marked ``metadata=dict(static=True)`` holds configuration (a
+    Python value), not a tensor leaf: the helpers here leave it as it is."""
+    return bool(field.metadata.get("static"))
+
+
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` leaf-wise over dataclasses / tuples of tensors."""
+    """Apply ``fn`` leaf-wise over dataclasses / tuples of tensors (static
+    fields are kept from ``tree``)."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if dataclasses.is_dataclass(tree):
@@ -25,6 +33,7 @@ def tree_map(fn, tree, *rest):
                     fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest)
                 )
                 for f in dataclasses.fields(tree)
+                if not is_static(f)
             },
         )
     if isinstance(tree, tuple):

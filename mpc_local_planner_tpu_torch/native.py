@@ -5,7 +5,8 @@ The reference's native L7 path: costmap_2d scans, costmap_converter polygon,
 line and blob extraction, the blob tracker and CostmapModel feasibility
 (``native/costmap.cpp``). The library is built from that source at first use
 by ``g++ -O3 -march=native -fPIC -shared -std=c++17`` into ``_build/``
-(ignored by git), under a name keyed by the source's hash, the flags and
+(ignored by git; ``utils.compilation_cache.enable_persistent_cache`` points
+it elsewhere), under a name keyed by the source's hash, the flags and
 what ``-march=native`` means on this host, so a library built for another
 host is never loaded.
 ``available()`` is false only when no C++ compiler is found; the planner
@@ -25,9 +26,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mpc_local_planner_tpu_torch.utils.compilation_cache import DEFAULT_BUILD_DIR, build_dir
+
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG.parent / "native" / "costmap.cpp"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # the default of ``build_dir()``
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 _lib = None
 
@@ -50,7 +53,7 @@ def library_path(cxx: str) -> Path:
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_target_flags(cxx).encode())
-    return BUILD_DIR / f"libmpccostmap_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libmpccostmap_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -62,7 +65,7 @@ def build() -> Path:
     lib = library_path(cxx)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True)

@@ -1445,18 +1445,21 @@ def fused_solve_cuda(spec, settings, scenario, init: Primal, duals: DualState) -
     if init.xs.device.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA tensors, got {init.xs.device}")
     ins, outs = kernel_io(spec, scenario, init, duals)
-    lib = _load(group(spec, init.xs.dtype))
+    g = group(spec, init.xs.dtype)
+    lib = _load(g)
     dev = init.xs.device
     with torch.cuda.device(dev):
         launch(lib, spec, settings, ins, outs, torch.cuda.current_stream(dev).cuda_stream,
                scenario.obstacles)
     fused_solve_cuda.launches += 1
     fused_solve_cuda.launches_by_rule[spec.collocation] += 1
+    fused_solve_cuda.launches_by_group[g] += 1
     return result_of(outs)
 
 
 fused_solve_cuda.launches = 0
 fused_solve_cuda.launches_by_rule = collections.Counter()  # by spec.collocation
+fused_solve_cuda.launches_by_group = collections.Counter()  # by group(spec, dtype)
 
 
 # --------------------------------------------------------------------------- #

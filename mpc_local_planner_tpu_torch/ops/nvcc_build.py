@@ -2,7 +2,9 @@
 
 Each kernel source under ``csrc/`` is compiled at first use by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``_build/`` (ignored by
-git), under a name keyed by the source's hash, and loaded with ``ctypes``. A
+git; ``utils.compilation_cache.enable_persistent_cache`` points it
+elsewhere), under a name keyed by the source's hash, and loaded with
+``ctypes``. A
 source built twice with different macros (``-D``) gives each build a name of
 its own (``variant``).
 """
@@ -16,9 +18,11 @@ import subprocess
 import time
 from pathlib import Path
 
+from mpc_local_planner_tpu_torch.utils.compilation_cache import DEFAULT_BUILD_DIR, build_dir
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # the default of ``build_dir()``
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +44,7 @@ def nvcc() -> str:
 
 def library_path(source: Path, variant: str = "") -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}{variant}_{digest}.so"
+    return build_dir() / f"lib{source.stem}{variant}_{digest}.so"
 
 
 def build_library(source: Path, lib: Path, defines=()) -> dict:
@@ -50,7 +54,7 @@ def build_library(source: Path, lib: Path, defines=()) -> dict:
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "ptxas": ""}
     compiler = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(

@@ -778,6 +778,30 @@ def _update_duals(spec, funcs, primal, scenario, duals: DualState, settings, vio
 # --------------------------------------------------------------------------- #
 # full solve
 # --------------------------------------------------------------------------- #
+def default_kkt_system(spec, settings, scenario, init):
+    """``kkt_system(primal, duals)`` of the AD derivatives (``_kkt_system``)
+    for a solve from ``init``."""
+    stage_fns = _make_stage_fns(spec)
+    term_fns = _make_terminal_fns(spec)
+    # hoisted out of the iteration loops: the derivatives predict dynamic
+    # obstacles at the solve's initial dt (the merit and the dual update
+    # predict at the trajectory's own dt, in ``constraints``)
+    obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
+
+    def kkt_system(primal, duals):
+        return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k,
+                           settings.dt_prox)
+
+    return kkt_system
+
+
+def kkt_backend(settings):
+    """The Riccati KKT solve ``settings.kkt`` and ``horizon_parallel`` select."""
+    if settings.horizon_parallel or settings.kkt == "pscan":
+        return lqr_solve_pscan
+    return lqr_solve if settings.kkt == "scan" else lqr_solve_auto
+
+
 def solve(
     spec: OcpSpec,
     settings: SolverSettings,
@@ -809,21 +833,8 @@ def solve(
         raise ValueError("solve takes one leading lane axis: xs (B, N+1, 3)")
     funcs = funcs or make_ocp_functions(spec)
     if kkt_system is None:
-        stage_fns = _make_stage_fns(spec)
-        term_fns = _make_terminal_fns(spec)
-        # hoisted out of the iteration loops: the derivatives predict dynamic
-        # obstacles at the solve's initial dt (the merit and the dual update
-        # predict at the trajectory's own dt, in ``constraints``)
-        obs_k = _stage_obstacles(spec, scenario, init.dt, spec.N + 1)
-
-        def kkt_system(primal, duals):
-            return _kkt_system(spec, stage_fns, term_fns, primal, scenario, duals, obs_k,
-                               settings.dt_prox)
-
-    if settings.horizon_parallel or settings.kkt == "pscan":
-        lqr = lqr_solve_pscan
-    else:
-        lqr = lqr_solve if settings.kkt == "scan" else lqr_solve_auto
+        kkt_system = default_kkt_system(spec, settings, scenario, init)
+    lqr = kkt_backend(settings)
     dtype = init.xs.dtype
     B = init.dt.shape[0]
     reg0 = torch.full((B,), settings.reg0, dtype=dtype, device=init.xs.device)

@@ -338,10 +338,12 @@ def test_torch_make_solver_on_cpu_is_the_unfused_solve_bit_for_bit():
     spec, st, scen, init, duals = _small()
     before = k2a.fused_solve_cuda.launches
     by_rule = dict(k2a.fused_solve_cuda.launches_by_rule)
+    by_group = dict(k2a.fused_solve_cuda.launches_by_group)
     auto = al_sqp.make_solver(spec, st, device="cpu")(scen, init, duals)
     off = al_sqp.solve(spec, dataclasses.replace(st, fused="off"), scen, init, duals)
     assert k2a.fused_solve_cuda.launches == before
     assert k2a.fused_solve_cuda.launches_by_rule == by_rule
+    assert k2a.fused_solve_cuda.launches_by_group == by_group
     for a, b in zip(_leaves(auto), _leaves(off)):
         assert torch.equal(a, b)
 

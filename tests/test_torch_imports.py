@@ -64,12 +64,31 @@ def test_torch_port_and_chip_smoke_import_no_jax():
         "examples/demo_dynamic_obstacle.py",
         "examples/demo_fleet.py",
         "examples/demo_serving.py",
+        "parallel/sharding.py",
+        "parallel/ensembles.py",
+        "parallel/distributed.py",
+        "parallel/dryrun.py",
+        "core/value_comparison.py",
+        "core/references.py",
+        "core/signals.py",
+        "numerics/finite_differences.py",
+        "numerics/control_theory.py",
+        "controllers/lqr.py",
+        "controllers/simple_state.py",
+        "controllers/pid.py",
+        "controllers/dual_mode.py",
+        "plants/simulated_plant.py",
+        "tasks/closed_loop.py",
+        "checkpoint.py",
+        "profiling.py",
+        "utils/compilation_cache.py",
     ],
 )
 def test_torch_host_and_solver_modules_import_no_jax(module):
-    """The numpy-only and solver modules keep their own copies of what they
-    need (``Costmap``, ``inflate``, ``astar_plan``): none imports JAX or the
-    JAX package, and each is one of the files the walk above checks."""
+    """The numpy-only, solver, parallel and aux modules keep their own copies
+    of what they need (``Costmap``, ``inflate``, ``astar_plan``): none imports
+    JAX or the JAX package (``parallel/dryrun.py`` also runs as a process of
+    its own), and each is one of the files the walk above checks."""
     path = ROOT / "mpc_local_planner_tpu_torch" / module
     assert path in _port_files()
     assert _bad_imports(path.read_text()) == []
