@@ -228,8 +228,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                ``save_controller_state``/``load_controller_state`` of phase
                41's fleet Controller, the resumed warm step bit-equal;
                ``profile_solver_phases`` at B=4096; ``torch_trace`` around one
-               fused solve (the trace names the fused kernel); the
-               convergence and active-constraint reports of phase 8's result
+               fused solve in the smoke's own process, after phases 3-46
+               (the trace names the fused kernel; its K1 and fused kernel
+               events equal the launches counted); the convergence and
+               active-constraint reports of phase 8's result
  last    — the cold oracles of phases 4, 8, 12, 17, 24, 27, 30 and 33
                (each path saves its final state) and of the serving stream
                (with its abandon audit), the float64 checks of phases 7,
@@ -242,6 +244,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  48. summary — the seconds of the build, of each path and of the last
                phase (``smoke_split_s``), the kernels line, the card line,
                then the result line
+
+Every traced phase (6, 10, 16, 19, 22, 26, 29, 32, 35, 41, 42, 44, 47)
+traces in the smoke's own process through ``profiling.torch_trace`` and
+fails unless its trace holds as many K1 and fused kernel events as the
+wrappers counted launches; the smoke runs no trace in another process.
 
 Needs a CUDA card; without one (or without the package beside it) it exits
 non-zero before printing any result.
@@ -260,6 +267,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()  # the smoke process's start, for the traces' age
 BATCH = 4096
 RESCUE_SLOTS = 1024
 LINES_RESCUE_SLOTS = 2048  # the wall world's rescue (bench.py families mode)
@@ -1315,33 +1323,45 @@ def gate_and_trace(tag, spec, warm, warm_f, settled, cycle, cycle_ms):
 
 def trace_phase(cycle, settled, cycle_ms):
     """One warm cycle (solve + rescue) from the settled state under
-    torch.profiler, recording the device's activity alone: the device's
-    kernel time per cycle, K1's and K2a's parts of it, and the device's busy
-    share against the unprofiled cycle time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``profiling.torch_trace``, recording the device's activity alone: from
+    the trace file, the device's kernel time per cycle, K1's and K2a's parts
+    of it, and the device's busy share against the unprofiled cycle time.
+    Fails unless the trace holds as many K1 and fused kernel events as
+    their wrappers counted launches in the traced block."""
+    import glob
+    import tempfile
+
+    from mpc_local_planner_tpu_torch.profiling import torch_trace
 
     scen, r = settled
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cycle(scen, r)
-        torch.cuda.synchronize()
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        before = launch_counts()
+        with torch_trace(tmp, cpu=False):
+            cycle(scen, r)
+        counted = [n - b for n, b in zip(launch_counts(), before)]
+        (path,) = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        with open(path) as fh:
+            trace = json.load(fh)
+    ms, count = collections.Counter(), collections.Counter()
+    for e in trace["traceEvents"]:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms[e["name"]] += e["dur"] / 1e3
+            count[e["name"]] += 1
+    device_ms = sum(ms.values())
     out = {
         "device_kernel_ms_per_cycle": device_ms,
-        "kernel_launches_per_cycle": sum(e.count for e in kernels),
+        "kernel_launches_per_cycle": sum(count.values()),
         "device_busy_frac": device_ms / cycle_ms,
     }
     for tag, key in (("k1", "riccati_sweep_kernel"), ("k2a", "k2a_kernel")):
-        mine = [e for e in kernels if key in e.key]
-        out[f"{tag}_ms_per_cycle"] = sum(e.self_device_time_total for e in mine) / 1e3
-        out[f"{tag}_launches_per_cycle"] = sum(e.count for e in mine)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    out["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+        out[f"{tag}_ms_per_cycle"] = sum(v for k, v in ms.items() if key in k)
+        out[f"{tag}_launches_per_cycle"] = sum(v for k, v in count.items() if key in k)
+    out["top_kernels_ms"] = {k[:60]: v for k, v in ms.most_common(5)}
+    out["alignment"] = trace["torch_trace_alignment"]
+    out["k1_fused_launches_counted"] = counted
+    if [out["k1_launches_per_cycle"], out["k2a_launches_per_cycle"]] != counted:
+        _fail(f"the trace holds (K1, fused) kernel events ({out['k1_launches_per_cycle']}, "
+              f"{out['k2a_launches_per_cycle']}), the wrappers counted {counted}: {out}")
     return out
 
 
@@ -2922,10 +2942,9 @@ def aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen):
     ``load_controller_state`` of phase 41's fleet Controller into a fresh
     one, whose next warm step is bit-equal to the original's;
     ``profile_solver_phases`` at B=4096 on the flagship's final state;
-    ``torch_trace`` around one fused solve in a process of its own
-    (``trace_worker``: the trace file's kernel events must name the fused
-    kernel) and again in this process, whose trace is printed and not
-    checked (ROADMAP §3, F6: after phases 3-46 it has recorded no kernel);
+    ``torch_trace`` around one fused solve in this process (the trace file's
+    kernel events must name the fused kernel, and hold as many K1 and fused
+    kernel events as the wrappers counted launches);
     ``convergence_report`` and ``active_constraints_report`` on the
     flagship's last result. Returns the launches by path."""
     import tempfile
@@ -2954,15 +2973,6 @@ def aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen):
     t_phase = time.perf_counter()
     line, k1, k2a = {"device": card}, {}, {}
     scen, r = final
-    # torch_trace around one fused solve, in a process of its own (started
-    # first, it runs beside the steps below): in the smoke's own process,
-    # after phases 3-46, the profiler has recorded no CUDA kernel here
-    # (ROADMAP §3, F6), so the check reads the worker's trace
-    tmp_trace = tempfile.TemporaryDirectory()
-    job = os.path.join(tmp_trace.name, "trace_job.pt")
-    torch.save({"spec": spec, "warm": warm_f, "scen": scen, "r": r}, job)
-    tracer = subprocess.Popen([sys.executable, __file__, "--trace-check", job],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     # the closed-loop task on the port's unbatched Controller
     ctrl = Controller(load_config(TASK_CONFIG), device=device)
@@ -3033,22 +3043,10 @@ def aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen):
         iters=PROFILE_ITERS)
     k1["profiling"], k2a["profiling"] = launch_counts()
 
-    # the torch_trace worker's result (started at the top of the phase)
-    text, _ = tracer.communicate(timeout=CLUSTER_TIMEOUT_S)
-    tmp_trace.cleanup()
-    found = [json.loads(ln)["torch_trace"] for ln in text.splitlines()
-             if ln.startswith('{"torch_trace"')]
-    if tracer.returncode != 0 or not found:
-        _fail(f"the torch_trace worker failed (rc {tracer.returncode}):\n{text[-4000:]}")
-    line["torch_trace"] = found[0]
-    names = found[0]["names_fused_kernel"]
-    k1["torch_trace"], k2a["torch_trace"] = found[0]["k1_launches"], found[0]["fused_launches"]
-    # the same trace in this process, printed to keep fault F6 in view (ROADMAP §3)
-    inproc = trace_fused_solve(spec, warm_f, scen, r, device)
-    line["torch_trace_in_process"] = inproc
-    line["names_fused_kernel_in_process"] = inproc["names_fused_kernel"]
-    k1["torch_trace_in_process"] = inproc["k1_launches"]
-    k2a["torch_trace_in_process"] = inproc["fused_launches"]
+    # torch_trace around one fused solve, in this process after phases 3-46
+    trace = trace_fused_solve(spec, warm_f, scen, r, device)
+    line["torch_trace"] = trace
+    k1["torch_trace"], k2a["torch_trace"] = trace["k1_launches"], trace["fused_launches"]
 
     line["convergence_report"] = convergence_report(r)
     line["active_constraints_report"] = active_constraints_report(spec, r, scen)
@@ -3079,11 +3077,12 @@ def aux_phase(device, card, spec, warm_f, final, fleet_ctrl, fleet_scen):
             v > 0 for v in line["profile_solver_phases_ms"].values()):
         _fail(f"profile_solver_phases: {line['profile_solver_phases_ms']}, launches "
               f"({k1['profiling']}, {k2a['profiling']})")
-    if not names or (k1["torch_trace"], k2a["torch_trace"]) != (0, 1):
-        _fail(f"the torch_trace file does not name the fused kernel: {line['torch_trace']}")
-    if (k1["torch_trace_in_process"], k2a["torch_trace_in_process"]) != (0, 1):
-        _fail(f"the in-process torch_trace's solve launched (K1, fused) other than (0, 1): "
-              f"{inproc}")
+    if not trace["names_fused_kernel"] or (k1["torch_trace"], k2a["torch_trace"]) != (0, 1):
+        _fail(f"the torch_trace file does not name the fused kernel, or its solve launched "
+              f"(K1, fused) other than (0, 1): {trace}")
+    if trace["k1_fused_kernel_events"] != [k1["torch_trace"], k2a["torch_trace"]]:
+        _fail(f"the torch_trace file's (K1, fused) kernel events differ from the launches "
+              f"counted: {trace}")
     if line["convergence_report"]["n_scenarios"] != BATCH:
         _fail(f"convergence_report: {line['convergence_report']}")
     return line
@@ -3167,7 +3166,8 @@ def print_peak_memory(tag):
 def trace_fused_solve(spec, warm, scen, r, device):
     """``torch_trace`` around one fused warm solve of the flagship state
     (``scen``, ``r``): the trace file's kernel events, its events by
-    category, and the launches (``reset_counts`` first)."""
+    category, its K1 and fused kernel events, and the launches
+    (``reset_counts`` first)."""
     import collections
     import glob
     import tempfile
@@ -3184,29 +3184,22 @@ def trace_fused_solve(spec, warm, scen, r, device):
             _sync(device)
         k1, fused = launch_counts()
         files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
-        events = []
+        events, alignment = [], []
         for f in files:
             with open(f) as fh:
-                events += json.load(fh).get("traceEvents", [])
+                trace = json.load(fh)
+            events += trace.get("traceEvents", [])
+            alignment.append(trace.get("torch_trace_alignment"))
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     return {"files": [os.path.basename(f) for f in files], "kernel_events": len(kernels),
+            "alignment": alignment,
             "events_by_category": dict(collections.Counter(str(e.get("cat")) for e in events)),
             "kernels": [k[:60] for k in kernels[:8]],
             "names_fused_kernel": any("k2a_kernel" in k for k in kernels),
-            "k1_launches": k1, "fused_launches": fused}
-
-
-def trace_worker(path):
-    """``chip_smoke.py --trace-check FILE``: ``trace_fused_solve`` on FILE's
-    flagship state (phase 47), in a process of its own; prints its result."""
-    import torch
-
-    if not torch.cuda.is_available():
-        _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    torch.set_num_threads(1)
-    job = torch.load(path, map_location="cuda:0", weights_only=False)
-    print(json.dumps({"torch_trace": trace_fused_solve(
-        job["spec"], job["warm"], job["scen"], job["r"], torch.device("cuda", 0))}))
+            "k1_fused_kernel_events": [sum("riccati_sweep_kernel" in k for k in kernels),
+                                       sum("k2a_kernel" in k for k in kernels)],
+            "k1_launches": k1, "fused_launches": fused,
+            "process_s": time.perf_counter() - T_START}
 
 
 LATE_PHASES = (41, 42, 43, 44, 45, 46, 47)
@@ -3283,8 +3276,6 @@ def late_phases(selected):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phases"]:
         late_phases({int(p) for p in sys.argv[2].split(",")})
-    elif sys.argv[1:2] == ["--trace-check"]:
-        trace_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--family-case"]:
         family_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--f64-check"]:

@@ -24,6 +24,7 @@ and comparisons of ``core/`` and the native libraries' build cache
 (``utils/compilation_cache.py``).
 """
 
+from mpc_local_planner_tpu_torch.core import so2  # noqa: F401
 from mpc_local_planner_tpu_torch.benchmarks import (
     config1_unicycle_quadratic,
     config2_diffdrive_obstacles,

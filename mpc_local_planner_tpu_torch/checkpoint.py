@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mpc_local_planner_tpu_torch.convert import leaf_numpy
+from mpc_local_planner_tpu_torch.core.tree import leaf_numpy
 from mpc_local_planner_tpu_torch.device import resolve_device
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
 from mpc_local_planner_tpu_torch.solvers.al_sqp import DualState

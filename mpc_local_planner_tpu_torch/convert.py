@@ -28,7 +28,7 @@ import torch
 
 from mpc_local_planner_tpu_torch.controllers.dual_mode import DualModeController
 from mpc_local_planner_tpu_torch.controllers.lqr import LqrController
-from mpc_local_planner_tpu_torch.core.tree import is_static
+from mpc_local_planner_tpu_torch.core.tree import is_static, leaf_numpy
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
 from mpc_local_planner_tpu_torch.ocp.spec import Scenario
@@ -86,13 +86,6 @@ def to_numpy(obj) -> dict:
         else:
             out[f.name] = to_numpy(v) if dataclasses.is_dataclass(v) else v.detach().cpu().numpy()
     return out
-
-
-def leaf_numpy(a) -> np.ndarray:
-    """A tensor on any device, or an array-like, as a numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 def _tree_numpy(obj):

@@ -11,7 +11,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def leaf_numpy(a) -> np.ndarray:
+    """A tensor on any device, or an array-like, as a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def is_static(field: dataclasses.Field) -> bool:

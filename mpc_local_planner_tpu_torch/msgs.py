@@ -14,7 +14,7 @@ from typing import List
 
 import numpy as np
 
-from mpc_local_planner_tpu_torch.convert import leaf_numpy
+from mpc_local_planner_tpu_torch.core.tree import leaf_numpy
 
 
 @dataclasses.dataclass

@@ -14,9 +14,12 @@ def det2(A):
     return A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
 
 
-def inv2(A):
-    """Inverse of (..., 2, 2)."""
-    inv_d = 1.0 / det2(A)
+def inv2(A, eps: float = 0.0):
+    """Inverse of (..., 2, 2); eps regularizes the determinant."""
+    d = det2(A)
+    if eps:
+        d = torch.where(d.abs() > eps, d, torch.where(d >= 0, d + eps, d - eps))
+    inv_d = 1.0 / d
     out = torch.stack(
         [
             torch.stack([A[..., 1, 1], -A[..., 0, 1]], dim=-1),
@@ -25,6 +28,13 @@ def inv2(A):
         dim=-2,
     )
     return out * inv_d[..., None, None]
+
+
+def solve2(A, b):
+    """Solve (..., 2, 2) @ x = b for b (..., 2) or (..., 2, k)."""
+    if b.shape[-1] == 2 and b.dim() == A.dim() - 1:
+        return torch.einsum("...ij,...j->...i", inv2(A), b)
+    return inv2(A) @ b
 
 
 def _cof3(A, i0, i1, j0, j1):
@@ -62,10 +72,41 @@ def inv3(A):
     return adjT * inv_d[..., None, None]
 
 
-def _solve_with(inv, A, b):
-    if b.dim() == A.dim() - 1:
-        return torch.einsum("...ij,...j->...i", inv(A), b)
-    return inv(A) @ b
+def solve3(A, b):
+    """Solve (..., 3, 3) @ x = b for b (..., 3) or (..., 3, k)."""
+    if b.shape[-1] == 3 and b.dim() == A.dim() - 1:
+        return torch.einsum("...ij,...j->...i", inv3(A), b)
+    return inv3(A) @ b
+
+
+def solve_unrolled(A, B):
+    """Batched solve A X = B for small n by unrolled Gaussian elimination
+    without pivoting (elementwise ops only).
+
+    A: (..., n, n); B: (..., n, m). Meant for well-conditioned systems with
+    dominant diagonals (e.g. M = I + PSD·PSD products in the
+    horizon-parallel Riccati compositions).
+    """
+    n, m = A.shape[-1], B.shape[-1]
+    a = [[A[..., i, j] for j in range(n)] for i in range(n)]
+    b = [[B[..., i, j] for j in range(m)] for i in range(n)]
+    for k in range(n):
+        inv_piv = 1.0 / a[k][k]
+        for i in range(k + 1, n):
+            f = a[i][k] * inv_piv
+            for j in range(k + 1, n):
+                a[i][j] = a[i][j] - f * a[k][j]
+            for j in range(m):
+                b[i][j] = b[i][j] - f * b[k][j]
+    x = [[None] * m for _ in range(n)]
+    for i in range(n - 1, -1, -1):
+        inv_piv = 1.0 / a[i][i]
+        for j in range(m):
+            acc = b[i][j]
+            for l in range(i + 1, n):
+                acc = acc - a[i][l] * x[l][j]
+            x[i][j] = acc * inv_piv
+    return torch.stack([torch.stack(row, dim=-1) for row in x], dim=-2)
 
 
 def solve_psd(A, b):
@@ -75,9 +116,9 @@ def solve_psd(A, b):
     if n == 1:
         return b / (A[..., 0, :] if b.dim() == A.dim() - 1 else A[..., 0, 0:1])
     if n == 2:
-        return _solve_with(inv2, A, b)
+        return solve2(A, b)
     if n == 3:
-        return _solve_with(inv3, A, b)
+        return solve3(A, b)
     L = torch.linalg.cholesky(A)
     if b.dim() == A.dim() - 1:
         return torch.cholesky_solve(b[..., None], L)[..., 0]

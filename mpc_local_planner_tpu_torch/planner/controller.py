@@ -26,7 +26,7 @@ import torch
 
 from mpc_local_planner_tpu_torch.core.so2 import angle_diff
 from mpc_local_planner_tpu_torch.core.time_series import TimeSeries, TimeSeriesSE2
-from mpc_local_planner_tpu_torch.core.tree import tree_map, where_tree
+from mpc_local_planner_tpu_torch.core.tree import where_tree
 from mpc_local_planner_tpu_torch.device import const, pin_matmul_precision, resolve_device
 from mpc_local_planner_tpu_torch.ocp.grid import (
     Primal,
@@ -45,6 +45,8 @@ from mpc_local_planner_tpu_torch.solvers.al_sqp import (
     SolveResult,
     SolverSettings,
     _check_device,
+    add_lane,
+    drop_lane,
     init_duals,
     make_solver,
     shift_duals,
@@ -64,15 +66,6 @@ class ControlResult:
     x_seq: TimeSeriesSE2
     u_seq: TimeSeries
     solve: SolveResult
-
-
-def _lane(tree):
-    """Add the one-lane axis the solvers take (None stays None)."""
-    return None if tree is None else tree_map(lambda a: a[None], tree)
-
-
-def _unlane(tree):
-    return None if tree is None else tree_map(lambda a: a[0], tree)
 
 
 def _synchronize(device):
@@ -200,8 +193,8 @@ class Controller:
 
         if self.batch is not None:
             return run
-        return lambda scenario, init, duals: _unlane(
-            run(_lane(scenario), _lane(init), _lane(duals))
+        return lambda scenario, init, duals: drop_lane(
+            run(add_lane(scenario), add_lane(init), add_lane(duals))
         )
 
     def _solver_fn(self, warm: bool):
@@ -291,7 +284,7 @@ class Controller:
             )
             self._f64_cache[self._spec.N] = fb
         if self.batch is None:
-            return _unlane(fb(_lane(scenario), _lane(result), _lane(fresh_seed)))
+            return drop_lane(fb(add_lane(scenario), add_lane(result), add_lane(fresh_seed)))
         return fb(scenario, result, fresh_seed)
 
     def calibrate_cycle_budget(self, scenario, phase_ms: Optional[float] = None) -> float:

@@ -914,13 +914,28 @@ def fused_dispatch_ok(spec, settings, scenario, dtype, device) -> bool:
     )
 
 
-def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device=None):
-    """Build the batched solve(scenario, init, duals) → SolveResult.
+def add_lane(tree):
+    """Add the one-lane axis the solvers take (None stays None)."""
+    return None if tree is None else tree_map(lambda a: a[None], tree)
+
+
+def drop_lane(tree):
+    return None if tree is None else tree_map(lambda a: a[0], tree)
+
+
+def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device=None,
+                batched: bool = True):
+    """Build solve(scenario, init, duals) → SolveResult.
+
+    With ``batched=True`` every argument carries one leading lane axis.
+    Solves that ``fused_dispatch_ok`` admits launch the fused kernel (or
+    raise); the rest take the un-fused ``solve``. With ``batched=False`` the
+    arguments and the result are one scenario without a lane axis, solved by
+    the un-fused ``solve`` on one lane (JAX ``solve_single``: K1 at B=1 on
+    the card, never the fused kernel).
 
     ``device`` defaults to CUDA (raises without a card); pass ``"cpu"`` to run
-    on the CPU. Inputs must lie on that device. Solves that
-    ``fused_dispatch_ok`` admits launch the fused kernel (or raise); the rest take
-    the un-fused ``solve``.
+    on the CPU. Inputs must lie on that device.
     """
     from mpc_local_planner_tpu_torch.ops.fused_al_sqp_cuda import fused_solve_cuda
 
@@ -928,6 +943,14 @@ def make_solver(spec: OcpSpec, settings: Optional[SolverSettings] = None, device
     _check_settings(settings)
     dev = resolve_device(device)
     pin_matmul_precision()
+
+    if not batched:
+        def solve_single(scenario, init, duals):
+            _check_device(dev, scenario, init, duals)
+            return drop_lane(solve(spec, settings, add_lane(scenario), add_lane(init),
+                                   add_lane(duals)))
+
+        return solve_single
 
     def solve_batch(scenario, init, duals):
         _check_device(dev, scenario, init, duals)

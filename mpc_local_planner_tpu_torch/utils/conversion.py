@@ -12,7 +12,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from mpc_local_planner_tpu_torch.convert import leaf_numpy
+from mpc_local_planner_tpu_torch.core.tree import leaf_numpy
 
 
 def time_series_to_poses(series) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from mpc_local_planner_tpu_torch.convert import leaf_numpy
+from mpc_local_planner_tpu_torch.core.tree import leaf_numpy
 
 
 class Publisher:

@@ -1,10 +1,10 @@
 """The port imports neither JAX nor anything of the JAX package.
 
 Walks the AST of every module of ``mpc_local_planner_tpu_torch``, of
-``chip_smoke.py`` and of ``fused_probe.py``. The JAX package's name is a
-prefix of the port's, so the guard matches the exact module name
-``mpc_local_planner_tpu`` or its ``mpc_local_planner_tpu.`` submodules, never
-the bare prefix.
+``chip_smoke.py``, ``fused_probe.py`` and ``trace_probe.py``. The JAX
+package's name is a prefix of the port's, so the guard matches the exact
+module name ``mpc_local_planner_tpu`` or its ``mpc_local_planner_tpu.``
+submodules, never the bare prefix.
 """
 
 import ast
@@ -32,7 +32,7 @@ def _bad_imports(source: str):
 
 def _port_files():
     files = sorted((ROOT / "mpc_local_planner_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "fused_probe.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "fused_probe.py", ROOT / "trace_probe.py"]
 
 
 def test_torch_port_and_chip_smoke_import_no_jax():
