@@ -991,6 +991,46 @@ def k2a_phase(spec, warm, rescue_set, settled, checks, name="K2a", slots=RESCUE_
     return report
 
 
+def user_model_phase(spec, warm, settled, n=GATE_LANES):
+    """Phase 49: the flagship with a user's model, a frozen-dataclass
+    subclass of ``SimpleCarModel`` (``user_subclass``), through
+    ``make_solver`` on phase 4's live warm state at ``n`` lanes, warm 3×4
+    with ``fused="auto"``. The fused kernel takes a model by its exact type
+    (JAX ``fused_supported``: a subclass may change ``f``), so the solve runs
+    the un-fused path: no fused launch and one K1 launch per SQP iteration;
+    then the K1-vs-plain gate on it. Returns the phase's line."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+    from mpc_local_planner_tpu_torch.ops import riccati_cuda
+    from mpc_local_planner_tpu_torch.solvers.al_sqp import make_solver
+    from mpc_local_planner_tpu_torch.systems.models import SimpleCarModel
+
+    t0 = time.perf_counter()
+    uspec = dataclasses.replace(
+        spec, model=user_subclass(SimpleCarModel)(wheelbase=spec.model.wheelbase))
+    warm_f = dataclasses.replace(warm, fused="auto")
+    args = warm_inputs(uspec, warm_f, settled, n)
+    reset_counts()
+    out = make_solver(uspec, warm_f, args[0].x0.device)(*args)
+    torch.cuda.synchronize()
+    line = {"model": type(uspec.model).__name__, "batch": n,
+            "fused_supported": k2a.fused_supported(uspec),
+            "fused_launches": k2a.fused_solve_cuda.launches,
+            "k1_launches": riccati_cuda.lqr_solve_cuda.launches,
+            "sqp_iterations": warm.n_al * warm.n_sqp,
+            "converged": int(torch.sum(out.converged))}
+    gate, passed = gate_phase(uspec, dataclasses.replace(warm_f, kkt="scan"), warm_f, settled, n)
+    line.update(k1_vs_plain_gate=gate, passed=passed, seconds=time.perf_counter() - t0)
+    print(json.dumps({"user_model": line}))
+    if (line["fused_launches"] != 0 or line["k1_launches"] != line["sqp_iterations"]
+            or line["fused_supported"]):
+        _fail(f"a user's model must take the un-fused path, one K1 a SQP iteration: {line}")
+    if not passed:
+        _fail(f"K1-vs-plain gate failed on the user's model: {gate}")
+    return line
+
+
 def model_cases():
     """Phase 14's specs: the flagship with the front-wheel car and with the
     kinematic bicycle, and config #1 (no obstacle slot, point footprint,
@@ -1020,12 +1060,16 @@ def k2c_cases():
     with a varying vertex count, dynamic circle and line slots, all four
     families with the canonical two-disc footprint and dynamic obstacles,
     the kinematic bicycle with the two-disc footprint (8 circle slots,
-    ``random_ensemble``), and all four families moving with the JAX tests'
-    line footprint and with the polygon-footprint family's rectangle."""
+    ``random_ensemble``), all four families moving with the JAX tests'
+    line footprint, with the polygon-footprint family's rectangle and with
+    a polygon of 2 vertices (the segment walked out and back, which JAX
+    ``fused_supported`` takes), and the flagship with a user's subclass of
+    its disc footprint (``footprint_subclass_check``)."""
     from mpc_local_planner_tpu_torch.benchmarks import config3_carlike_min_time, family_spec
     from mpc_local_planner_tpu_torch.geometry.footprints import (
         CircularFootprint,
         LineFootprint,
+        PolygonFootprint,
     )
     from mpc_local_planner_tpu_torch.systems.models import KinematicBicycleModelVelocityInput
 
@@ -1047,7 +1091,43 @@ def k2c_cases():
                                               mp=1, mc=2, ml=2, mg=1, V=4)),
         ("polygon-footprint-mixed-dynamic", *car(family_spec("polygon_footprint").footprint,
                                                  True, mp=1, mc=2, ml=2, mg=1, V=4)),
+        ("polygon-footprint-2v", *car(PolygonFootprint(((-0.25, 0.0), (0.25, 0.0))), True,
+                                      mp=1, mc=2, ml=2, mg=1, V=4)),
+        ("footprint-subclass", dataclasses.replace(
+            config3_carlike_min_time(N=30, obstacle_cap=8),
+            footprint=user_subclass(CircularFootprint)(radius=0.2)), None),
     )
+
+
+def user_subclass(base):
+    """A user's frozen-dataclass subclass of ``base`` that adds a field and
+    changes nothing else."""
+    return dataclasses.dataclass(frozen=True)(type(
+        "User" + base.__name__, (base,), {"__annotations__": {"label": str}, "label": "user"}))
+
+
+def footprint_subclass_check(spec, warm, args32):
+    """``footprint-subclass``'s own check: the fused kernel takes a subclass
+    of a shipped footprint (JAX ``fused_supported`` tests it by
+    ``isinstance``) in one launch, on its base class's fields, so its
+    result equals the same launch with the base class bit for bit."""
+    import torch
+
+    from mpc_local_planner_tpu_torch.geometry.footprints import CircularFootprint
+    from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+
+    base = dataclasses.replace(spec, footprint=CircularFootprint(spec.footprint.radius))
+    reset_counts()
+    out = k2a.fused_solve_cuda(spec, warm, *args32)
+    launches = k2a.fused_solve_cuda.launches
+    out_base = k2a.fused_solve_cuda(base, warm, *args32)
+    torch.cuda.synchronize()
+    info = {"footprint": type(spec.footprint).__name__, "fused_launches": launches,
+            "bit_equal_to_base_class": _trees_equal(out, out_base),
+            "converged": int(torch.sum(out.converged))}
+    print(json.dumps({"footprint_subclass": info}))
+    if launches != 1 or not info["bit_equal_to_base_class"]:
+        _fail(f"the fused kernel on a footprint subclass: {info}")
 
 
 def family_case(name, save=None, batch=RESCUE_SLOTS):
@@ -1055,12 +1135,15 @@ def family_case(name, save=None, batch=RESCUE_SLOTS):
     version on ``family_state``'s warm inputs (at least a quarter of the
     lanes converged on both, or the case's ``CONVERGED_FLOOR``); with
     ``save``, the inputs and the float32 check's info go to that file for
-    ``last_phase`` to time."""
+    ``last_phase`` to time; ``footprint-subclass`` then runs
+    ``footprint_subclass_check``."""
     import torch
 
     spec, warm, args32 = family_state(name, batch)
     info = k2a_check(spec, warm, args32, f"{name} B={batch} {warm.n_al}x{warm.n_sqp}",
                      CONVERGED_FLOOR.get(name, 0.25))
+    if name == "footprint-subclass":
+        footprint_subclass_check(spec, warm, args32)
     if save is not None:
         torch.save({"args": args32, "info": info}, save)
 
@@ -1517,6 +1600,10 @@ def main():
     print(json.dumps({"trace": trace_phase(cycle, settled, extra["cycle_ms"])}))
     lap("4_6_unfused")
 
+    # ---- 49. a user's model through make_solver: the un-fused path, K1 ---- #
+    user = user_model_phase(spec, warm, settled)
+    lap("49_user_model")
+
     # ---- 7. K2a against its plain version --------------------------------- #
     checks = F64Checks()
     checks.add_oracle("unfused", spec, cold, final)
@@ -1723,7 +1810,8 @@ def main():
             row["launches_by_path"] = by_path
         return row
 
-    k1_by_path = {"unfused_main": launches, "controller_fleet": fleet["k1_launches"],
+    k1_by_path = {"unfused_main": launches, "user_model": user["k1_launches"],
+                  "controller_fleet": fleet["k1_launches"],
                   "controller_robot": robot["k1_launches"], "serving": serving["k1_launches"],
                   "shell": shell["k1_launches"],
                   **{p: n for line in (par, aux) for p, n in line["k1_launches_by_path"].items()}}

@@ -126,6 +126,14 @@ def random_ensemble(
     return Scenario(x0, xf, obstacles, via_points, via_mask, u_prev)
 
 
+# the families of bench.py's families mode, in its order; ``family_spec``
+# builds each
+FAMILY_NAMES = (
+    "flagship", "canonical_carlike", "converter_lines", "via_points",
+    "polygon_footprint", "nonuniform",
+)
+
+
 def family_spec(name: str, N: int = 30) -> OcpSpec:
     """Widened-family variants of the flagship car-like minimum-time config:
     ``canonical_carlike`` is the reference's own footprint (two_circles,

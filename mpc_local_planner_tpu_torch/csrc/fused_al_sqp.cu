@@ -334,8 +334,10 @@ struct K2aParams {
   // slots of V padded vertices (M = Mc + Ml + Mg, in that row order); the
   // footprint: fp_kind FP_DISCS as n_disc (1 or 2) discs on the body
   // x-axis, FP_LINE as the body-frame segment fp_v[0] -> fp_v[1] (fp_nv =
-  // 2), FP_POLYGON as the closed body-frame polygon fp_v[0 .. fp_nv - 1];
-  // dynamic: slots move at their velocities
+  // 2), FP_POLYGON as the closed body-frame polygon fp_v[0 .. fp_nv - 1]
+  // (1 to MAX_FP_V vertices, as JAX fused_supported: at 2 the segment walked
+  // out and back, whose two edges' crossings cancel, at 1 a point, its one
+  // edge of no length); dynamic: slots move at their velocities
   int Mc, Ml, Mg, V, n_disc, dynamic, fp_kind, fp_nv;
   double wheelbase, bike_a, bike_lr, disc_off[2], disc_r[2], fp_v[MAX_FP_V][2], min_dist;
   double lo_u[2], hi_u[2], lo_r[2], hi_r[2];  // rate limits sanitized to +-BIG
@@ -2669,7 +2671,7 @@ bool params_ok(const K2aParams* prm) {
       (prm->Mg > 0 && prm->V < 1) || prm->n_disc < 1 || prm->n_disc > 2 ||
       prm->fp_kind < FP_DISCS || prm->fp_kind > FP_POLYGON ||
       (prm->fp_kind == FP_LINE && prm->fp_nv != 2) ||
-      (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 3 || prm->fp_nv > MAX_FP_V)) ||
+      (prm->fp_kind == FP_POLYGON && (prm->fp_nv < 1 || prm->fp_nv > MAX_FP_V)) ||
       prm->nonu != K2A_NONU || (prm->nonu && !prm->variable_dt) || prm->model != K2A_MODEL ||
       (prm->quadratic ? OBJ_QUADRATIC : prm->mv > 0 ? OBJ_VIA : OBJ_MIN_TIME) != K2A_OBJ ||
       prm->colloc < RULE_FORWARD || prm->colloc > RULE_SHOOTING ||

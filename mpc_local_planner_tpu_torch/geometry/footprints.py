@@ -163,14 +163,21 @@ class PolygonFootprint:
     """Closed body-frame polygon (parity: PolygonRobotFootprint; vertices).
     The vertices are kept as a tuple of float pairs and cast to the pose's
     dtype. A slot point inside the polygon has a negative distance (the
-    even-odd rule of ``point_to_polygon_signed``)."""
+    even-odd rule of ``point_to_polygon_signed``). As in the JAX package, a
+    polygon of 2 vertices is its segment walked out and back (the distances
+    of ``LineFootprint`` on it: the two edges' crossings cancel, so no point
+    is inside) and a polygon of 1 vertex that point (its one edge has no
+    length)."""
 
     vertices: tuple  # ((x, y), ...) body frame, closed implicitly
 
     def __post_init__(self):
         verts = tuple(_point_pair(v, "a vertex") for v in self.vertices)
-        if len(verts) < 3:
-            raise ValueError(f"a polygon footprint needs 3 vertices or more, got {len(verts)}")
+        # no vertex, no edge: the JAX footprint takes it but computes no
+        # distance (its einsum refuses the empty vertex array), so neither
+        # does the port
+        if not verts:
+            raise ValueError("a polygon footprint needs 1 vertex or more, got 0")
         object.__setattr__(self, "vertices", verts)
 
     def distances(self, pose, obs: ObstacleSet):
@@ -203,16 +210,17 @@ class PolygonFootprint:
 def disc_footprint(footprint):
     """The footprint as discs on the body x-axis, ((offset, radius), ...):
     one for the point and the disc, two for the two-disc footprint (the
-    geometry the fused kernel takes)."""
+    geometry the fused kernel takes). A subclass is its base's discs, tested
+    in JAX ``_footprint_static``'s order (point, disc, two discs)."""
+    if isinstance(footprint, PointFootprint):
+        return ((0.0, 0.0),)
+    if isinstance(footprint, CircularFootprint):
+        return ((0.0, footprint.radius),)
     if isinstance(footprint, TwoCirclesFootprint):
         return (
             (footprint.front_offset, footprint.front_radius),
             (footprint.rear_offset, footprint.rear_radius),
         )
-    if isinstance(footprint, CircularFootprint):
-        return ((0.0, footprint.radius),)
-    if isinstance(footprint, PointFootprint):
-        return ((0.0, 0.0),)
     raise TypeError(f"{type(footprint).__name__} is not a disc-family footprint")
 
 

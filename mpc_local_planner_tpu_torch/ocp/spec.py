@@ -11,11 +11,18 @@ minimum time with via points (ordered or unordered, with an optional
 orientation weight) or the quadratic form (plain or integral, left-sum or
 trapezoidal, with the hybrid time weight), the terminal quadratic cost and
 the terminal ball, on a uniform grid with a fixed or variable dt or on the
-non-uniform grid of a per-stage dt. It raises ``ValueError`` for an unknown
-collocation rule, as the JAX spec does, and ``NotImplementedError`` naming
-the ROADMAP item for a model or footprint outside the port. A
-``hybrid_time_weight`` of 0 or below leaves the hybrid term out, as in the
-JAX package (every use gates on a weight above 0).
+non-uniform grid of a per-stage dt. It raises ``ValueError`` where the JAX
+spec does (an unknown collocation rule, objective or cost integration,
+``nonuniform_dt`` without ``variable_dt``) and checks neither the model nor
+the footprint, which are duck-typed as in the JAX package: the dynamics come
+from ``model.f`` under ``torch.func``, ``nu`` from ``model.control_dim``, the
+boxes from ``control_bounds`` / ``control_rate_bounds``, the distances from
+``footprint.distances``. So a user-defined model or footprint, a subclass of
+a shipped one included, solves on the un-fused path; which of them the fused
+kernel takes is ``ops.fused_al_sqp_cuda.fused_supported``'s (JAX
+``fused_supported``'s) scope. A ``hybrid_time_weight`` of 0 or below leaves
+the hybrid term out, as in the JAX package (every use gates on a weight
+above 0).
 """
 
 from __future__ import annotations
@@ -25,37 +32,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from mpc_local_planner_tpu_torch.geometry.footprints import FOOTPRINT_TYPES
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
-from mpc_local_planner_tpu_torch.systems.models import (
-    KinematicBicycleModelVelocityInput,
-    RobotLimits,
-    SimpleCarFrontWheelDrivingModel,
-    SimpleCarModel,
-    UnicycleModel,
-)
-
-MODELS = (
-    UnicycleModel,
-    SimpleCarModel,
-    SimpleCarFrontWheelDrivingModel,
-    KinematicBicycleModelVelocityInput,
-)
-
+from mpc_local_planner_tpu_torch.systems.models import RobotLimits
 
 OBJECTIVES = ("quadratic_form", "minimum_time", "minimum_time_via_points")
-
-
-def _not_ported(what: str, item: str = "M9"):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
 class OcpSpec:
     """Static problem definition; same fields and defaults as the JAX spec."""
 
-    model: object
-    footprint: object
+    model: object      # duck-typed: f, control_dim, control_bounds, control_rate_bounds
+    footprint: object  # duck-typed: distances
     N: int = 20
     collocation: str = "forward_differences"
     objective: str = "quadratic_form"
@@ -85,10 +73,6 @@ class OcpSpec:
     def __post_init__(self):
         if self.nonuniform_dt and not self.variable_dt:
             raise ValueError("nonuniform_dt requires variable_dt")
-        if type(self.model) not in MODELS:
-            _not_ported(f"model {type(self.model).__name__}")
-        if type(self.footprint) not in FOOTPRINT_TYPES.values():
-            _not_ported(f"footprint {type(self.footprint).__name__}")
         if self.collocation not in (
             "forward_differences",
             "midpoint_differences",

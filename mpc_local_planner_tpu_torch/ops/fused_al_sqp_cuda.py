@@ -4,14 +4,17 @@ hand-written CUDA kernel, with its plain PyTorch version.
 Replaces the TPU kernel
 ``mpc_local_planner_tpu/ops/fused_al_sqp_pallas.py :: _fused_kernel``
 (launched by ``fused_solve``) on the scope of JAX ``fused_supported``: the
-unicycle, both Ackermann cars and the kinematic bicycle (template parameter
-of the kernel), forward, midpoint or Crank–Nicolson differences (the
+unicycle, both Ackermann cars and the kinematic bicycle by their exact type
+(template parameter of the kernel; a subclass or any other model solves on
+the un-fused path), forward, midpoint or Crank–Nicolson differences (the
 latter two with the −E⁻¹ fold in closed form, K2b) or a shooting grid of a
 tableau of at most 11 stages, 4 substeps and 28 stages × substeps (K2e; a
 template parameter tells forward differences from the other rules, which
 the kernel reads at run time with the tableau), a
 point, disc, two-disc, line or
-polygon footprint (at most 8 vertices), point, circle, line and polygon
+polygon footprint (1 to 8 vertices), or a subclass of one, on its base
+class's fields (an overridden ``distances`` is ignored, as the TPU kernel
+ignores it), point, circle, line and polygon
 obstacle slots, static or dynamic (runtime values of the launch; the kernel
 compiles them away for a launch with one disc at the pose and static point
 and circle slots, and has instantiations of its own for a segment or a
@@ -97,7 +100,6 @@ from mpc_local_planner_tpu_torch.numerics.integrators import RK_TABLEAUS
 from mpc_local_planner_tpu_torch.ocp.collocation import SHOOTING_PREFIX, _parse_shooting
 from mpc_local_planner_tpu_torch.ocp.grid import Primal
 from mpc_local_planner_tpu_torch.ocp.problem import OcpFunctions
-from mpc_local_planner_tpu_torch.ocp.spec import MODELS
 from mpc_local_planner_tpu_torch.ops import nvcc_build
 from mpc_local_planner_tpu_torch.solvers.al_sqp import (
     DualState,
@@ -143,7 +145,10 @@ _libs = {}  # the loaded library of each ``Group``
 # --------------------------------------------------------------------------- #
 # scope
 # --------------------------------------------------------------------------- #
-# the kernel's model template parameter (csrc/fused_al_sqp.cu ModelId)
+# the kernel's model template parameter (csrc/fused_al_sqp.cu ModelId). The
+# kernel takes these models by their exact type, as JAX ``fused_supported``
+# does: a subclass may override ``f``, which the closed forms would not follow,
+# so it solves on the un-fused path
 MODEL_IDS = {
     UnicycleModel: 0,
     SimpleCarModel: 1,
@@ -152,22 +157,40 @@ MODEL_IDS = {
 }
 
 
-# the kernel's footprint kinds (csrc/fused_al_sqp.cu FootprintKind)
-FOOTPRINT_KINDS = {
-    PointFootprint: 0, CircularFootprint: 0, TwoCirclesFootprint: 0,
-    LineFootprint: 1, PolygonFootprint: 2,
-}
+# the kernel's footprint kinds (csrc/fused_al_sqp.cu FootprintKind), each
+# class tested by isinstance in JAX ``_footprint_static``'s order
+FP_DISCS, FP_LINE, FP_POLYGON = 0, 1, 2
+_FOOTPRINT_KINDS = (
+    (PointFootprint, FP_DISCS), (CircularFootprint, FP_DISCS),
+    (TwoCirclesFootprint, FP_DISCS), (LineFootprint, FP_LINE), (PolygonFootprint, FP_POLYGON),
+)
+
+
+def footprint_kind(fp):
+    """The kernel's kind of footprint ``fp``, None outside its scope. A
+    subclass of a shipped footprint is its base's kind, as in JAX
+    ``fused_supported``: the kernel runs on the base class's fields (the
+    discs, the segment's ends, the vertices) and ignores an overridden
+    ``distances``, as the TPU kernel does."""
+    for cls, kind in _FOOTPRINT_KINDS:
+        if isinstance(fp, cls):
+            return kind
+    return None
 
 
 def _spec_scope_error(spec):
     """Why the kernel cannot run ``spec`` (None when it can): what the TPU
-    kernel does not take either (JAX ``fused_supported``)."""
-    if type(spec.model) not in MODELS:
+    kernel does not take either (JAX ``fused_supported``): a model whose type
+    is not exactly one of ``MODEL_IDS``, a footprint that is no instance of
+    a shipped one, a polygon footprint of more than MAX_FP_V vertices, a
+    shooting grid past the tableau's bounds, more than MAX_VIA via points."""
+    if type(spec.model) not in MODEL_IDS or spec.nu != 2:
         return f"model {type(spec.model).__name__}"
     fp = spec.footprint
-    if type(fp) not in FOOTPRINT_KINDS:
+    kind = footprint_kind(fp)
+    if kind is None:
         return f"footprint {type(fp).__name__}"
-    if isinstance(fp, PolygonFootprint) and len(fp.vertices) > MAX_FP_V:
+    if kind == FP_POLYGON and len(fp.vertices) > MAX_FP_V:
         return f"a polygon footprint of {len(fp.vertices)} vertices (at most {MAX_FP_V})"
     if spec.collocation.startswith(SHOOTING_PREFIX):
         integ, substeps = _parse_shooting(spec.collocation)
@@ -197,7 +220,8 @@ def fused_obstacles_supported(scenario) -> bool:
 # --------------------------------------------------------------------------- #
 def dyn(spec, x, u):
     """The model's f(x, u) (..., 3), the θ column of Jx (..., 2; the other
-    columns are zero for every model) and Ju (..., 3, 2), in closed form."""
+    columns are zero for every model) and Ju (..., 3, 2), in closed form, for
+    the four models of ``MODEL_IDS`` by exact type; any other model raises."""
     model = spec.model
     th, v, w = x[..., 2], u[..., 0], u[..., 1]
     zero = torch.zeros_like(v)
@@ -220,7 +244,8 @@ def dyn(spec, x, u):
         f = [vl * c, vl * s, v * sp / wb]
         jx = [-vl * s, vl * c]
         ju = [[cp * c, -v * sp * c], [cp * s, -v * sp * s], [sp / wb, v * cp / wb]]
-    else:  # kinematic bicycle: beta = atan(a tan δ), a = lr / (lf + lr)
+    elif type(model) is KinematicBicycleModelVelocityInput:
+        # beta = atan(a tan δ), a = lr / (lf + lr)
         a, lr = _bicycle_a(model), model.lr
         t = torch.tan(w)
         at = a * t
@@ -231,6 +256,10 @@ def dyn(spec, x, u):
         f = [v * cb, v * sb, v * sbe / lr]
         jx = [-v * sb, v * cb]
         ju = [[cb, -v * sb * dbeta], [sb, v * cb * dbeta], [sbe / lr, v * cbe * dbeta / lr]]
+    else:
+        raise NotImplementedError(
+            f"the fused kernel has no closed form of model {type(model).__name__} "
+            "(JAX fused_supported)")
     ju = torch.stack([torch.stack(row, dim=-1) for row in ju], dim=-2)
     return torch.stack(f, dim=-1), torch.stack(jx, dim=-1), ju
 
@@ -1120,10 +1149,10 @@ def _params(spec, settings, obstacles) -> _Params:
     bicycle = type(model) is KinematicBicycleModelVelocityInput
     dt_lo, dt_hi = dt_clip(spec)
     fp = spec.footprint
-    kind = FOOTPRINT_KINDS[type(fp)]
-    discs = disc_footprint(fp) if kind == 0 else ((0.0, 0.0),)
+    kind = footprint_kind(fp)
+    discs = disc_footprint(fp) if kind == FP_DISCS else ((0.0, 0.0),)
     pad = list(discs) + [(0.0, 0.0)] * (2 - len(discs))
-    points = {1: lambda: (fp.line_start, fp.line_end), 2: lambda: fp.vertices}.get(
+    points = {FP_LINE: lambda: (fp.line_start, fp.line_end), FP_POLYGON: lambda: fp.vertices}.get(
         kind, lambda: ())()
     fp_v = [c for v in points for c in v]
     o = obstacles
@@ -1180,9 +1209,9 @@ def launched_geo(params: _Params) -> int:
     and circle slots or with every family, one disc at the pose with static
     point and circle slots, or the disc geometry read at run time."""
     plain = params.Ml == 0 and params.Mg == 0 and params.dynamic == 0
-    if params.fp_kind == 1:
+    if params.fp_kind == FP_LINE:
         return GEO_FP_LINE | GEO_SLOTS
-    if params.fp_kind == 2:
+    if params.fp_kind == FP_POLYGON:
         return GEO_FP_POLYGON if plain else GEO_FP_POLYGON | GEO_SLOTS
     if plain and params.n_disc == 1 and params.disc_off[0] == 0.0:
         return GEO_NONE
@@ -1496,7 +1525,7 @@ def step_structure(spec) -> dict:
     integ = "v" if quad and spec.integral_form else "0"
     obs = "v" if spec.obstacle_cap else "0"
     rot = spec.obstacle_cap and (
-        FOOTPRINT_KINDS[type(spec.footprint)] != 0
+        footprint_kind(spec.footprint) != FP_DISCS
         or any(off != 0.0 for off, _ in disc_footprint(spec.footprint)))
     o_th = "v" if rot else "0"
     via = has_via(spec)
@@ -1708,7 +1737,7 @@ def _geometry_flops(spec, obstacles):
         edges = float(o.polygon_nv.double().sum(dim=-1).mean()) if mg else 0.0
     m = mc + ml + mg
     dynamic = (4 * mc + 6 * ml + 2 * mg + 2 * edges + 1) * spec.enable_dynamic_obstacles
-    if FOOTPRINT_KINDS[type(spec.footprint)] != 0:
+    if footprint_kind(spec.footprint) != FP_DISCS:
         value, grad = _footprint_flops(spec.footprint, mc, ml, mg, edges)
         return value + m + dynamic, value + m + dynamic + grad, 27
     discs = disc_footprint(spec.footprint)

@@ -32,6 +32,7 @@ from mpc_local_planner_tpu import benchmarks as jb
 from mpc_local_planner_tpu.geometry import distances as jd
 from mpc_local_planner_tpu.geometry import footprints as jfp
 from mpc_local_planner_tpu.ocp import constraints as jC
+from mpc_local_planner_tpu.ops.fused_al_sqp_pallas import fused_supported as j_fused_supported
 
 from mpc_local_planner_tpu_torch import benchmarks as tb
 from mpc_local_planner_tpu_torch import convert
@@ -273,9 +274,12 @@ def test_torch_footprint_factory_and_scope():
     )
     assert k2a.fused_supported(spec)
     assert tfp.disc_footprint(spec.footprint) == ((0.15, 0.2), (-0.15, 0.2))
-    with pytest.raises(NotImplementedError, match="footprint object is not ported yet "
-                                                  r"\(ROADMAP M9\)"):
-        dataclasses.replace(spec, footprint=object())
+    # a footprint of no shipped class: the JAX spec admits it and JAX
+    # fused_supported refuses it, and so does the port
+    jother = dataclasses.replace(jb.config3_carlike_min_time(N=N, obstacle_cap=4),
+                                 footprint=object())
+    other = dataclasses.replace(spec, footprint=object())
+    assert k2a.fused_supported(other) is j_fused_supported(jother) is False
 
 
 @pytest.mark.parametrize("kind", ["circular", "canonical"])

@@ -149,20 +149,48 @@ def test_torch_simple_car_dynamics_bounds_and_linearization():
     assert (tspec.nx, tspec.nu, tspec.min_time) == (jspec.nx, jspec.nu, jspec.min_time)
 
 
+@dataclasses.dataclass(frozen=True)
+class _JUserCar(JSimpleCar):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class _TUserCar(TSimpleCar):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class _JUserDisc(j_fp.CircularFootprint):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class _TUserDisc(t_fp.CircularFootprint):
+    pass
+
+
 @pytest.mark.parametrize(
     "override",
     [
-        dict(model=object()),
-        dict(footprint=object()),
+        dict(model=(_JUserCar(0.5), _TUserCar(0.5))),
+        dict(footprint=(_JUserDisc(0.2), _TUserDisc(0.2))),
     ],
 )
 def test_torch_spec_refuses_families_outside_the_slice(override):
-    kw = dataclasses.asdict(t_config3(N=N, obstacle_cap=M))
-    kw.update(model=TSimpleCar(0.5), footprint=t_fp.CircularFootprint(0.2))
-    kw["limits"] = t_config3().limits
-    kw.update(override)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        TOcpSpec(**kw)
+    """No family lies outside the port's spec any more: like the JAX spec it
+    admits a user-defined model or footprint (here a subclass of a shipped
+    one) and derives nx, nu, min_time and the boxes from it as JAX does."""
+    (field, (jobj, tobj)), = override.items()
+    jspec = dataclasses.replace(j_config3(N=N, obstacle_cap=M), **{field: jobj})
+    tspec = dataclasses.replace(t_config3(N=N, obstacle_cap=M), **{field: tobj})
+    assert getattr(tspec, field) is tobj
+    assert (tspec.nx, tspec.nu, tspec.min_time) == (jspec.nx, jspec.nu, jspec.min_time)
+    for t_box, j_box in (
+        (tspec.control_box(), jspec.control_box()),
+        (tspec.control_rate_box(), jspec.control_rate_box()),
+    ):
+        for tb_, jb_ in zip(t_box, j_box):
+            np.testing.assert_array_equal(tb_.numpy(), np.asarray(jb_))
 
 
 # --------------------------------------------------------------------------- #

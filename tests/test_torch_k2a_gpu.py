@@ -7,7 +7,10 @@ car-like config (two discs), the wall world (line slots), polygon slots
 with a varying vertex count, dynamic line slots, all four slot families with
 two discs and dynamic obstacles, the bicycle with two discs, the
 polygon-footprint family, and all four slot families moving with a line
-footprint and with a polygon footprint; via points (K2d: the via-points
+footprint, with a polygon footprint and with polygons of 2 and 1
+vertices; the routing of user types (a subclass of a model takes the
+un-fused path, a subclass of a footprint one launch, bit-equal to its base
+class's); via points (K2d: the via-points
 family, path D, and ordered via points with an orientation weight and
 masked slots), what the kernel once refused: 30 obstacle slots (the
 example configs' capacity), 17 line-search candidates and N = 80, and the
@@ -69,15 +72,18 @@ from mpc_local_planner_tpu_torch.geometry.footprints import (
     CircularFootprint,
     LineFootprint,
     PointFootprint,
+    PolygonFootprint,
     TwoCirclesFootprint,
 )
 from mpc_local_planner_tpu_torch.ocp.grid import warm_start_resample
 from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
+from mpc_local_planner_tpu_torch.ops import riccati_cuda
 from mpc_local_planner_tpu_torch.planner.cycle import make_fleet_cycle
 from mpc_local_planner_tpu_torch.solvers import agreement, al_sqp
 from mpc_local_planner_tpu_torch.systems.models import (
     KinematicBicycleModelVelocityInput,
     SimpleCarFrontWheelDrivingModel,
+    SimpleCarModel,
 )
 
 WARM = dict(
@@ -129,6 +135,14 @@ K2C = {
     ),
     "polygon-footprint-mixed-dynamic": lambda: _k2c_spec(
         family_spec("polygon_footprint").footprint, True, mp=1, mc=2, ml=2, mg=1, V=4
+    ),
+    # polygon footprints of 2 and 1 vertices, which JAX fused_supported takes:
+    # the segment walked out and back, a point off the pose
+    "polygon-footprint-2v": lambda: _k2c_spec(
+        PolygonFootprint(((-0.25, 0.0), (0.25, 0.0))), True, mp=1, mc=2, ml=2, mg=1, V=4
+    ),
+    "polygon-footprint-1v": lambda: _k2c_spec(
+        PolygonFootprint(((0.1, -0.05),)), True, mp=1, mc=2, ml=2, mg=1, V=4
     ),
 }
 
@@ -350,6 +364,47 @@ def test_torch_make_solver_launches_the_kernel_for_the_polygon_footprint():
     out = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
     assert k2a.fused_solve_cuda.launches == before + 1
     assert out.duals.mu_obs.shape == (64, 30, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class _UserCar(SimpleCarModel):
+    label: str = "user"
+
+
+@dataclasses.dataclass(frozen=True)
+class _UserDisc(CircularFootprint):
+    label: str = "user"
+
+
+@pytest.mark.gpu
+def test_torch_make_solver_routes_user_types_as_jax_fused_supported():
+    """A subclass of the simple car takes the un-fused path (JAX
+    ``fused_supported`` takes a model by its exact type): no fused launch,
+    one K1 launch per SQP iteration. A subclass of the disc footprint takes
+    the kernel (``isinstance``) in one launch, bit-equal to the base
+    class's."""
+    dev = _card()
+    spec, st, scen, init, duals = _warm_state(dev, torch.float32, WARM, batch=64)
+    user_model = dataclasses.replace(spec, model=_UserCar(wheelbase=0.5))
+    fused, k1 = k2a.fused_solve_cuda.launches, riccati_cuda.lqr_solve_cuda.launches
+    al_sqp.make_solver(user_model, st, dev)(scen, init, duals)
+    torch.cuda.synchronize()
+    assert k2a.fused_solve_cuda.launches == fused
+    assert riccati_cuda.lqr_solve_cuda.launches == k1 + st.n_al * st.n_sqp
+    user_disc = dataclasses.replace(spec, footprint=_UserDisc(radius=0.2))
+    out = al_sqp.make_solver(user_disc, st, dev)(scen, init, duals)
+    assert k2a.fused_solve_cuda.launches == fused + 1
+    base = al_sqp.make_solver(spec, st, dev)(scen, init, duals)
+    for a, b in zip(_leaves(out), _leaves(base)):
+        assert torch.equal(a, b)
+
+
+def _leaves(tree):
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 @pytest.mark.gpu
