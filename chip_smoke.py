@@ -998,7 +998,10 @@ def user_model_phase(spec, warm, settled, n=GATE_LANES):
     with ``fused="auto"``. The fused kernel takes a model by its exact type
     (JAX ``fused_supported``: a subclass may change ``f``), so the solve runs
     the un-fused path: no fused launch and one K1 launch per SQP iteration;
-    then the K1-vs-plain gate on it. Returns the phase's line."""
+    then the K1-vs-plain gate on it. The model's members from
+    ``BaseRobotSE2``: ``continuous_time`` and ``equilibrium_control()``,
+    which with no device given must give zeros on the card. Returns the
+    phase's line."""
     import torch
 
     from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
@@ -1020,6 +1023,10 @@ def user_model_phase(spec, warm, settled, n=GATE_LANES):
             "k1_launches": riccati_cuda.lqr_solve_cuda.launches,
             "sqp_iterations": warm.n_al * warm.n_sqp,
             "converged": int(torch.sum(out.converged))}
+    u_eq = uspec.model.equilibrium_control()
+    line.update(continuous_time=uspec.model.continuous_time,
+                equilibrium_control=dict(device=u_eq.device.type, shape=list(u_eq.shape),
+                                         zeros=bool(torch.all(u_eq == 0))))
     gate, passed = gate_phase(uspec, dataclasses.replace(warm_f, kkt="scan"), warm_f, settled, n)
     line.update(k1_vs_plain_gate=gate, passed=passed, seconds=time.perf_counter() - t0)
     print(json.dumps({"user_model": line}))
@@ -1028,6 +1035,9 @@ def user_model_phase(spec, warm, settled, n=GATE_LANES):
         _fail(f"a user's model must take the un-fused path, one K1 a SQP iteration: {line}")
     if not passed:
         _fail(f"K1-vs-plain gate failed on the user's model: {gate}")
+    if line["continuous_time"] is not True or line["equilibrium_control"] != dict(
+            device="cuda", shape=[uspec.model.control_dim], zeros=True):
+        _fail(f"the user's model lacks BaseRobotSE2's members on the card: {line}")
     return line
 
 

@@ -38,6 +38,11 @@ class Primal:
     def n_stages(self) -> int:
         return self.us.shape[-2]
 
+    def batch_shape(self):
+        """The shape of ``dt``: the batch shape, and N after it on the
+        non-uniform grid."""
+        return tuple(self.dt.shape)
+
 
 def _set_first_state(xs, x0):
     return torch.cat([x0[..., None, :], xs[..., 1:, :]], dim=-2)

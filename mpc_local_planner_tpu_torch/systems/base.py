@@ -8,11 +8,14 @@ from __future__ import annotations
 
 import torch
 
+from mpc_local_planner_tpu_torch.device import resolve_device
+
 
 class BaseRobotSE2:
     """Mixin for SE(2) models: state x = (px, py, theta) IS the pose."""
 
     state_dim: int = 3
+    continuous_time: bool = True
 
     # --- pose/state conversions (trivial for SE(2) state = pose) ---
     def position_from_state(self, x):
@@ -40,3 +43,13 @@ class BaseRobotSE2:
     def linearize(self, x, u):
         """(A, B) of the continuous-time dynamics at (x, u); single sample."""
         return self.jac_x(x, u), self.jac_u(x, u)
+
+    # --- control bounds hook: models expose their natural input box ---
+    def control_bounds(self, limits):
+        """Map a RobotLimits config to (u_min, u_max) tensors of control_dim."""
+        raise NotImplementedError
+
+    def equilibrium_control(self, device=None):
+        """Control that holds a steady state (zeros for kinematic models), on
+        ``device`` (``None``: the CUDA card), in torch's default dtype."""
+        return torch.zeros((self.control_dim,), device=resolve_device(device))

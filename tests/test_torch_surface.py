@@ -2,7 +2,8 @@
 beside its solvers (CPU).
 
 - Every name that a JAX package ``__init__.py`` imports or lists in
-  ``__all__`` (read by AST, without importing JAX's package) imports from
+  ``__all__`` (read by AST through ``test_torch_surface_members.JAX``,
+  without importing JAX's package) imports from
   the port's counterpart, and the port's ``__all__`` lists JAX's.
 - Each subpackage of the port imports first and alone, with JAX blocked and
   no process started (no kernel build at import time).
@@ -17,7 +18,6 @@ beside its solvers (CPU).
   relative.
 """
 
-import ast
 import dataclasses
 import importlib
 import subprocess
@@ -44,23 +44,10 @@ from mpc_local_planner_tpu_torch.ocp.spec import Scenario as TScenario
 from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda, riccati_cuda
 from mpc_local_planner_tpu_torch.ops import smallmat as t_sm
 from mpc_local_planner_tpu_torch.solvers import al_sqp as t_al
+from test_torch_surface_members import JAX, JAX_MODULES
 
 ROOT = Path(__file__).resolve().parent.parent
-JAX_PACKAGE = ROOT / "mpc_local_planner_tpu"
-INITS = sorted(p.relative_to(JAX_PACKAGE).as_posix()
-               for p in JAX_PACKAGE.glob("**/__init__.py"))
-
-
-def _surface(path: Path):
-    """(names a package ``__init__.py`` imports, its ``__all__`` or None)."""
-    names, listed = set(), None
-    for node in ast.parse(path.read_text()).body:
-        if isinstance(node, (ast.Import, ast.ImportFrom)):
-            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
-        elif isinstance(node, ast.Assign) and any(
-                getattr(t, "id", None) == "__all__" for t in node.targets):
-            listed = list(ast.literal_eval(node.value))
-    return names - {"annotations"}, listed
+INITS = [m for m in JAX_MODULES if m.endswith("__init__.py")]
 
 
 def _port_module(init: str) -> str:
@@ -70,7 +57,7 @@ def _port_module(init: str) -> str:
 
 @pytest.mark.parametrize("init", INITS)
 def test_torch_package_exports_the_jax_surface(init):
-    names, listed = _surface(JAX_PACKAGE / init)
+    names, listed = JAX.exports(init)
     module = importlib.import_module(_port_module(init))
     assert sorted(n for n in names | set(listed or ()) if not hasattr(module, n)) == []
     if listed is not None:

@@ -35,7 +35,15 @@ port does the same:
   ``fused_supported`` equals JAX's on every case, an admitted spec builds
   the kernel's parameters with JAX ``_footprint_static``'s geometry, a
   refused one is refused by the plain version too;
-- ``benchmarks.FAMILY_NAMES`` equals JAX's, and ``family_spec`` builds each.
+- ``benchmarks.FAMILY_NAMES`` equals JAX's, and ``family_spec`` builds each;
+- the members a user's model inherits from ``BaseRobotSE2``: each model of
+  the grid has JAX's ``continuous_time`` and ``equilibrium_control()`` zeros
+  of ``(control_dim,)`` (in torch's default dtype, float32 unless
+  ``torch.set_default_dtype`` says otherwise, as JAX's follows x64; JAX's
+  dtype is not compared, as this suite turns on x64), a ``BaseRobotSE2`` subclass without
+  ``control_bounds`` makes ``OcpSpec.control_box()`` raise
+  ``NotImplementedError`` in both packages, and ``Primal.batch_shape()``
+  equals JAX's on both grids at the batch shapes (), (4,) and (2, 3).
 """
 
 import dataclasses
@@ -49,7 +57,9 @@ import torch
 
 from mpc_local_planner_tpu import benchmarks as jb
 from mpc_local_planner_tpu.geometry import footprints as jfp
+from mpc_local_planner_tpu.ocp.grid import Primal as JPrimal
 from mpc_local_planner_tpu.ocp.grid import initial_primal as j_initial_primal
+from mpc_local_planner_tpu.ocp.spec import OcpSpec as JOcpSpec
 from mpc_local_planner_tpu.ops import fused_al_sqp_pallas as j_fused
 from mpc_local_planner_tpu.solvers import al_sqp as j_al
 from mpc_local_planner_tpu.systems import base as j_base
@@ -63,6 +73,7 @@ from mpc_local_planner_tpu_torch import benchmarks as tb
 from mpc_local_planner_tpu_torch import convert
 from mpc_local_planner_tpu_torch.geometry import footprints as tfp
 from mpc_local_planner_tpu_torch.geometry.obstacles import ObstacleSet
+from mpc_local_planner_tpu_torch.ocp.grid import Primal as TPrimal
 from mpc_local_planner_tpu_torch.ocp.spec import OcpSpec
 from mpc_local_planner_tpu_torch.ops import fused_al_sqp_cuda as k2a
 from mpc_local_planner_tpu_torch.ops import riccati_cuda
@@ -405,3 +416,71 @@ def test_torch_family_names_match_jax():
         for field in ("N", "objective", "obstacle_cap", "via_cap", "nonuniform_dt"):
             assert getattr(tspec, field) == getattr(jspec, field), (name, field)
         assert type(tspec.footprint).__name__ == type(jspec.footprint).__name__
+
+
+# --------------------------------------------------------------------------- #
+# the members of BaseRobotSE2 and Primal
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("model", [name for name, _, _ in _models()])
+def test_torch_model_base_members_match_jax(model):
+    _, jmodel, tmodel = {m[0]: m for m in _models()}[model]
+    assert tmodel.continuous_time is True and jmodel.continuous_time is True
+    j = np.asarray(jmodel.equilibrium_control())
+    t = tmodel.equilibrium_control(device="cpu")
+    assert t.dtype == torch.float32 and t.device == torch.device("cpu")
+    assert tuple(t.shape) == j.shape == (tmodel.control_dim,)
+    np.testing.assert_array_equal(t.numpy(), j)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)  # torch's counterpart of JAX's x64 switch
+    try:
+        assert tmodel.equilibrium_control(device="cpu").dtype == torch.float64
+    finally:
+        torch.set_default_dtype(default)
+    if torch.cuda.is_available():
+        assert tmodel.equilibrium_control().device.type == "cuda"
+    else:  # None is the card, as at every entry point
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmodel.equilibrium_control()
+
+
+@dataclasses.dataclass(frozen=True)
+class JNoBounds(j_base.BaseRobotSE2):
+    """A unicycle written on the base class that leaves out ``control_bounds``."""
+
+    control_dim = 2
+
+    def f(self, x, u):
+        th = x[..., 2]
+        return jnp.stack([u[..., 0] * jnp.cos(th), u[..., 0] * jnp.sin(th), u[..., 1]], axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TNoBounds(t_base.BaseRobotSE2):
+    control_dim = 2
+
+    def f(self, x, u):
+        th = x[..., 2]
+        return torch.stack([u[..., 0] * torch.cos(th), u[..., 0] * torch.sin(th), u[..., 1]],
+                           dim=-1)
+
+
+def test_torch_base_model_without_control_bounds_raises_as_jax():
+    """The hook raises in both packages, reached through the spec."""
+    for spec in (JOcpSpec(model=JNoBounds(), footprint=jfp.PointFootprint()),
+                 OcpSpec(model=TNoBounds(), footprint=tfp.PointFootprint())):
+        with pytest.raises(NotImplementedError):
+            spec.control_box()
+        assert spec.model.continuous_time is True
+
+
+@pytest.mark.parametrize("per_stage", [False, True], ids=["uniform", "nonuniform"])
+@pytest.mark.parametrize("batch", [(), (4,), (2, 3)], ids=str)
+def test_torch_primal_batch_shape_matches_jax(batch, per_stage):
+    n = 8
+    rng = np.random.default_rng(len(batch))
+    xs, us = rng.standard_normal(batch + (n + 1, 3)), rng.standard_normal(batch + (n, 2))
+    dt = rng.uniform(0.1, 0.4, batch + ((n,) if per_stage else ()))
+    j = JPrimal(jnp.asarray(xs), jnp.asarray(us), jnp.asarray(dt)).batch_shape()
+    t = TPrimal(torch.from_numpy(xs), torch.from_numpy(us), torch.from_numpy(dt)).batch_shape()
+    assert t == tuple(j) == batch + ((n,) if per_stage else ())
+    assert isinstance(t, tuple)
